@@ -1,0 +1,41 @@
+"""Registry of the port's model configurations (public-literature sources
+inline in each config module)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+from repro_torch.models.config import ModelConfig
+
+ARCHS: Dict[str, ModelConfig] = {}
+
+
+def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
+    """Reduced same-family config for CPU tests: 2 layers, d_model 64, 4
+    heads over 2 KV heads of 16, d_ff 128, vocab 97, float32 — the
+    reference's reduction of a dense attention model."""
+    changes: dict = dict(n_layers=2, d_model=64, vocab=97,
+                         param_dtype="float32", compute_dtype="float32")
+    if cfg.n_heads:
+        changes.update(n_heads=4,
+                       n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads else 4,
+                       head_dim=16)
+    if cfg.d_ff:
+        changes["d_ff"] = 128
+    return dataclasses.replace(cfg, **changes)
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    ARCHS[cfg.name] = cfg
+    return cfg
+
+
+def get(name: str) -> ModelConfig:
+    return ARCHS[name]
+
+
+def _load_all() -> None:
+    from repro_torch.configs import qwen3_8b  # noqa: F401
+
+
+_load_all()

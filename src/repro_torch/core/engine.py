@@ -1,0 +1,351 @@
+"""Unified Distributed-Arithmetic execution engine (backend registry + dispatch).
+
+One entry point per level::
+
+    y = da_matmul(x, packed)          # float in → float out
+    acc = da_vmm(xq, packed)          # integer codes → exact int32
+
+``PackedWeights`` is the frozen-weight artifact (int8 codes + per-column
+scale), built once by :func:`pack_weights`.  The storage-free backends carry
+the reference's names so a plan written for it resolves here:
+
+===================  ====================================================
+``bitplane``         Σ_b 2^b · (xbit_b @ W), serial planes (plain torch)
+``bitplane_stacked`` planes stacked on a leading axis: one product (plain)
+``pallas_bitplane``  the hand-written bit-plane kernel on CUDA
+                     (``kernels/csrc/bitplane_vmm.cu``); its plain version
+                     on the CPU
+===================  ====================================================
+
+``"auto"`` resolves by device: ``pallas_bitplane`` on CUDA,
+``bitplane_stacked`` on the CPU (the measured cost table arrives later).
+The LUT backends arrive with the LUT slice.
+
+The paged-attention read has its own registry: ``gather`` (page-table gather
++ masked softmax in plain torch) and ``fused`` (the CUDA page-walk kernel,
+``kernels/csrc/paged_attention.cu``; its plain version on the CPU).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+
+from repro_torch.core.da import (
+    DAConfig,
+    da_vmm_bitplane,
+    da_vmm_bitplane_stacked,
+)
+from repro_torch.core.quant import quantize_acts_signed, quantize_weights
+
+# ---------------------------------------------------------------------------
+# PackedWeights
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedWeights:
+    """Frozen DA linear weights: the PMA contents for one weight matrix.
+
+    wq:      [K, N] int8 codes (rows may be strided: q/k/v codes of one layer
+             share a buffer so the fused projection reads them in one pass).
+    w_scale: [1, N] per-output-column float32 scale.
+    luts:    weight-sum tables, or None (no LUT backend is ported yet).
+    cfg:     DAConfig the artifact was packed under.
+    mode:    default execution mode for ``packed(x)``.
+    """
+
+    wq: torch.Tensor
+    w_scale: torch.Tensor
+    luts: Optional[torch.Tensor]
+    cfg: DAConfig
+    mode: str = "auto"
+
+    @property
+    def k(self) -> int:
+        return self.wq.shape[-2]
+
+    @property
+    def n(self) -> int:
+        return self.wq.shape[-1]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return da_matmul(x, self)
+
+
+def pack_weights(w: torch.Tensor, cfg: DAConfig = DAConfig(x_signed=True),
+                 mode: str = "auto") -> PackedWeights:
+    """Pre-VMM procedure (§III-A): quantize once, 'write the PMAs'.
+
+    2-D float weights [K, N] → per-column int8 codes and float32 scales.
+    """
+    mode = canonical_mode(mode)
+    if mode != "auto":
+        get_backend(mode)  # unknown / not-yet-ported modes fail here
+    if w.ndim != 2:
+        raise NotImplementedError(
+            f"pack_weights: {w.ndim}-D weights (stacked experts) arrive with "
+            "the MoE slice")
+    q = quantize_weights(w, bits=8, axis=0)
+    return PackedWeights(wq=q.q.to(torch.int8), w_scale=q.scale, luts=None,
+                         cfg=cfg, mode=mode)
+
+
+# ---------------------------------------------------------------------------
+# Backend registry
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BackendSpec:
+    """One DA execution mode: ``fn(xq int32 [M,K], packed, cfg) → int32
+    [M,N] == xq @ wq``."""
+
+    name: str
+    fn: Callable[[torch.Tensor, PackedWeights, DAConfig], torch.Tensor]
+    description: str = ""
+
+
+_REGISTRY: Dict[str, BackendSpec] = {}
+
+#: Legacy / call-site spellings → canonical registry names.
+MODE_ALIASES = {
+    "da_bitplane": "bitplane",
+    "da_bitplane_stacked": "bitplane_stacked",
+    "stacked": "bitplane_stacked",
+}
+
+#: Reference backends that arrive with later slices.
+_NOT_YET = {"lut", "onehot", "pallas_lut", "int8", "da_lut", "da_onehot",
+            "pallas"}
+
+
+def canonical_mode(mode: str) -> str:
+    return MODE_ALIASES.get(mode, mode)
+
+
+def register_backend(name: str, description: str = ""):
+    def deco(fn):
+        if name in _REGISTRY:
+            raise ValueError(f"backend {name!r} already registered")
+        _REGISTRY[name] = BackendSpec(name=name, fn=fn, description=description)
+        return fn
+
+    return deco
+
+
+def registered_backends() -> Dict[str, BackendSpec]:
+    return dict(_REGISTRY)
+
+
+def get_backend(mode: str) -> BackendSpec:
+    name = canonical_mode(mode)
+    if name in _REGISTRY:
+        return _REGISTRY[name]
+    if name in _NOT_YET:
+        raise NotImplementedError(
+            f"DA mode {mode!r} is not ported yet (LUT backends: ROADMAP "
+            "queue 2 item 4)")
+    raise ValueError(f"unknown DA mode {mode!r}; registered backends: "
+                     f"{', '.join(sorted(_REGISTRY))} (plus 'auto')")
+
+
+def resolve_backend(mode: str, device: torch.device) -> BackendSpec:
+    """``"auto"`` → the device's backend; otherwise the named backend."""
+    mode = canonical_mode(mode)
+    if mode == "auto":
+        mode = "pallas_bitplane" if device.type == "cuda" else "bitplane_stacked"
+    return get_backend(mode)
+
+
+@register_backend("bitplane", "storage-free serial DA: Σ_b 2^b · (xbit_b @ W)")
+def _bitplane_backend(xq, packed, cfg):
+    return da_vmm_bitplane(xq, packed.wq, cfg)
+
+
+@register_backend("bitplane_stacked",
+                  "bit-planes stacked on a leading axis: one product")
+def _stacked_backend(xq, packed, cfg):
+    return da_vmm_bitplane_stacked(xq, packed.wq, cfg)
+
+
+@register_backend("pallas_bitplane",
+                  "hand-written bit-plane kernel (plain version on CPU)")
+def _kernel_bitplane_backend(xq, packed, cfg):
+    from repro_torch.kernels.ops import bitplane_vmm
+
+    return bitplane_vmm(xq, packed.wq, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Execution entry points
+# ---------------------------------------------------------------------------
+
+
+def da_vmm(xq: torch.Tensor, packed: PackedWeights, mode: Optional[str] = None,
+           cfg: Optional[DAConfig] = None) -> torch.Tensor:
+    """Integer-level entry: codes [.., K] → int32 [.., N] == xq @ wq.
+    ``mode`` None → the artifact's default; ``cfg`` overrides the packed
+    config (e.g. to flip x_signed)."""
+    cfg = cfg if cfg is not None else packed.cfg
+    spec = resolve_backend(packed.mode if mode is None else mode, xq.device)
+    lead = xq.shape[:-1]
+    acc = spec.fn(xq.reshape(-1, xq.shape[-1]).to(torch.int32), packed, cfg)
+    return acc.reshape(lead + (packed.n,))
+
+
+def da_matmul(x: torch.Tensor, weights: PackedWeights,
+              cfg: Optional[DAConfig] = None,
+              mode: Optional[str] = None) -> torch.Tensor:
+    """Float-level entry: quantize (signed, per token, in float32) → DA
+    integer VMM → dequantize as ``acc.float() * x_scale * w_scale``."""
+    cfg = cfg if cfg is not None else weights.cfg
+    scfg = dataclasses.replace(cfg, x_signed=True)
+    spec = resolve_backend(weights.mode if mode is None else mode, x.device)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    xqt = quantize_acts_signed(x2, bits=scfg.x_bits)
+    acc = spec.fn(xqt.q, weights, scfg)
+    y = acc.to(torch.float32) * xqt.scale * weights.w_scale
+    return y.reshape(lead + (weights.n,))
+
+
+def dense(x: torch.Tensor, w) -> torch.Tensor:
+    """Weight application dispatching on the leaf type: a PackedWeights runs
+    the multiplier-free datapath (cast back to x's dtype); a plain tensor is
+    a float matmul."""
+    if isinstance(w, PackedWeights):
+        if w.wq.ndim != 2:
+            raise NotImplementedError("stacked-expert PackedWeights arrive "
+                                      "with the MoE slice")
+        return w(x).to(x.dtype)
+    return x @ w
+
+
+# ---------------------------------------------------------------------------
+# Fused QKV projection — one DA pass over several PackedWeights
+# ---------------------------------------------------------------------------
+
+
+def _merged_codes(packs) -> torch.Tensor:
+    """The packs' codes concatenated on N.  When they are adjacent column
+    slices of one buffer (as :func:`repro_torch.core.freeze.freeze_model`
+    lays q|k|v out) this is a view of that buffer, else a copy."""
+    ws = [p.wq for p in packs]
+    w0 = ws[0]
+    adjacent = all(
+        w.stride(1) == 1 and w.stride(0) == w0.stride(0)
+        and w.untyped_storage().data_ptr() == w0.untyped_storage().data_ptr()
+        for w in ws)
+    off = w0.storage_offset()
+    for w in ws:
+        adjacent = adjacent and w.storage_offset() == off
+        off += w.shape[1]
+    if adjacent:
+        n = sum(w.shape[1] for w in ws)
+        return w0.as_strided((w0.shape[0], n), (w0.stride(0), 1),
+                             w0.storage_offset())
+    return torch.cat(ws, dim=1)
+
+
+def da_qkv_matmul(x: torch.Tensor, packs, cfg: Optional[DAConfig] = None,
+                  mode: Optional[str] = None):
+    """Fused multi-head projection: one DA pass over several PackedWeights.
+
+    The activations are quantized once; when every matrix resolves to the
+    same backend the VMMs run as ONE pass over the concatenated codes (one
+    kernel launch on CUDA), then split.  Each output column is an
+    independent exact integer dot and dequantization is per column, so the
+    outputs are bit-identical to separate :func:`da_matmul` calls.
+    """
+    packs = tuple(packs)
+    if not packs:
+        raise ValueError("da_qkv_matmul needs at least one PackedWeights")
+    base = cfg if cfg is not None else packs[0].cfg
+    for p in packs:
+        if not isinstance(p, PackedWeights) or p.wq.ndim != 2:
+            raise ValueError("da_qkv_matmul fuses 2-D PackedWeights only")
+        if cfg is None and p.cfg != base:
+            raise ValueError("da_qkv_matmul: packs disagree on DAConfig — pass "
+                             "cfg= to override")
+        if p.k != packs[0].k:
+            raise ValueError(f"da_qkv_matmul: contraction dims differ ({p.k} "
+                             f"vs {packs[0].k})")
+    scfg = dataclasses.replace(base, x_signed=True)
+    specs = [resolve_backend(p.mode if mode is None else mode, x.device)
+             for p in packs]
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    xqt = quantize_acts_signed(x2, bits=scfg.x_bits)
+    if len({s.name for s in specs}) == 1:
+        merged = PackedWeights(wq=_merged_codes(packs), w_scale=packs[0].w_scale,
+                               luts=None, cfg=scfg, mode=specs[0].name)
+        accs = torch.split(specs[0].fn(xqt.q, merged, scfg),
+                           [p.n for p in packs], dim=-1)
+    else:
+        accs = [s.fn(xqt.q, p, scfg) for s, p in zip(specs, packs)]
+    return tuple(
+        (acc.to(torch.float32) * xqt.scale * p.w_scale).reshape(lead + (p.n,))
+        for acc, p in zip(accs, packs))
+
+
+# ---------------------------------------------------------------------------
+# Paged-attention read backends
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnBackendSpec:
+    """One execution of the paged-attention read: ``fn(q [B,T,H,hd], k_pool,
+    v_pool [P,ps,kv,hd], page_table [B,W], tpos [B,T], *, softmax_dtype,
+    mask_mode, k_scale=None, v_scale=None) → [B,T,H,hd]``."""
+
+    name: str
+    fn: Callable[..., torch.Tensor]
+    description: str = ""
+
+
+_ATTN_REGISTRY: Dict[str, AttnBackendSpec] = {}
+
+
+def register_attn_backend(name: str, description: str = ""):
+    def deco(fn):
+        if name in _ATTN_REGISTRY:
+            raise ValueError(f"attention backend {name!r} already registered")
+        _ATTN_REGISTRY[name] = AttnBackendSpec(name=name, fn=fn,
+                                               description=description)
+        return fn
+
+    return deco
+
+
+def get_attn_backend(mode: str) -> AttnBackendSpec:
+    if mode not in _ATTN_REGISTRY:
+        raise ValueError(f"unknown paged-attention backend {mode!r}; "
+                         f"registered: {', '.join(sorted(_ATTN_REGISTRY))} "
+                         "(plus 'auto')")
+    return _ATTN_REGISTRY[mode]
+
+
+def select_attn_backend(mode: Optional[str], device: torch.device) -> str:
+    """``"auto"`` (or None) → ``fused`` on CUDA, ``gather`` on the CPU."""
+    if mode is None or mode == "auto":
+        return "fused" if device.type == "cuda" else "gather"
+    return get_attn_backend(mode).name
+
+
+@register_attn_backend("gather",
+                       "page-table gather to [B,S,kv,hd] + masked softmax")
+def _gather_attn_backend(q, k_pool, v_pool, page_table, tpos, **kw):
+    from repro_torch.models.attention import paged_gather_read
+
+    return paged_gather_read(q, k_pool, v_pool, page_table, tpos, **kw)
+
+
+@register_attn_backend("fused",
+                       "CUDA page-walk kernel (plain version on CPU)")
+def _fused_attn_backend(q, k_pool, v_pool, page_table, tpos, **kw):
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    return paged_attention(q, k_pool, v_pool, page_table, tpos, **kw)

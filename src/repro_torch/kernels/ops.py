@@ -1,0 +1,17 @@
+"""Public kernel dispatch: a CPU tensor goes to the plain version, a CUDA
+tensor to the hand-written kernel.  There is no other path."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.da import DAConfig
+from repro_torch.kernels import ref
+from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
+
+
+def bitplane_vmm(xq: torch.Tensor, wq: torch.Tensor,
+                 cfg: DAConfig) -> torch.Tensor:
+    """Storage-free bit-plane DA VMM (int32-exact). xq [M,K], wq [K,N]."""
+    if xq.device.type == "cuda":
+        return bitplane_vmm_cuda(xq.contiguous(), wq, cfg)
+    return ref.bitplane_vmm_ref(xq, wq, cfg)

@@ -1,0 +1,119 @@
+"""Paged-attention read: wrapper of the CUDA kernel ``csrc/paged_attention.cu``.
+
+Replaces the Pallas TPU kernel of ``repro/kernels/paged_attention.py``.  The
+kernel walks each row's page table itself, skips the positions past the
+row's largest tpos (masked for all its queries), scores the live K rows into
+float32 (in shared memory when they fit, else in a scratch tensor allocated
+here), runs a deferred softmax (exp and normalise after every page is scored,
+as the TPU kernel does, no online rescale) and the PV pass.  It repeats every
+rounding of the plain version, :func:`repro_torch.models.attention.
+paged_gather_read`, which differs from it only by float32 summation order.
+
+fp pages only on CUDA; int8 / int4 pools run through the plain version on
+the CPU and raise on CUDA (ROADMAP queue 2 item 3).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: dynamic shared memory a block may take (H100: 227 KB)
+SMEM_LIMIT = 227 * 1024
+#: the kernel's warps per block and query rows per accumulation chunk
+#: (``NWARPS`` and ``RC`` in the source): its PV partials take
+#: NWARPS * RC * hd floats of shared memory
+_NWARPS, _RC = 8, 8
+
+
+def _lib():
+    fn = build.load("paged_attention").paged_attention_fp
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+                                               ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def smem_plan(t: int, h: int, kv: int, hd: int, ps: int, w: int):
+    """(shared bytes, scores in shared?) for one block of the kernel."""
+    gt = (h // kv) * t
+    base = 4 * (gt * hd + _NWARPS * _RC * hd + t + w)
+    with_scores = base + 4 * gt * w * ps
+    if with_scores <= SMEM_LIMIT:
+        return with_scores, True
+    if base > SMEM_LIMIT:
+        raise ValueError(f"paged_attention: {gt} query rows x head_dim {hd} "
+                         "exceed the block's shared memory")
+    return base, False
+
+
+def paged_attention_cuda(q, k_pool, v_pool, page_table, tpos, *,
+                         softmax_dtype="float32", mask_mode: str = "where",
+                         k_scale=None, v_scale=None) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors; returns ``[B, T, H, hd]``."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "paged_attention on CUDA reads fp pages only; int8/int4 pools are "
+            "ROADMAP queue 2 item 3 (the CPU plain version serves them)")
+    tensors = (q, k_pool, v_pool, page_table, tpos)
+    if any(x.device != q.device for x in tensors) or q.device.type != "cuda":
+        raise ValueError("paged_attention_cuda: all operands on one CUDA device")
+    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError(f"paged_attention_cuda: q/k/v must share a float dtype "
+                        f"({q.dtype}, {k_pool.dtype}, {v_pool.dtype})")
+    if page_table.dtype != torch.int32 or tpos.dtype != torch.int32:
+        raise TypeError("paged_attention_cuda: page_table and tpos are int32")
+    if str(softmax_dtype) not in ("float32", "torch.float32"):
+        raise NotImplementedError("paged_attention_cuda: softmax runs in float32")
+    if mask_mode not in ("where", "additive"):
+        raise ValueError(f"unknown mask_mode {mask_mode!r}")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("paged_attention_cuda: operands must be contiguous")
+    if any(x.data_ptr() % 16 for x in (q, k_pool, v_pool)):
+        raise ValueError("paged_attention_cuda: q and the pools must be "
+                         "16-byte aligned (the kernel loads K/V rows as vectors)")
+    b, t, h, hd = q.shape
+    _, ps, kv, hd_p = k_pool.shape
+    w = page_table.shape[1]
+    if (hd_p != hd or v_pool.shape != k_pool.shape or h % kv
+            or page_table.shape[0] != b or tuple(tpos.shape) != (b, t)):
+        raise ValueError(f"paged_attention_cuda: inconsistent shapes q "
+                         f"{tuple(q.shape)} pool {tuple(k_pool.shape)} table "
+                         f"{tuple(page_table.shape)} tpos {tuple(tpos.shape)}")
+    if hd % 32 or hd > 256:
+        raise ValueError(f"paged_attention_cuda: head_dim {hd} must be a "
+                         "multiple of 32 and at most 256")
+    smem, in_smem = smem_plan(t, h, kv, hd, ps, w)
+    scratch = None if in_smem else torch.empty(
+        (b, kv, (h // kv) * t, w * ps), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    # the score divisor is sqrt(hd) rounded to the input dtype, as the plain
+    # version divides by it in that dtype
+    div = torch.tensor(hd ** 0.5, dtype=q.dtype).item()
+    err = _lib()(_DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
+                 v_pool.data_ptr(), page_table.data_ptr(), tpos.data_ptr(),
+                 out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                 b, t, h, kv, hd, ps, w, div, int(mask_mode == "additive"),
+                 smem, torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "paged_attention_fp")
+    paged_attention_cuda.launches += 1
+    return out
+
+
+#: kernel launches in this process (reset by callers that count a run)
+paged_attention_cuda.launches = 0
+
+
+def paged_attention(q, k_pool, v_pool, page_table, tpos, **kw) -> torch.Tensor:
+    """Paged-attention read over an already-written pool.  A CUDA tensor
+    launches the kernel; a CPU tensor runs the plain gather read."""
+    if q.device.type == "cuda":
+        return paged_attention_cuda(q, k_pool, v_pool, page_table, tpos, **kw)
+    from repro_torch.models.attention import paged_gather_read
+
+    return paged_gather_read(q, k_pool, v_pool, page_table, tpos, **kw)

@@ -1,0 +1,20 @@
+"""Plain PyTorch versions of the kernels (bit-exact integer references)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.da import DAConfig, bit_coefs, bit_planes, plane_products
+
+
+def bitplane_vmm_ref(xq: torch.Tensor, wq: torch.Tensor,
+                     cfg: DAConfig) -> torch.Tensor:
+    """Plain version of kernels/bitplane_vmm.py: Σ_b coef(b)·(xbit_b @ W) →
+    int32, plane products exact in float64 on any device (int8 or int32
+    codes)."""
+    mr = plane_products(bit_planes(xq, cfg), wq)   # [x_bits, .., N]
+    coefs = bit_coefs(cfg.x_bits, cfg.x_signed)
+    acc = torch.zeros(xq.shape[:-1] + (wq.shape[-1],), dtype=torch.int32,
+                      device=xq.device)
+    for b in range(cfg.x_bits):
+        acc = acc + int(coefs[b]) * mr[b]
+    return acc

@@ -1,0 +1,105 @@
+"""Shared layers: RMS norms, rotary embeddings, the SwiGLU MLP, embedding and
+LM head.
+
+Each ``init_*`` draws from an explicit ``torch.Generator`` on the target
+device, with the reference's shapes and scales.  Norms compute in float32 and
+cast back; RoPE casts cos/sin to the activation dtype before multiplying, as
+the reference does.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.engine import dense
+from repro_torch.models.config import ModelConfig
+
+
+def normal_init(gen: torch.Generator, shape, scale: float,
+                dtype) -> torch.Tensor:
+    """``scale`` × standard normal drawn from ``gen`` on its device."""
+    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def init_norm(cfg: ModelConfig, dim: int, device) -> dict:
+    return {"scale": torch.ones((dim,), dtype=cfg.pdtype(), device=device)}
+
+
+def apply_norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + cfg.norm_eps)
+    y = y * p["scale"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+def rms_norm_headwise(x: torch.Tensor, scale: torch.Tensor,
+                      eps: float) -> torch.Tensor:
+    """Per-head RMS norm over head_dim (qwen3 qk-norm)."""
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * scale.to(torch.float32)
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (1-D RoPE)
+# ---------------------------------------------------------------------------
+def rope_angles(positions: torch.Tensor, head_dim: int,
+                theta: float) -> torch.Tensor:
+    """positions: [B, T] → angles [B, T, hd/2] in float32."""
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32,
+                        device=positions.device) / half
+    inv = 1.0 / (theta ** exps)
+    return positions.to(torch.float32)[..., None] * inv
+
+
+def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x: [B, T, H, hd]; angles: [B, T, hd/2] (broadcast over heads)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_model: int,
+             d_ff: int) -> dict:
+    dt = cfg.pdtype()
+    s_in, s_out = 1.0 / (d_model ** 0.5), 1.0 / (d_ff ** 0.5)
+    return {"w_up": normal_init(gen, (d_model, d_ff), s_in, dt),
+            "w_down": normal_init(gen, (d_ff, d_model), s_out, dt),
+            "w_gate": normal_init(gen, (d_model, d_ff), s_in, dt)}
+
+
+def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    up = dense(x, p["w_up"])
+    return dense(F.silu(dense(x, p["w_gate"])) * up, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+def init_embed(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    return {"table": normal_init(gen, (cfg.vocab, cfg.d_model), 0.02, cfg.pdtype())}
+
+
+def apply_embed(p, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens.long()]
+
+
+def init_lm_head(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    s = 1.0 / (cfg.d_model ** 0.5)
+    return {"w": normal_init(gen, (cfg.d_model, cfg.vocab), s, cfg.pdtype())}
+
+
+def apply_lm_head(p, x: torch.Tensor) -> torch.Tensor:
+    return dense(x, p["w"])

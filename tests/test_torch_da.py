@@ -1,0 +1,196 @@
+"""PyTorch port vs the JAX reference: DA core, quantization and the engine.
+
+Inputs come from a seeded numpy generator and go to both packages.  Integer
+codes and int32 accumulators must be bit-exact.  Float outputs of the DA
+linear agree to 1e-6 relative: the codes are identical and dequantization
+multiplies in the same order, so only float32 op scheduling can differ."""
+import ast
+import dataclasses
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import da as jda
+from repro.core import engine as jeng
+from repro.core import quant as jquant
+from repro_torch.core import da as tda
+from repro_torch.core import engine as teng
+from repro_torch.core import quant as tquant
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("axis", [0, None])
+def test_quantize_weights_bit_exact(dtype, axis):
+    w = np.random.default_rng(0).normal(size=(37, 11)).astype(np.float32) * 0.3
+    ref = jquant.quantize_weights(jnp.asarray(w, dtype=dtype), axis=axis)
+    got = tquant.quantize_weights(_t(w).to(getattr(torch, dtype)), axis=axis)
+    np.testing.assert_array_equal(got.q.numpy(), np.asarray(ref.q))
+    np.testing.assert_array_equal(got.scale.numpy(), np.asarray(ref.scale))
+    assert got.q.dtype == torch.int32 and got.scale.dtype == torch.float32
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_quantize_acts_signed_bit_exact(bits):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(5, 29)).astype(np.float32)
+    x[0] = 0.0                       # an all-zero row hits the eps floor
+    x[1, :4] = [0.5, -0.5, 1.5, 2.5]  # round-half-even lanes
+    ref = jquant.quantize_acts_signed(jnp.asarray(x), bits=bits)
+    got = tquant.quantize_acts_signed(_t(x), bits=bits)
+    np.testing.assert_array_equal(got.q.numpy(), np.asarray(ref.q))
+    np.testing.assert_array_equal(got.scale.numpy(), np.asarray(ref.scale))
+
+
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("eff", [1, 3, 8])
+def test_truncate_codes_bit_exact(signed, eff):
+    cfg_j = jda.DAConfig(x_bits=8, x_signed=signed)
+    cfg_t = tda.DAConfig(x_bits=8, x_signed=signed)
+    lo, hi = (-128, 128) if signed else (0, 256)
+    xq = np.random.default_rng(2).integers(lo, hi, (4, 33)).astype(np.int32)
+    rq, rcfg, rd = jda.truncate_codes(jnp.asarray(xq), cfg_j, eff)
+    gq, gcfg, gd = tda.truncate_codes(_t(xq), cfg_t, eff)
+    np.testing.assert_array_equal(gq.numpy(), np.asarray(rq))
+    assert (gd, gcfg.x_bits) == (rd, rcfg.x_bits)
+
+
+def test_bit_coefs_and_groups_match():
+    for k in (1, 8, 37):
+        assert tda.num_groups(k, 8) == jda.num_groups(k, 8)
+    for bits in (4, 8):
+        for signed in (True, False):
+            np.testing.assert_array_equal(tda.bit_coefs(bits, signed),
+                                          jda.bit_coefs(bits, signed))
+
+
+@pytest.mark.parametrize("fn", ["da_vmm_bitplane", "da_vmm_bitplane_stacked"])
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("x_bits", [4, 8])
+@pytest.mark.parametrize("k", [16, 37])
+def test_bitplane_forms_bit_exact(fn, signed, x_bits, k):
+    rng = np.random.default_rng(k + x_bits)
+    lo, hi = (-(1 << (x_bits - 1)), 1 << (x_bits - 1)) if signed else (0, 1 << x_bits)
+    xq = rng.integers(lo, hi, (3, k)).astype(np.int32)
+    wq = rng.integers(-128, 128, (k, 9)).astype(np.int8)
+    ref = getattr(jda, fn)(jnp.asarray(xq), jnp.asarray(wq),
+                           jda.DAConfig(x_bits=x_bits, x_signed=signed))
+    got = getattr(tda, fn)(_t(xq), _t(wq), tda.DAConfig(x_bits=x_bits,
+                                                         x_signed=signed))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(got.numpy(), xq.astype(np.int64) @ wq)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pack_weights_codes_bit_exact(dtype):
+    w = np.random.default_rng(3).normal(size=(40, 24)).astype(np.float32) / 6
+    ref = jeng.pack_weights(jnp.asarray(w, dtype=dtype), mode="bitplane")
+    got = teng.pack_weights(_t(w).to(getattr(torch, dtype)), mode="bitplane")
+    np.testing.assert_array_equal(got.wq.numpy(), np.asarray(ref.wq))
+    np.testing.assert_array_equal(got.w_scale.numpy(), np.asarray(ref.w_scale))
+    assert got.wq.dtype == torch.int8 and got.luts is None
+
+
+@pytest.mark.parametrize("mode", ["bitplane", "bitplane_stacked",
+                                  "pallas_bitplane", "auto"])
+def test_da_matmul_matches_reference(mode):
+    rng = np.random.default_rng(4)
+    w = rng.normal(size=(37, 20)).astype(np.float32) / 6
+    x = rng.normal(size=(2, 3, 37)).astype(np.float32)
+    jp = jeng.pack_weights(jnp.asarray(w), mode="bitplane")
+    tp = teng.pack_weights(_t(w), mode="bitplane")
+    ref = jeng.da_matmul(jnp.asarray(x), jp, mode="bitplane")
+    got = teng.da_matmul(_t(x), tp, mode=mode)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-7)
+    # integer level: the accumulator is exactly xq @ wq
+    xq = rng.integers(-128, 128, (4, 37)).astype(np.int32)
+    np.testing.assert_array_equal(
+        teng.da_vmm(_t(xq), tp, mode=mode).numpy(),
+        np.asarray(jeng.da_vmm(jnp.asarray(xq), jp, mode="bitplane")))
+
+
+def test_da_qkv_matmul_matches_reference_and_separate_calls():
+    """The fused pass equals JAX's fused pass and three separate calls, for
+    separate code buffers and for freeze's shared q|k|v buffer."""
+    from repro_torch.core.freeze import freeze_model
+
+    rng = np.random.default_rng(5)
+    ws = [rng.normal(size=(32, n)).astype(np.float32) / 6 for n in (16, 8, 8)]
+    x = rng.normal(size=(2, 3, 32)).astype(np.float32)
+    jps = [jeng.pack_weights(jnp.asarray(w), mode="pallas_bitplane") for w in ws]
+    ref = jeng.da_qkv_matmul(jnp.asarray(x), jps)
+    separate = [teng.pack_weights(_t(w), mode="pallas_bitplane") for w in ws]
+    shared = freeze_model({"wq": _t(ws[0]), "wk": _t(ws[1]), "wv": _t(ws[2])},
+                          mode="pallas_bitplane", device="cpu")
+    shared = [shared[n] for n in ("wq", "wk", "wv")]
+    assert shared[1].wq.untyped_storage().data_ptr() == \
+        shared[0].wq.untyped_storage().data_ptr()
+    merged = teng._merged_codes(shared)
+    assert merged.untyped_storage().data_ptr() == \
+        shared[0].wq.untyped_storage().data_ptr()  # a view, not a copy
+    for packs in (separate, shared):
+        got = teng.da_qkv_matmul(_t(x), packs)
+        for g, r, p in zip(got, ref, packs):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-6,
+                                       atol=1e-7)
+            np.testing.assert_array_equal(g.numpy(),
+                                          teng.da_matmul(_t(x), p).numpy())
+
+
+def test_registry_names_resolve_and_auto_by_device():
+    assert {"bitplane", "bitplane_stacked", "pallas_bitplane"} <= set(
+        teng.registered_backends())
+    cpu = torch.device("cpu")
+    assert teng.resolve_backend("auto", cpu).name == "bitplane_stacked"
+    assert teng.resolve_backend("auto", torch.device("cuda")).name == "pallas_bitplane"
+    assert teng.resolve_backend("stacked", cpu).name == "bitplane_stacked"
+    assert teng.select_attn_backend("auto", cpu) == "gather"
+    assert teng.select_attn_backend(None, torch.device("cuda")) == "fused"
+    with pytest.raises(NotImplementedError, match="LUT"):
+        teng.get_backend("pallas_lut")
+    with pytest.raises(ValueError, match="unknown DA mode"):
+        teng.get_backend("nope")
+
+
+def test_dense_casts_back_and_float_path():
+    rng = np.random.default_rng(6)
+    w = _t(rng.normal(size=(16, 8)).astype(np.float32))
+    x = _t(rng.normal(size=(2, 16)).astype(np.float32)).to(torch.bfloat16)
+    p = teng.pack_weights(w, mode="pallas_bitplane")
+    assert teng.dense(x, p).dtype == torch.bfloat16
+    xf = x.float()
+    np.testing.assert_allclose(teng.dense(xf, w).numpy(), (xf @ w).numpy())
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{f}: imports {mod}"
+        text = f.read_text()
+        assert "import jax" not in text and "from repro." not in text, f
+
+
+def test_da_config_fields_match():
+    assert [f.name for f in dataclasses.fields(tda.DAConfig)] == \
+        [f.name for f in dataclasses.fields(jda.DAConfig)]

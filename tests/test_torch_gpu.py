@@ -1,0 +1,119 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``gpu`` and skips without a CUDA device (a CUDA
+kernel has no CPU mode).  The file imports only torch, numpy and the port,
+so it runs on a machine without JAX:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Tolerances: the bit-plane kernel equals its plain version exactly (int32);
+the paged read is within one bf16 ulp at magnitude 1 (2^-7) in bfloat16 and
+1e-5 in float32, since both round at the same points and differ only in
+float32 summation order.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.da import DAConfig
+from repro_torch.kernels.paged_attention import paged_attention
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("m,k,n,x_bits,signed", [
+    (4, 4096, 6144, 8, True), (64, 4096, 4096, 8, True), (3, 37, 20, 8, True),
+    (5, 300, 70, 4, True), (9, 129, 65, 8, False)])
+def test_bitplane_kernel_equals_plain(card, m, k, n, x_bits, signed):
+    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
+    from repro_torch.kernels.ref import bitplane_vmm_ref
+
+    g = torch.Generator(device=card).manual_seed(m + k + n)
+    lo, hi = (-(1 << (x_bits - 1)), 1 << (x_bits - 1)) if signed else (0, 1 << x_bits)
+    xq = torch.randint(lo, hi, (m, k), generator=g, device=card, dtype=torch.int32)
+    wq = torch.randint(-128, 128, (k, n), generator=g, device=card, dtype=torch.int8)
+    cfg = DAConfig(x_bits=x_bits, x_signed=signed)
+    before = bitplane_vmm_cuda.launches
+    y = bitplane_vmm_cuda(xq, wq, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(y, bitplane_vmm_ref(xq, wq, cfg))
+    assert bitplane_vmm_cuda.launches == before + 1
+    # a column slice of a wider buffer (the fused q|k|v layout)
+    wide = torch.randint(-128, 128, (k, n + 40), generator=g, device=card,
+                         dtype=torch.int8)
+    assert torch.equal(bitplane_vmm_cuda(xq, wide[:, 24:24 + n], cfg),
+                       bitplane_vmm_ref(xq, wide[:, 24:24 + n], cfg))
+    with pytest.raises(TypeError, match="int8"):
+        bitplane_vmm_cuda(xq, wq.to(torch.int32), cfg)
+
+
+def _paged_case(gen, dev, dtype, t, lens, hd=64, ps=4, n_pages=12, h=4, kv=2):
+    """Permuted physical pages, ragged tpos, a pad lane at the garbage
+    position."""
+    b = len(lens)
+    w = max(-(-n // ps) for n in lens) + 1
+    q = torch.randn(b, t, h, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(n_pages, ps, kv, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(n_pages, ps, kv, hd, generator=gen, device=dev).to(dtype)
+    perm = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1).tolist()
+    table = torch.zeros((b, w), dtype=torch.int32)
+    tpos = torch.zeros((b, t), dtype=torch.int32)
+    for i, n in enumerate(lens):
+        need = -(-n // ps)
+        table[i, :need] = torch.tensor(perm[:need])
+        perm = perm[need:]
+        tpos[i] = torch.arange(n - t, n).clamp(min=0)
+    tpos[0, 0] = (w - 1) * ps
+    return q, k, v, table.to(dev), tpos.to(dev)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2.0 ** -7),
+                                        (torch.float32, 1e-5)])
+@pytest.mark.parametrize("mask_mode", ["where", "additive"])
+def test_paged_kernel_matches_plain(card, dtype, atol, mask_mode):
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.models.attention import paged_gather_read
+
+    gen = torch.Generator(device=card).manual_seed(5)
+    args = _paged_case(gen, card, dtype, 3, [5, 11, 8])
+    before = paged_attention_cuda.launches
+    out = paged_attention(*args, mask_mode=mask_mode)
+    ref = paged_gather_read(*args, mask_mode=mask_mode)
+    assert (out.float() - ref.float()).abs().max().item() <= atol
+    assert paged_attention_cuda.launches == before + 1
+
+
+def test_paged_kernel_refuses_quantized_pools(card):
+    gen = torch.Generator(device=card).manual_seed(6)
+    q, k, v, table, tpos = _paged_case(gen, card, torch.float32, 1, [5, 7])
+    scale = torch.ones(k.shape[:-1] + (1,), dtype=torch.float16, device=card)
+    with pytest.raises(NotImplementedError, match="queue 2 item 3"):
+        paged_attention(q, k.to(torch.int8), v.to(torch.int8), table, tpos,
+                        k_scale=scale, v_scale=scale)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_attention(*_paged_case(gen, card, torch.float32, 1, [5], hd=16))
+
+
+def test_entry_points_run_on_the_card(card):
+    """Without device=, init_model / freeze_model land on CUDA and the
+    frozen DA linear runs through the kernel."""
+    from repro_torch.configs.registry import get, reduce_for_smoke
+    from repro_torch.core.freeze import freeze_model
+    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
+    from repro_torch.models.model import init_model
+
+    params = freeze_model(init_model(reduce_for_smoke(get("qwen3-8b"))))
+    p = params["blocks"][0]["ffn"]["w_up"]
+    assert p.wq.device.type == "cuda" and p.mode == "pallas_bitplane"
+    before = bitplane_vmm_cuda.launches
+    x = torch.randn(3, 64, device=card)
+    y = p(x)
+    assert y.shape == (3, 128) and bitplane_vmm_cuda.launches == before + 1
+    assert np.isfinite(y.cpu().numpy()).all()
