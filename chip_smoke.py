@@ -6,35 +6,51 @@
 Phases, one JSON line each:
 
 1. device: card name and power limit, build of every CUDA kernel from the
-   sources in the checkout (one ``nvcc`` per source, started together) with
-   its ``-Xptxas -v`` summary;
+   sources in the checkout (one ``nvcc`` per source, all started together)
+   with its ``-Xptxas -v`` summary;
 2. the bit-plane DA VMM kernel against its plain version at every qwen3-8b
    weight shape, M in {4, 64}: int32 results must be EQUAL (the plain version
    forms each plane product in float64, exact since every partial is an
    integer far below 2^53);
-3. the paged-attention kernel against the plain gather read at qwen3-8b head
-   shapes in bfloat16 (T = 1 and 16, ragged tpos, permuted pages, pad lanes
-   on the garbage page, a long table whose scores spill to scratch);
-4. one prefill step of qwen3-8b at full width and 2 layers, through the
-   kernels and through the plain versions: logits within a stated tolerance;
-5. ServeEngine on qwen3-8b at full width and all 36 layers, random weights
+3. the LUT-readout DA VMM kernel against its plain version (the LUT gather)
+   at every LUT shape of the LUT-serving model, M in {4, 64}, and at the
+   reference's kernel-test shapes (CONV1's 4x25x6 among them), signed and
+   unsigned, x_bits 2/4/8, group size 4/8/16, ragged K: int32 EQUAL;
+4. the paged-attention kernel against the plain gather read over fp, int8
+   and int4 pages at the head shapes of both paths: qwen3-8b's in bfloat16
+   (T = 1 and 16, a long table whose scores spill to scratch) and the
+   LUT-serving model's in float32 (T = 1 and 16 at max_len 128); ragged tpos,
+   permuted pages, pad lanes on the garbage page;
+5. one prefill step of qwen3-8b at full width and 2 layers, through the
+   kernels and through the plain versions, with fp and with int8 KV pages:
+   logits within a stated tolerance, argmax equal;
+6. ServeEngine on qwen3-8b at full width and all 36 layers, random weights
    from seed 0 frozen to DA form, 8 requests: every request finishes and both
    kernels were launched on that run; then a window of batch-4 decode steps,
    timed on the host and traced with ``torch.profiler`` for the device time
-   by kernel.
+   by kernel;
+7. the same frozen weights served again with int8 KV pages: every request
+   finishes through the attention kernel's quantized branch;
+8. the LUT path: the LUT-serving model (qwen3 family, 4 layers, d 256) frozen
+   on the card with ``pallas_lut``, saved as a DA artifact, booted with
+   ``ServeEngine.from_artifact`` and served through the LUT kernel; the same
+   artifact booted with the plain ``lut`` gather must give identical tokens.
 
-Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
-last the ``{"ok": true, "device": ...}`` line.  Any failed check raises and
-the script exits non-zero; with no card it exits non-zero before printing a
-result.
+Each path (6, 7, 8) sets the kernels' launch counts to 0 just before it runs
+and reads them just after.  Then the ``{"kernels": [...]}`` line, the
+``nvidia-smi`` name/power line, and last the ``{"ok": true, "device": ...}``
+line.  Any failed check raises and the script exits non-zero; with no card
+it exits non-zero before printing a result.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -43,16 +59,34 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+#: int32 adds on the CUDA cores: the data sheet's 67 TFLOP/s float32 counts
+#: an FMA as 2 flops on 128 lanes per SM; Hopper has 64 INT32 lanes per SM,
+#: and one IADD3 (or a shift-and-add LEA) retires up to two adds per lane per
+#: clock, so the operations bound counts two adds per INT32 lane per clock
+INT32_OPS_PER_S = 67e12 / 2
 L2_FLUSH_BYTES = 256 << 20     # > the 50 MB L2: each timed launch starts cold
 
 #: qwen3-8b weight shapes the serving path hands the bit-plane kernel
 #: (fused q|k|v, wo, up/gate, down, LM head)
 VMM_SHAPES = ((4096, 6144), (4096, 4096), (4096, 12288), (12288, 4096),
               (4096, 151936))
-#: bfloat16 tolerance of the paged-attention kernel against the plain read:
-#: both round at the same points, so they differ by float32 summation order
-#: only; one bf16 ulp at magnitude 1 bounds that
-ATTN_ATOL = 2.0 ** -7
+#: LUT-serving model shapes the LUT kernel reads (q and wo, k and v, up and
+#: gate, down, LM head), each with its own tables
+LUT_SHAPES = ((256, 256), (256, 128), (256, 768), (768, 256), (256, 8000))
+#: tolerances of the paged-attention kernel against the plain read: both
+#: round at the same points, so they differ by float32 summation order only;
+#: one bf16 ulp at magnitude 1 bounds that in bfloat16, 1e-5 in float32
+ATTN_ATOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+#: head shapes and (B, T, W) cases of the attention phase.  qwen3-8b, bf16:
+#: decode and prefill at max_len 256 / page 16 (W = 17), and a long table
+#: (W = 300) whose scores do not fit in shared memory.  The LUT-serving
+#: model, f32: decode and prefill at max_len 128 / page 16 (W = 9).
+ATTN_HEADS = (("bfloat16", dict(h=32, kv=8, hd=128), ((4, 1, 17), (4, 16, 17),
+                                                      (2, 16, 300))),
+              ("float32", dict(h=4, kv=2, hd=64), ((4, 1, 9), (4, 16, 9))))
+#: the activation dtype each path hands the attention kernel
+PATH_DTYPE = {"serve": "bfloat16", "serve_int8kv": "bfloat16",
+              "artifact_lut": "float32"}
 #: logits tolerance of the 2-layer full-width step, kernels vs plain: the DA
 #: layers are exact, so the gap is attention rounding carried through
 #: activation quantization and two layers; see PERF.md
@@ -95,6 +129,18 @@ def phase_device():
     secs = build.build_all()
     emit({"phase": "device", "smi": smi_line(), "build_s": secs,
           "ptxas": build.ptxas_summary()})
+
+
+def lut_model_cfg():
+    """The repo's LUT-serving model (``examples/serve_da.py::build_cfg``):
+    qwen3 family, 4 layers, d 256, 4 heads over 2 KV heads of 64, d_ff 768,
+    vocab 8000, float32.  Every matrix fits the default LUT budget."""
+    from repro_torch.configs.registry import get
+
+    return dataclasses.replace(
+        get("qwen3-8b"), name="qwen3-20m", n_layers=4, d_model=256, n_heads=4,
+        n_kv_heads=2, head_dim=64, d_ff=768, vocab=8000,
+        param_dtype="float32", compute_dtype="float32")
 
 
 def phase_bitplane(flush):
@@ -140,6 +186,90 @@ def phase_bitplane(flush):
     return rows
 
 
+def _lut_bound(xq, luts, cfg):
+    """Least time for this data: the distinct LUT rows its addresses read,
+    plus the codes and the output, at the HBM rate; or the int32 adds at the
+    CUDA cores' rate, whichever is larger."""
+    import torch
+
+    from repro_torch.core.da import group_addresses
+
+    m, k = xq.shape
+    g, _, n = luts.shape
+    addr = group_addresses(xq, cfg).permute(2, 0, 1).reshape(g, -1)
+    srt = addr.sort(dim=1).values
+    rows = int(g + (srt[:, 1:] != srt[:, :-1]).sum())
+    bound = {"bytes": (4 * rows * n + 4 * m * k + 4 * m * n) / HBM_BYTES_PER_S * 1e3,
+             "operations": m * cfg.x_bits * g * n / INT32_OPS_PER_S * 1e3}
+    by = max(bound, key=bound.get)
+    return bound[by], by, rows
+
+
+def phase_lut_vmm(flush):
+    import torch
+
+    from repro_torch.core.da import DAConfig, build_luts
+    from repro_torch.kernels.da_vmm import da_vmm_cuda
+    from repro_torch.kernels.ref import da_vmm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def case(m, k, n, x_bits, signed, group):
+        lo, hi = ((-(1 << (x_bits - 1)), 1 << (x_bits - 1)) if signed
+                  else (0, 1 << x_bits))
+        xq = torch.randint(lo, hi, (m, k), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        wq = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        cfg = DAConfig(group_size=group, x_bits=x_bits, x_signed=signed)
+        luts = build_luts(wq, group)
+        y = da_vmm_cuda(xq, luts, cfg)
+        ref = da_vmm_ref(xq, luts, cfg)
+        torch.cuda.synchronize()
+        if not torch.equal(y, ref):
+            raise AssertionError(f"LUT kernel != plain at M={m} K={k} N={n} "
+                                 f"x_bits={x_bits} signed={signed} L={group}")
+        return xq, wq, luts, cfg
+
+    timed = []
+    for k, n in LUT_SHAPES:
+        for m in (4, 64):
+            xq, wq, luts, cfg = case(m, k, n, 8, True, 8)
+            ms = time_cuda(lambda: da_vmm_cuda(xq, luts, cfg), 20, flush)
+            plain_ms = time_cuda(lambda: da_vmm_ref(xq, luts, cfg), 5, flush, 1)
+            lib_ms = None
+            if m > 16:  # torch._int_mm's shape rule; signed int8 codes
+                x8 = xq.to(torch.int8)
+                lib_ms = time_cuda(lambda: torch._int_mm(x8, wq), 20, flush)
+            bound, by, rows = _lut_bound(xq, luts, cfg)
+            timed.append({"m": m, "k": k, "n": n, "equal": True, "max_abs_err": 0,
+                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                          "bound_by": by, "rows_read": rows,
+                          "table_mb": luts.numel() * 4 / 1e6, "library_ms": lib_ms})
+            del xq, wq, luts
+    checked = 0
+    # the reference's kernel-test shapes (tests/test_kernels.py), both
+    # signednesses; code widths and group sizes; ragged K
+    for m, k, n in ((1, 8, 1), (4, 25, 6), (16, 64, 32), (33, 100, 17),
+                    (300, 130, 70), (64, 256, 128)):
+        for signed in (False, True):
+            case(m, k, n, 8, signed, 8)
+            checked += 1
+    for x_bits in (2, 4, 8):
+        for group in (4, 8):
+            for signed in (False, True):
+                case(8, 37, 24, x_bits, signed, group)  # K = 37: ragged
+                checked += 1
+    case(5, 40, 12, 8, True, 16)
+    case(4, 4096, 300, 8, True, 8)
+    checked += 2
+    emit({"phase": "lut_vmm", "plain": "LUT gather (int32)",
+          "library": "torch._int_mm on the int8 codes where M > 16; none at "
+                     "M = 4 (it needs M > 16)",
+          "shapes": timed, "cases_checked": checked + len(timed)})
+    return timed
+
+
 def _paged_case(gen, b, t, w, p, dtype, ps=16, kv=8, h=32, hd=128):
     """Pool with permuted physical pages, a garbage column, ragged tpos and a
     pad lane at the garbage position."""
@@ -159,55 +289,98 @@ def _paged_case(gen, b, t, w, p, dtype, ps=16, kv=8, h=32, hd=128):
 
 def phase_attention(flush):
     import torch
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
-    from repro_torch.models.attention import paged_gather_read
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
-    # (B, T, W): decode and prefill at max_len 256 / page 16 (W = 17), and a
-    # long table (W = 300) whose scores do not fit in shared memory
-    for b, t, w in ((4, 1, 17), (4, 16, 17), (2, 16, 300)):
-        for mode in ("where", "additive"):
-            q, kp, vp, table, tpos = _paged_case(gen, b, t, w, b * w + 8,
-                                                 torch.bfloat16)
-            out = paged_attention_cuda(q, kp, vp, table, tpos, mask_mode=mode)
-            ref = paged_gather_read(q, kp, vp, table, tpos, mask_mode=mode)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            if not err <= ATTN_ATOL:
-                raise AssertionError(f"paged attention kernel vs plain: {err} > "
-                                     f"{ATTN_ATOL} at B={b} T={t} W={w} {mode}")
-            row = {"b": b, "t": t, "w": w, "mask_mode": mode, "max_abs_err": err}
-            if mode == "where":
-                row["ms"] = time_cuda(lambda: paged_attention_cuda(
-                    q, kp, vp, table, tpos), 20, flush)
-                row["plain_ms"] = time_cuda(lambda: paged_gather_read(
-                    q, kp, vp, table, tpos), 10, flush)
-                tl = table.long()
-                kg = kp[tl].reshape(b, -1, 8, 128).transpose(1, 2)
-                vg = vp[tl].reshape(b, -1, 8, 128).transpose(1, 2)
-                mask = (torch.arange(w * 16, device="cuda")[None, None]
-                        <= tpos[:, :, None])[:, None]
-                qh = q.transpose(1, 2)
-                row["library_ms"] = time_cuda(lambda: F.scaled_dot_product_attention(
-                    qh, kg, vg, attn_mask=mask, enable_gqa=True), 20, flush)
-                # the work this data needs: a row reads K and V up to its
-                # largest tpos, a query scores and sums up to its own
-                live = (tpos.long() + 1).clamp(max=w * 16)
-                nbytes = (2 * q.numel() * 2
-                          + 2 * int(live.amax(1).sum()) * 8 * 128 * 2
-                          + 4 * b * w + 4 * b * t)
-                flops = 4 * int(live.sum()) * 32 * 128
-                bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                         "operations": flops / BF16_FLOPS_PER_S * 1e3}
-                row["bound_by"] = max(bound, key=bound.get)
-                row["bound_ms"] = bound[row["bound_by"]]
-            rows.append(row)
-    emit({"phase": "paged_attention", "dtype": "bfloat16", "atol": ATTN_ATOL,
-          "cases": rows})
+    # each case over fp pages and over int8 / int4 codes of the same K and V
+    for dname, heads, shapes in ATTN_HEADS:
+        for b, t, w in shapes:
+            for mode in ("where", "additive"):
+                rows += _attention_case(gen, b, t, w, mode, dname, heads, flush)
+    emit({"phase": "paged_attention", "atol": ATTN_ATOL, "cases": rows})
     return rows
+
+
+def _attention_case(gen, b, t, w, mode, dname, heads, flush):
+    import torch
+
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.models import kv_quant
+    from repro_torch.models.attention import paged_gather_read
+
+    atol = ATTN_ATOL[dname]
+    rows = []
+    q, kp, vp, table, tpos = _paged_case(gen, b, t, w, b * w + 8,
+                                         getattr(torch, dname), **heads)
+    for fmt in ("fp", "int8", "int4"):
+        if fmt == "fp":
+            kc, vc, scales = kp, vp, {}
+        else:
+            (kc, ks), (vc, vs) = (kv_quant.quantize_kv(x, fmt) for x in (kp, vp))
+            scales = {"k_scale": ks, "v_scale": vs}
+        out = paged_attention_cuda(q, kc, vc, table, tpos, mask_mode=mode,
+                                   **scales)
+        ref = paged_gather_read(q, kc, vc, table, tpos, mask_mode=mode, **scales)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if not err <= atol:
+            raise AssertionError(
+                f"paged attention kernel vs plain: {err} > {atol} at B={b} "
+                f"T={t} W={w} {heads} {dname} {mode} {fmt} pages")
+        row = {"dtype": dname, "h": heads["h"], "kv_heads": heads["kv"],
+               "hd": heads["hd"], "b": b, "t": t, "w": w, "kv": fmt,
+               "mask_mode": mode, "max_abs_err": err}
+        if mode == "where":
+            row.update(_attention_times(q, kc, vc, table, tpos, scales, fmt,
+                                        flush))
+        rows.append(row)
+    return rows
+
+
+def _attention_times(q, kc, vc, table, tpos, scales, fmt, flush):
+    """Kernel, plain and SDPA times and the bound for one case.  SDPA runs on
+    the gathered (and dequantized) view, made outside the timing."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.models import kv_quant
+    from repro_torch.models.attention import paged_gather_read
+
+    b, t, h, hd = q.shape
+    ps, kv = kc.shape[1], kc.shape[2]
+    w = table.shape[1]
+    row = {"ms": time_cuda(lambda: paged_attention_cuda(
+               q, kc, vc, table, tpos, **scales), 20, flush),
+           "plain_ms": time_cuda(lambda: paged_gather_read(
+               q, kc, vc, table, tpos, **scales), 10, flush)}
+    tl = table.long()
+    kg, vg = kc[tl], vc[tl]
+    if fmt != "fp":
+        kg = kv_quant.dequantize_kv(kg, scales["k_scale"][tl], fmt, q.dtype)
+        vg = kv_quant.dequantize_kv(vg, scales["v_scale"][tl], fmt, q.dtype)
+    kg = kg.reshape(b, -1, kv, hd).transpose(1, 2)
+    vg = vg.reshape(b, -1, kv, hd).transpose(1, 2)
+    mask = (torch.arange(w * ps, device="cuda")[None, None]
+            <= tpos[:, :, None])[:, None]
+    qh = q.transpose(1, 2)
+    row["library_ms"] = time_cuda(lambda: F.scaled_dot_product_attention(
+        qh, kg, vg, attn_mask=mask, enable_gqa=True), 20, flush)
+    # the work this data needs: a row reads K and V up to its largest tpos
+    # (codes and a 2-byte scale per row when quantized), a query scores and
+    # sums up to its own
+    live = (tpos.long() + 1).clamp(max=w * ps)
+    row_bytes = {"fp": hd * q.element_size(), "int8": hd + 2,
+                 "int4": hd // 2 + 2}[fmt]
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * int(live.amax(1).sum()) * kv * row_bytes
+              + 4 * b * w + 4 * b * t)
+    flops = 4 * int(live.sum()) * h * hd
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / BF16_FLOPS_PER_S * 1e3}
+    row["bound_by"] = max(bound, key=bound.get)
+    row["bound_ms"] = bound[row["bound_by"]]
+    return row
 
 
 def _with_mode(tree, mode):
@@ -225,8 +398,6 @@ def _with_mode(tree, mode):
 
 
 def phase_logits():
-    import dataclasses
-
     import torch
 
     from repro_torch.configs.registry import get
@@ -249,41 +420,92 @@ def phase_logits():
         pos[i, :n] = torch.arange(n, device="cuda")
         table[i, 0] = i + 1
     last = torch.tensor([n - 1 for n in lens], device="cuda")
-    out = {}
-    for name, params, attn in (("kernels", frozen, "fused"),
-                               ("plain", _with_mode(frozen, "bitplane_stacked"),
-                                "gather")):
-        caches = init_paged_caches(cfg, b + 1, ps, cfg.dtype(), device="cuda")
-        with torch.inference_mode():
-            logits, _ = forward(params, tokens, dataclasses.replace(
-                cfg, paged_attn=attn), pos, caches, table, last_idx=last)
-        out[name] = logits.float()
-    if not torch.isfinite(out["kernels"]).all():
-        raise AssertionError("non-finite logits through the kernels")
-    diff = (out["kernels"] - out["plain"]).abs()
-    argmax_eq = (out["kernels"].argmax(-1) == out["plain"].argmax(-1)).all().item()
-    emit({"phase": "logits", "layers": 2, "d_model": cfg.d_model,
-          "shape": list(out["kernels"].shape), "max_abs_err": diff.max().item(),
-          "mean_abs_err": diff.mean().item(), "atol": LOGITS_ATOL,
-          "logit_absmax": out["plain"].abs().max().item(),
-          "argmax_equal": argmax_eq})
-    if not diff.max().item() <= LOGITS_ATOL:
-        raise AssertionError(f"logits kernels vs plain {diff.max().item()} > "
-                             f"{LOGITS_ATOL}")
+    for kv_dtype in ("fp16", "int8"):
+        kcfg = dataclasses.replace(cfg, kv_dtype=kv_dtype)
+        out = {}
+        for name, params, attn in (("kernels", frozen, "fused"),
+                                   ("plain", _with_mode(frozen, "bitplane_stacked"),
+                                    "gather")):
+            caches = init_paged_caches(kcfg, b + 1, ps, cfg.dtype(), device="cuda")
+            with torch.inference_mode():
+                logits, _ = forward(params, tokens, dataclasses.replace(
+                    kcfg, paged_attn=attn), pos, caches, table, last_idx=last)
+            out[name] = logits.float()
+        if not torch.isfinite(out["kernels"]).all():
+            raise AssertionError("non-finite logits through the kernels")
+        diff = (out["kernels"] - out["plain"]).abs()
+        argmax_eq = (out["kernels"].argmax(-1) == out["plain"].argmax(-1)).all().item()
+        emit({"phase": "logits", "layers": 2, "d_model": cfg.d_model,
+              "kv_dtype": kv_dtype, "shape": list(out["kernels"].shape),
+              "max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
+              "atol": LOGITS_ATOL, "logit_absmax": out["plain"].abs().max().item(),
+              "argmax_equal": argmax_eq})
+        if not diff.max().item() <= LOGITS_ATOL:
+            raise AssertionError(f"logits kernels vs plain ({kv_dtype} pages) "
+                                 f"{diff.max().item()} > {LOGITS_ATOL}")
+        if kv_dtype != "fp16" and not argmax_eq:
+            raise AssertionError(f"logits argmax kernels != plain ({kv_dtype} pages)")
     del frozen, out
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def phase_serve():
+def _reset_counts():
+    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
+    from repro_torch.kernels.da_vmm import da_vmm_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    bitplane_vmm_cuda.launches = 0
+    da_vmm_cuda.launches = 0
+    paged_attention_cuda.launches = 0
+    for fmt in paged_attention_cuda.launches_by_format:
+        paged_attention_cuda.launches_by_format[fmt] = 0
+
+
+def _read_counts():
+    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
+    from repro_torch.kernels.da_vmm import da_vmm_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    return {"bitplane_vmm": bitplane_vmm_cuda.launches,
+            "da_vmm": da_vmm_cuda.launches,
+            "paged_attention": paged_attention_cuda.launches,
+            "paged_attention_by_format": dict(paged_attention_cuda.launches_by_format)}
+
+
+def _serve_requests(eng, vocab, n, seed=0, new=16):
+    """Submit ``n`` requests with prompts of 16–64 tokens, run them with the
+    launch counts set to 0 just before, and return (done, counts)."""
     import numpy as np
     import torch
 
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(seed)
+    reqs = [Request(uid=u, prompt=rng.integers(0, vocab, int(rng.integers(16, 65))
+                                               ).astype(np.int32), max_new_tokens=new)
+            for u in range(n)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    _reset_counts()
+    done = eng.run()
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    if len(done) != len(reqs) or any(
+            len(done[r.uid].generated) != new
+            or not all(0 <= tok < vocab for tok in done[r.uid].generated)
+            for r in reqs):
+        raise AssertionError(f"not every request finished with {new} in-vocab tokens")
+    return reqs, done, counts
+
+
+def phase_serve():
+    import torch
+
     from repro_torch.configs.registry import get
-    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
     from repro_torch.models.model import init_model
-    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.engine import ServeEngine
 
     cfg = get("qwen3-8b")
     t0 = time.perf_counter()
@@ -297,39 +519,107 @@ def phase_serve():
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    rng = np.random.default_rng(0)
-    reqs = [Request(uid=u, prompt=rng.integers(0, cfg.vocab, int(rng.integers(16, 65))
-                                               ).astype(np.int32), max_new_tokens=16)
-            for u in range(8)]
-    for r in reqs:
-        eng.submit(r)
     torch.cuda.reset_peak_memory_stats()
-    bitplane_vmm_cuda.launches = 0
-    paged_attention_cuda.launches = 0
-    done = eng.run()
-    torch.cuda.synchronize()
-    launches = {"bitplane_vmm": bitplane_vmm_cuda.launches,
-                "paged_attention": paged_attention_cuda.launches}
-    if len(done) != len(reqs) or any(
-            len(done[r.uid].generated) != 16
-            or not all(0 <= tok < cfg.vocab for tok in done[r.uid].generated)
-            for r in reqs):
-        raise AssertionError("not every request finished with 16 in-vocab tokens")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was never launched on the main path: {launches}")
-    m = eng.metrics()
-    emit({"phase": "serve", "model": cfg.name, "layers": cfg.n_layers,
-          "d_model": cfg.d_model, "requests": len(done),
-          "prompt_tokens": [len(r.prompt) for r in reqs],
-          "out_tokens": m["out_tokens"], "steps": m["steps"],
-          "tokens_per_s": m["tokens_per_s"], "ttft_p50_ms": m["ttft_p50_ms"],
-          "itl_p50_ms": m["itl_p50_ms"], "itl_p99_ms": m["itl_p99_ms"],
-          "wall_s": m["wall_s"], "init_s": t1 - t0, "freeze_s": t2 - t1,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "launches": launches,
-          "first_tokens": done[0].generated[:8]})
+    reqs, done, counts = _serve_requests(eng, cfg.vocab, 8)
+    if min(counts["bitplane_vmm"], counts["paged_attention"]) <= 0:
+        raise AssertionError(f"a kernel was never launched on the main path: {counts}")
+    emit(_serve_line("serve", eng, reqs, done, counts,
+                     init_s=t1 - t0, freeze_s=t2 - t1))
     emit(decode_window(eng, cfg.vocab))
-    return launches
+    return eng.params, counts
+
+
+def _serve_line(phase, eng, reqs, done, counts, **extra):
+    import torch
+
+    m = eng.metrics()
+    cfg = eng.cfg
+    return {"phase": phase, "model": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "kv_dtype": cfg.kv_dtype,
+            "requests": len(done), "prompt_tokens": [len(r.prompt) for r in reqs],
+            "out_tokens": m["out_tokens"], "steps": m["steps"],
+            "tokens_per_s": m["tokens_per_s"], "ttft_p50_ms": m["ttft_p50_ms"],
+            "itl_p50_ms": m["itl_p50_ms"], "itl_p99_ms": m["itl_p99_ms"],
+            "wall_s": m["wall_s"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counts, "first_tokens": done[0].generated[:8], **extra}
+
+
+def phase_serve_int8kv(params):
+    """qwen3-8b at full width and depth again, int8 KV pages, on the weights
+    the fp serve froze (never re-packed)."""
+    import torch
+
+    from repro_torch.configs.registry import get
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get("qwen3-8b")
+    eng = ServeEngine(cfg, params, batch_size=4, max_len=256, page_size=16,
+                      paged_attn="fused", kv_dtype="int8", device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reqs, done, counts = _serve_requests(eng, cfg.vocab, 8)
+    if (min(counts["bitplane_vmm"], counts["paged_attention"]) <= 0
+            or counts["paged_attention_by_format"]["int8"] <= 0):
+        raise AssertionError(f"the int8-page serve missed a kernel: {counts}")
+    emit(_serve_line("serve_int8kv", eng, reqs, done, counts))
+    return counts
+
+
+def phase_artifact_lut():
+    """The LUT path: freeze the LUT-serving model with pallas_lut on the card,
+    save the artifact, boot it with from_artifact and serve; the same
+    artifact booted with the plain lut gather must give the same tokens."""
+    import torch
+
+    from repro_torch.core.freeze import load_artifact
+    from repro_torch.models.model import init_model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = lut_model_cfg()
+    kw = dict(batch_size=4, max_len=128, page_size=16, paged_attn="fused",
+              device="cuda")
+    t0 = time.perf_counter()
+    frozen = ServeEngine(cfg, init_model(cfg, seed=0, device="cuda"),
+                         da_mode="pallas_lut", **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    lut_mb = sum(p.luts.numel() * 4 for blk in frozen.params["blocks"]
+                 for sub in blk.values() for p in sub.values()
+                 if getattr(p, "luts", None) is not None) / 1e6
+    lut_mb += frozen.params["lm_head"]["w"].luts.numel() * 4 / 1e6
+    with tempfile.TemporaryDirectory() as tmp:
+        directory = frozen.save_artifact(os.path.join(tmp, "qwen3_20m_lut"))
+        art_mb = sum(os.path.getsize(os.path.join(directory, f))
+                     for f in os.listdir(directory)) / 1e6
+        del frozen
+        gc.collect()
+        t2 = time.perf_counter()
+        eng = ServeEngine.from_artifact(directory, **kw)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        art = load_artifact(directory, device="cuda")
+    reqs, done, counts = _serve_requests(eng, cfg.vocab, 4, seed=5)
+    forwards = counts["paged_attention"] // cfg.n_layers
+    if counts["da_vmm"] <= 0 or counts["bitplane_vmm"] != 0:
+        raise AssertionError(f"the LUT path did not run the LUT kernel alone: {counts}")
+    line = _serve_line("artifact_lut", eng, reqs, done, counts,
+                       boot_s=t3 - t2, freeze_s=t1 - t0, save_s=t2 - t1,
+                       lut_mb=lut_mb, artifact_mb=art_mb, forward_calls=forwards,
+                       da_vmm_per_forward=counts["da_vmm"] / max(forwards, 1))
+    # the plain boot shares the fused attention so that its tokens can be
+    # held EQUAL to the kernel boot's; the attention phase holds that f32,
+    # head-dim-64 instance against the plain read at this path's shapes
+    plain = ServeEngine(art.model_cfg, _with_mode(art.params, "lut"), **kw)
+    _, plain_done, plain_counts = _serve_requests(plain, cfg.vocab, 4, seed=5)
+    same = all(plain_done[r.uid].generated == done[r.uid].generated for r in reqs)
+    line.update(plain_tokens_identical=same, plain_launches=plain_counts,
+                plain_tokens_per_s=plain.metrics()["tokens_per_s"])
+    emit(line)
+    if not same:
+        raise AssertionError("LUT kernel boot and plain lut boot disagree on tokens")
+    if plain_counts["da_vmm"] != 0:
+        raise AssertionError(f"the plain lut boot launched the LUT kernel: {plain_counts}")
+    return counts
 
 
 def decode_window(eng, vocab: int, steps: int = 4):
@@ -394,19 +684,51 @@ def main() -> int:
     phase_device()
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     vmm = phase_bitplane(flush)
+    lut = phase_lut_vmm(flush)
     attn = phase_attention(flush)
     del flush
     torch.cuda.empty_cache()
     phase_logits()
-    launches = phase_serve()
+    params, fp_counts = phase_serve()
+    int8_counts = phase_serve_int8kv(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    lut_counts = phase_artifact_lut()
+    paths = {"serve": fp_counts, "serve_int8kv": int8_counts,
+             "artifact_lut": lut_counts}
+
+    def launches(name, fmt=None, dtype=None):
+        by = {p: (c["paged_attention_by_format"][fmt] if fmt else c[name])
+              for p, c in paths.items() if dtype in (None, PATH_DTYPE[p])}
+        return sum(by.values()), {p: n for p, n in by.items() if n}
+
+    def attn_row(fmt, dtype, w):
+        # the decode case of the paths that run this dtype
+        r = next(r for r in attn if (r["dtype"], r["t"], r["w"], r["kv"])
+                 == (dtype, 1, w, fmt) and "ms" in r)
+        total, by_path = launches("paged_attention", fmt, dtype)
+        return {"kv": fmt, "dtype": dtype, "head_dim": r["hd"],
+                "shape": f"B={r['b']} T=1 W={w} ps=16 H={r['h']} "
+                         f"kv={r['kv_heads']} hd={r['hd']} {dtype}, {fmt} pages",
+                "launches": total, "launches_by_path": by_path,
+                "max_abs_err": max(x["max_abs_err"] for x in attn
+                                   if (x["kv"], x["dtype"]) == (fmt, dtype)),
+                **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}}
+
     dec_vmm = next(r for r in vmm if (r["m"], r["k"], r["n"]) == (4, 4096, 12288))
-    dec_attn = next(r for r in attn if (r["t"], r["w"]) == (1, 17) and "ms" in r)
+    dec_lut = next(r for r in lut if (r["m"], r["k"], r["n"]) == (4, 256, 8000))
+    formats = ([attn_row(fmt, "bfloat16", 17) for fmt in ("fp", "int8", "int4")]
+               + [attn_row(fmt, "float32", 9) for fmt in ("fp", "int8", "int4")])
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    bp_total, bp_paths = launches("bitplane_vmm")
+    lut_total, lut_paths = launches("da_vmm")
     emit({"kernels": [
         {"name": "bitplane_vmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitplane_vmm.cu",
          "replaces": "src/repro/kernels/bitplane_vmm.py:33",
-         "launches": launches["bitplane_vmm"],
+         "launches": bp_total, "launches_by_path": bp_paths,
          "max_abs_err": max(r["max_abs_err"] for r in vmm),
          "ms": dec_vmm["ms"], "plain_ms": dec_vmm["plain_ms"],
          "bound_ms": dec_vmm["bound_ms"], "bound_by": dec_vmm["bound_by"],
@@ -414,12 +736,23 @@ def main() -> int:
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:66",
-         "launches": launches["paged_attention"],
+         "launches": sum(f["launches"] for f in formats),
          "max_abs_err": max(r["max_abs_err"] for r in attn),
-         "ms": dec_attn["ms"], "plain_ms": dec_attn["plain_ms"],
-         "bound_ms": dec_attn["bound_ms"], "bound_by": dec_attn["bound_by"],
-         "library_ms": dec_attn["library_ms"],
-         "shape": "B=4 T=1 W=17 ps=16 H=32 kv=8 hd=128 bf16"},
+         **{k: formats[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")},
+         "shape": "B=4 T=1 W=17 ps=16 H=32 kv=8 hd=128 bf16, fp pages",
+         "formats": formats},
+        {"name": "da_vmm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/da_vmm.cu",
+         "replaces": "src/repro/kernels/da_vmm.py:33",
+         "launches": lut_total, "launches_by_path": lut_paths,
+         "max_abs_err": max(r["max_abs_err"] for r in lut),
+         "ms": dec_lut["ms"], "plain_ms": dec_lut["plain_ms"],
+         "bound_ms": dec_lut["bound_ms"], "bound_by": dec_lut["bound_by"],
+         "library_ms": dec_lut["library_ms"],
+         "library_note": "torch._int_mm needs M > 16; at M = 64 see the "
+                         "lut_vmm line",
+         "shape": "M=4 K=256 N=8000 x_bits=8 L=8 (LM head of the LUT path)"},
     ]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

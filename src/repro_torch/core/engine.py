@@ -6,36 +6,52 @@ One entry point per level::
     acc = da_vmm(xq, packed)          # integer codes → exact int32
 
 ``PackedWeights`` is the frozen-weight artifact (int8 codes + per-column
-scale), built once by :func:`pack_weights`.  The storage-free backends carry
-the reference's names so a plan written for it resolves here:
+scale + optional weight-sum LUTs), built once by :func:`pack_weights`.  The
+backends carry the reference's names and whether they read LUTs, so a plan
+written for it resolves here:
 
-===================  ====================================================
-``bitplane``         Σ_b 2^b · (xbit_b @ W), serial planes (plain torch)
-``bitplane_stacked`` planes stacked on a leading axis: one product (plain)
-``pallas_bitplane``  the hand-written bit-plane kernel on CUDA
-                     (``kernels/csrc/bitplane_vmm.cu``); its plain version
-                     on the CPU
-===================  ====================================================
+===================  ==========  ===========================================
+name                 needs LUTs  execution
+===================  ==========  ===========================================
+``lut``              yes         faithful PMA readout: LUT gather +
+                                 shift-and-add (plain torch)
+``onehot``           yes         one-hot(addr) @ LUT in one product (plain)
+``pallas_lut``       yes         the hand-written LUT-readout kernel on CUDA
+                                 (``kernels/csrc/da_vmm.cu``); its plain
+                                 version on the CPU
+``bitplane``         no          Σ_b 2^b · (xbit_b @ W), serial planes
+``bitplane_stacked`` no          planes stacked on a leading axis: one product
+``pallas_bitplane``  no          the hand-written bit-plane kernel on CUDA
+                                 (``kernels/csrc/bitplane_vmm.cu``); its plain
+                                 version on the CPU
+===================  ==========  ===========================================
 
 ``"auto"`` resolves by device: ``pallas_bitplane`` on CUDA,
 ``bitplane_stacked`` on the CPU (the measured cost table arrives later).
-The LUT backends arrive with the LUT slice.
+A LUT mode on weights packed without LUTs (or with tables of another group
+size) raises instead of computing wrong integers.
 
 The paged-attention read has its own registry: ``gather`` (page-table gather
 + masked softmax in plain torch) and ``fused`` (the CUDA page-walk kernel,
-``kernels/csrc/paged_attention.cu``; its plain version on the CPU).
+``kernels/csrc/paged_attention.cu``, fp, int8 and int4 pages; its plain
+version on the CPU).
 """
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Callable, Dict, Optional
 
 import torch
 
 from repro_torch.core.da import (
     DAConfig,
+    build_luts,
     da_vmm_bitplane,
     da_vmm_bitplane_stacked,
+    da_vmm_lut,
+    da_vmm_onehot,
+    num_groups,
 )
 from repro_torch.core.quant import quantize_acts_signed, quantize_weights
 
@@ -51,7 +67,7 @@ class PackedWeights:
     wq:      [K, N] int8 codes (rows may be strided: q/k/v codes of one layer
              share a buffer so the fused projection reads them in one pass).
     w_scale: [1, N] per-output-column float32 scale.
-    luts:    weight-sum tables, or None (no LUT backend is ported yet).
+    luts:    [G, 2^L, N] int32 weight-sum tables from build_luts, or None.
     cfg:     DAConfig the artifact was packed under.
     mode:    default execution mode for ``packed(x)``.
     """
@@ -70,25 +86,45 @@ class PackedWeights:
     def n(self) -> int:
         return self.wq.shape[-1]
 
+    @property
+    def has_luts(self) -> bool:
+        return self.luts is not None
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return da_matmul(x, self)
 
 
+def lut_cells(k: int, n: int, group_size: int) -> int:
+    """Memory cells a materialized LUT costs (the 2^L/L× blow-up, Table I)."""
+    return num_groups(k, group_size) * (1 << group_size) * n
+
+
+#: Default LUT budget in cells per matrix (the reference's constant): at
+#: group size 8 one weight costs 32 cells, so 2^24 cells (64 MB of int32)
+#: admit layers up to about 512K weights.
+DEFAULT_LUT_LIMIT = 1 << 24
+
+
 def pack_weights(w: torch.Tensor, cfg: DAConfig = DAConfig(x_signed=True),
                  mode: str = "auto") -> PackedWeights:
-    """Pre-VMM procedure (§III-A): quantize once, 'write the PMAs'.
+    """Pre-VMM procedure (§III-A): quantize once, sum weights, 'write the PMAs'.
 
     2-D float weights [K, N] → per-column int8 codes and float32 scales.
+    LUTs are built once, here: when ``mode`` names a LUT backend, or under
+    ``mode="auto"`` when the blow-up stays within ``DEFAULT_LUT_LIMIT`` cells.
     """
     mode = canonical_mode(mode)
-    if mode != "auto":
-        get_backend(mode)  # unknown / not-yet-ported modes fail here
     if w.ndim != 2:
         raise NotImplementedError(
             f"pack_weights: {w.ndim}-D weights (stacked experts) arrive with "
             "the MoE slice")
+    if mode == "auto":
+        with_luts = lut_cells(*w.shape, cfg.group_size) <= DEFAULT_LUT_LIMIT
+    else:
+        with_luts = get_backend(mode).needs_luts
     q = quantize_weights(w, bits=8, axis=0)
-    return PackedWeights(wq=q.q.to(torch.int8), w_scale=q.scale, luts=None,
+    luts = build_luts(q.q, cfg.group_size) if with_luts else None
+    return PackedWeights(wq=q.q.to(torch.int8), w_scale=q.scale, luts=luts,
                          cfg=cfg, mode=mode)
 
 
@@ -99,37 +135,45 @@ def pack_weights(w: torch.Tensor, cfg: DAConfig = DAConfig(x_signed=True),
 
 @dataclasses.dataclass(frozen=True)
 class BackendSpec:
-    """One DA execution mode: ``fn(xq int32 [M,K], packed, cfg) → int32
-    [M,N] == xq @ wq``."""
+    """Capability spec + implementation of one DA execution mode.
+
+    fn:         (xq int32 [M,K], packed, cfg) → int32 [M,N] == xq @ wq.
+    needs_luts: reads materialized weight-sum LUTs from the artifact.
+    """
 
     name: str
     fn: Callable[[torch.Tensor, PackedWeights, DAConfig], torch.Tensor]
     description: str = ""
+    needs_luts: bool = False
 
 
 _REGISTRY: Dict[str, BackendSpec] = {}
 
 #: Legacy / call-site spellings → canonical registry names.
 MODE_ALIASES = {
+    "da_lut": "lut",
+    "da_onehot": "onehot",
     "da_bitplane": "bitplane",
     "da_bitplane_stacked": "bitplane_stacked",
     "stacked": "bitplane_stacked",
+    "pallas": "pallas_lut",
 }
 
 #: Reference backends that arrive with later slices.
-_NOT_YET = {"lut", "onehot", "pallas_lut", "int8", "da_lut", "da_onehot",
-            "pallas"}
+_NOT_YET = {"int8"}
 
 
 def canonical_mode(mode: str) -> str:
     return MODE_ALIASES.get(mode, mode)
 
 
-def register_backend(name: str, description: str = ""):
+def register_backend(name: str, **caps):
+    """Decorator: register ``fn(xq, packed, cfg) → int32`` under ``name``."""
+
     def deco(fn):
         if name in _REGISTRY:
             raise ValueError(f"backend {name!r} already registered")
-        _REGISTRY[name] = BackendSpec(name=name, fn=fn, description=description)
+        _REGISTRY[name] = BackendSpec(name=name, fn=fn, **caps)
         return fn
 
     return deco
@@ -139,14 +183,21 @@ def registered_backends() -> Dict[str, BackendSpec]:
     return dict(_REGISTRY)
 
 
+def registry_fingerprint() -> str:
+    """crc32 of the registered backend names, written into artifact
+    manifests as the reference does (``v1:`` + sorted names)."""
+    blob = "v1:" + ",".join(sorted(_REGISTRY))
+    return f"{zlib.crc32(blob.encode()):08x}"
+
+
 def get_backend(mode: str) -> BackendSpec:
     name = canonical_mode(mode)
     if name in _REGISTRY:
         return _REGISTRY[name]
     if name in _NOT_YET:
         raise NotImplementedError(
-            f"DA mode {mode!r} is not ported yet (LUT backends: ROADMAP "
-            "queue 2 item 4)")
+            f"DA mode {mode!r} is not ported yet (the int8 baseline: ROADMAP "
+            "queue 1 item 2)")
     raise ValueError(f"unknown DA mode {mode!r}; registered backends: "
                      f"{', '.join(sorted(_REGISTRY))} (plus 'auto')")
 
@@ -159,19 +210,62 @@ def resolve_backend(mode: str, device: torch.device) -> BackendSpec:
     return get_backend(mode)
 
 
-@register_backend("bitplane", "storage-free serial DA: Σ_b 2^b · (xbit_b @ W)")
+def _resolve_spec(mode: Optional[str], packed: PackedWeights, cfg: DAConfig,
+                  device: torch.device) -> BackendSpec:
+    """Resolve a call-site mode (None → the artifact's default) and enforce
+    the backend's capabilities, so a mismatch raises instead of computing
+    wrong integers."""
+    spec = resolve_backend(packed.mode if mode is None else mode, device)
+    if spec.needs_luts and not packed.has_luts:
+        raise ValueError(f"backend {spec.name!r} reads materialized LUTs but "
+                         "the PackedWeights artifact has none — pack with a "
+                         "LUT mode")
+    if spec.needs_luts and packed.luts.shape[-2] != 1 << cfg.group_size:
+        raise ValueError(
+            f"backend {spec.name!r}: LUTs were packed with "
+            f"{packed.luts.shape[-2]} rows per PMA but cfg.group_size="
+            f"{cfg.group_size} addresses {1 << cfg.group_size} — repack the "
+            "weights or use the packed cfg")
+    return spec
+
+
+@register_backend(
+    "lut", needs_luts=True,
+    description="faithful PMA readout: LUT gather + bit-serial shift-and-add")
+def _lut_backend(xq, packed, cfg):
+    return da_vmm_lut(xq, packed.luts, cfg)
+
+
+@register_backend(
+    "onehot", needs_luts=True,
+    description="address decoder as one-hot; LUT readout in one product")
+def _onehot_backend(xq, packed, cfg):
+    return da_vmm_onehot(xq, packed.luts, cfg)
+
+
+@register_backend(
+    "pallas_lut", needs_luts=True,
+    description="hand-written LUT-readout kernel (plain version on CPU)")
+def _kernel_lut_backend(xq, packed, cfg):
+    from repro_torch.kernels.ops import da_vmm as kernel_da_vmm
+
+    return kernel_da_vmm(xq, packed.luts, cfg)
+
+
+@register_backend("bitplane",
+                  description="storage-free serial DA: Σ_b 2^b · (xbit_b @ W)")
 def _bitplane_backend(xq, packed, cfg):
     return da_vmm_bitplane(xq, packed.wq, cfg)
 
 
 @register_backend("bitplane_stacked",
-                  "bit-planes stacked on a leading axis: one product")
+                  description="bit-planes stacked on a leading axis: one product")
 def _stacked_backend(xq, packed, cfg):
     return da_vmm_bitplane_stacked(xq, packed.wq, cfg)
 
 
 @register_backend("pallas_bitplane",
-                  "hand-written bit-plane kernel (plain version on CPU)")
+                  description="hand-written bit-plane kernel (plain version on CPU)")
 def _kernel_bitplane_backend(xq, packed, cfg):
     from repro_torch.kernels.ops import bitplane_vmm
 
@@ -189,7 +283,7 @@ def da_vmm(xq: torch.Tensor, packed: PackedWeights, mode: Optional[str] = None,
     ``mode`` None → the artifact's default; ``cfg`` overrides the packed
     config (e.g. to flip x_signed)."""
     cfg = cfg if cfg is not None else packed.cfg
-    spec = resolve_backend(packed.mode if mode is None else mode, xq.device)
+    spec = _resolve_spec(mode, packed, cfg, xq.device)
     lead = xq.shape[:-1]
     acc = spec.fn(xq.reshape(-1, xq.shape[-1]).to(torch.int32), packed, cfg)
     return acc.reshape(lead + (packed.n,))
@@ -202,7 +296,7 @@ def da_matmul(x: torch.Tensor, weights: PackedWeights,
     integer VMM → dequantize as ``acc.float() * x_scale * w_scale``."""
     cfg = cfg if cfg is not None else weights.cfg
     scfg = dataclasses.replace(cfg, x_signed=True)
-    spec = resolve_backend(weights.mode if mode is None else mode, x.device)
+    spec = _resolve_spec(mode, weights, scfg, x.device)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
     xqt = quantize_acts_signed(x2, bits=scfg.x_bits)
@@ -254,8 +348,9 @@ def da_qkv_matmul(x: torch.Tensor, packs, cfg: Optional[DAConfig] = None,
     """Fused multi-head projection: one DA pass over several PackedWeights.
 
     The activations are quantized once; when every matrix resolves to the
-    same backend the VMMs run as ONE pass over the concatenated codes (one
-    kernel launch on CUDA), then split.  Each output column is an
+    same storage-free backend the VMMs run as ONE pass over the concatenated
+    codes (one kernel launch on CUDA), then split; a LUT backend reads each
+    pack's own tables, one call per pack.  Each output column is an
     independent exact integer dot and dequantization is per column, so the
     outputs are bit-identical to separate :func:`da_matmul` calls.
     """
@@ -273,12 +368,11 @@ def da_qkv_matmul(x: torch.Tensor, packs, cfg: Optional[DAConfig] = None,
             raise ValueError(f"da_qkv_matmul: contraction dims differ ({p.k} "
                              f"vs {packs[0].k})")
     scfg = dataclasses.replace(base, x_signed=True)
-    specs = [resolve_backend(p.mode if mode is None else mode, x.device)
-             for p in packs]
+    specs = [_resolve_spec(mode, p, scfg, x.device) for p in packs]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
     xqt = quantize_acts_signed(x2, bits=scfg.x_bits)
-    if len({s.name for s in specs}) == 1:
+    if len({s.name for s in specs}) == 1 and not specs[0].needs_luts:
         merged = PackedWeights(wq=_merged_codes(packs), w_scale=packs[0].w_scale,
                                luts=None, cfg=scfg, mode=specs[0].name)
         accs = torch.split(specs[0].fn(xqt.q, merged, scfg),

@@ -1,27 +1,50 @@
-"""Model-level DA freeze with one pinned backend mode.
+"""Model-level DA freeze with one pinned backend mode, and DA artifacts on disk.
 
-Walks a params tree and packs every weight-matrix leaf (``DA_LEAF_NAMES``,
-outside ``SKIP_CONTEXT``) under the pinned mode; norms, biases and the
-embedding table stay float.  The per-layer planner, the hardware cost model
-and artifact save/load arrive with later slices.
+:func:`freeze_model` walks a params tree and packs every weight-matrix leaf
+(``DA_LEAF_NAMES``, outside ``SKIP_CONTEXT``) under the pinned mode, building
+LUTs for every leaf when that mode reads them; norms, biases and the
+embedding table stay float.  The per-layer planner (``mode="auto"``) and the
+hardware cost model arrive with later slices.
 
 The q/k/v codes of each attention layer are laid out side by side in one
 ``[K, Nq + Nk + Nv]`` buffer (each pack's ``wq`` is a column slice of it), so
 the fused projection reads the three matrices in one kernel pass without
-concatenating them every step.
+concatenating them every step; each pack keeps its own LUTs.
+
+:func:`save_artifact` / :func:`load_artifact` read and write the reference's
+artifact (``arrays.npz`` + ``manifest.json``): its layout stacks each layer
+position over periods (``periods/pos_j/...``), which the port splits into
+``blocks`` when reading and stacks back when writing, so the two packages
+boot each other's artifacts.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
+import math
+import os
+import warnings
+from typing import Any, Dict, Optional
+
 import torch
 
+from repro_torch.checkpoint import ckpt
+from repro_torch.convert import params_from_jax, params_to_ref
 from repro_torch.core.da import DAConfig
 from repro_torch.core.engine import (
     PackedWeights,
     canonical_mode,
     get_backend,
     pack_weights,
+    registered_backends,
+    registry_fingerprint,
 )
 from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
+
+#: Artifact schema (the reference's): bumped on any layout/manifest change.
+ARTIFACT_VERSION = 1
+ARTIFACT_FORMAT = "da-artifact"
 
 #: Param leaf names that are weight matrices ([in, out]).
 DA_LEAF_NAMES = {
@@ -48,16 +71,27 @@ def _colocate_qkv(node: dict) -> None:
     merged = torch.cat([p.wq for p in packs], dim=1)
     off = 0
     for name, p in zip(("wq", "wk", "wv"), packs):
-        node[name] = PackedWeights(wq=merged[:, off:off + p.n], w_scale=p.w_scale,
-                                   luts=p.luts, cfg=p.cfg, mode=p.mode)
+        node[name] = dataclasses.replace(p, wq=merged[:, off:off + p.n])
         off += p.n
+
+
+def _map_dicts(tree, fn):
+    """Apply ``fn`` in place to every dict of ``tree``, leaves first."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _map_dicts(v, fn)
+        fn(tree)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _map_dicts(v, fn)
+    return tree
 
 
 def freeze_model(params, da_cfg: DAConfig = DAConfig(x_signed=True),
                  mode: str = "pallas_bitplane", device="cuda"):
     """Pack every weight-matrix leaf of ``params`` on ``device`` under the
-    registered backend ``mode``; returns the packed tree (other leaves are
-    moved to ``device`` unchanged)."""
+    registered backend ``mode`` (with LUTs when ``mode`` reads them); returns
+    the packed tree (other leaves are moved to ``device`` unchanged)."""
     dev = resolve_device(device)
     mode = canonical_mode(mode)
     if mode == "auto":
@@ -68,9 +102,7 @@ def freeze_model(params, da_cfg: DAConfig = DAConfig(x_signed=True),
 
     def walk(path, node):
         if isinstance(node, dict):
-            out = {k: walk(path + (str(k),), v) for k, v in node.items()}
-            _colocate_qkv(out)
-            return out
+            return {k: walk(path + (str(k),), v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [walk(path + (str(i),), v) for i, v in enumerate(node)]
         if isinstance(node, PackedWeights):
@@ -79,7 +111,7 @@ def freeze_model(params, da_cfg: DAConfig = DAConfig(x_signed=True),
             return pack_weights(node.to(dev), da_cfg, mode=mode)
         return node.to(dev) if isinstance(node, torch.Tensor) else node
 
-    return walk((), params)
+    return _map_dicts(walk((), params), _colocate_qkv)
 
 
 def is_frozen(params) -> bool:
@@ -91,3 +123,178 @@ def is_frozen(params) -> bool:
     if isinstance(params, (list, tuple)):
         return any(is_frozen(v) for v in params)
     return False
+
+
+# ---------------------------------------------------------------------------
+# Plan schema and the artifact
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    """One layer's freeze decision (the reference's schema).
+
+    mode:       concrete backend name this layer serves under.
+    group_size: rows per PMA for this layer (LUT addressability).
+    with_luts:  materialize the weight-sum LUTs (the PMA write) or not.
+    k, n:       the weight matrix shape the plan was made for.
+    source:     "measured", "analytic", "pinned" or "stale" (a mode this
+                build does not register, demoted to "auto").
+    est_cost:   the winning backend's estimated cost, NaN when pinned.
+    kv_dtype:   KV-page precision of this layer's cache, on the wk/wv mixer
+                entries only ("fp16" | "int8" | "int4"); None elsewhere.
+    """
+
+    mode: str
+    group_size: int
+    with_luts: bool
+    k: int
+    n: int
+    source: str = "analytic"
+    est_cost: float = dataclasses.field(default=float("nan"), compare=False)
+    kv_dtype: Optional[str] = None
+
+    def to_json(self) -> dict:
+        d = dataclasses.asdict(self)
+        if not math.isfinite(d["est_cost"]):
+            d["est_cost"] = None  # a bare NaN literal breaks strict JSON
+        return d
+
+    @classmethod
+    def from_json(cls, d: dict) -> "LayerPlan":
+        d = dict(d)
+        if d.get("est_cost") is None:
+            d["est_cost"] = float("nan")
+        return cls(**d)
+
+
+@dataclasses.dataclass
+class DAArtifact:
+    """The frozen, servable model: packed params + the plan that shaped them.
+
+    params:    the port's params (``blocks`` list) with PackedWeights leaves.
+    plan:      reference leaf path (``periods/pos_0/mixer/wq``) → LayerPlan.
+    da_cfg:    base DAConfig the model was frozen under.
+    model_cfg: the ModelConfig to rebuild the serving graph, or None.
+    hwcost:    the reference's hardware cost table, carried as raw JSON (its
+               port waits for the observability slice; the reference
+               rebuilds it from the packed leaves when it is absent).
+    analysis:  the reference's last static-analysis verdict, carried as is.
+    """
+
+    params: Any
+    plan: Dict[str, LayerPlan]
+    da_cfg: DAConfig
+    model_cfg: Any = None
+    version: int = ARTIFACT_VERSION
+    hwcost: Optional[dict] = None
+    analysis: Optional[Dict[str, Any]] = None
+
+
+def _ref_key(path, period: int) -> str:
+    """A port leaf path as the reference names it: block ``i`` of the layer
+    list is position ``i % period`` of the stacked periods."""
+    if path[0] == "blocks":
+        path = ("periods", f"pos_{int(path[1]) % period}") + tuple(path[2:])
+    return "/".join(path)
+
+
+def pinned_plan(params, model_cfg=None) -> Dict[str, LayerPlan]:
+    """The plan a pinned freeze of ``params`` amounts to, read off its
+    PackedWeights leaves; with ``model_cfg`` the wk/wv entries record
+    ``model_cfg.kv_dtype``."""
+    period = model_cfg.period if model_cfg is not None else 1
+    kv = model_cfg.kv_dtype if model_cfg is not None else None
+    plans: Dict[str, LayerPlan] = {}
+
+    def walk(path, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(path + (str(k),), v)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(path + (str(i),), v)
+        elif isinstance(node, PackedWeights):
+            plans[_ref_key(path, period)] = LayerPlan(
+                mode=node.mode, group_size=node.cfg.group_size,
+                with_luts=node.has_luts, k=node.k, n=node.n, source="pinned",
+                kv_dtype=kv if path[-1] in ("wk", "wv") else None)
+
+    walk((), params)
+    return plans
+
+
+# ---------------------------------------------------------------------------
+# Serialize / load
+# ---------------------------------------------------------------------------
+
+
+def save_artifact(directory: str, artifact: DAArtifact) -> str:
+    """Persist a DAArtifact in the reference's layout: ``<dir>/arrays.npz`` +
+    ``manifest.json`` (atomic, crc-checked per array), the layers stacked
+    over periods, the manifest carrying the DA config, the plan, the model
+    config and the backend-registry fingerprint."""
+    cfg = artifact.model_cfg
+    extra = {
+        "format": ARTIFACT_FORMAT,
+        "artifact_version": artifact.version,
+        "da_cfg": dataclasses.asdict(artifact.da_cfg),
+        "plan": {k: p.to_json() for k, p in artifact.plan.items()},
+        "registry": registry_fingerprint(),
+    }
+    if artifact.hwcost:
+        extra["hwcost"] = artifact.hwcost
+    if artifact.analysis is not None:
+        extra["analysis"] = artifact.analysis
+    if cfg is not None:
+        extra["model_cfg"] = cfg.to_manifest()
+    tree = params_to_ref(artifact.params, cfg.period if cfg is not None else 1)
+    return ckpt.save_tree(directory, tree, extra_manifest=extra)
+
+
+def _demote_stale_modes(params, stale: set):
+    def demote(node):
+        for k, v in node.items():
+            if isinstance(v, PackedWeights) and v.mode in stale:
+                node[k] = dataclasses.replace(v, mode="auto")
+
+    return _map_dicts(params, demote)
+
+
+def load_artifact(directory: str, device="cuda") -> DAArtifact:
+    """Boot a DAArtifact (the reference's or the port's) from disk onto
+    ``device``: no float weights, no re-packing, every array crc-verified.
+    A plan naming a backend this build does not register degrades that
+    layer to ``mode="auto"`` with a warning."""
+    dev = resolve_device(device)
+    with open(os.path.join(directory, "manifest.json")) as f:
+        manifest = json.load(f)
+    if manifest.get("format") != ARTIFACT_FORMAT:
+        raise IOError(f"{directory} is not a DA artifact (format="
+                      f"{manifest.get('format')!r}); expected "
+                      f"{ARTIFACT_FORMAT!r}")
+    if manifest.get("artifact_version", 0) > ARTIFACT_VERSION:
+        raise IOError(f"artifact version {manifest['artifact_version']} is "
+                      f"newer than this build understands ({ARTIFACT_VERSION})")
+    tree = ckpt.load_tree(directory)
+    params = params_from_jax(tree, dev) if "periods" in tree else tree
+    _map_dicts(params, _colocate_qkv)
+    plan = {k: LayerPlan.from_json(p)
+            for k, p in manifest.get("plan", {}).items()}
+    registry = registered_backends()
+    stale = sorted({p.mode for p in plan.values() if p.mode not in registry})
+    if stale:
+        warnings.warn(
+            f"artifact {directory} was planned for backends {stale} that are "
+            "not registered in this build; those layers fall back to "
+            "mode='auto' dispatch", stacklevel=2)
+        params = _demote_stale_modes(params, set(stale))
+        plan = {k: (dataclasses.replace(p, mode="auto", source="stale")
+                    if p.mode in stale else p) for k, p in plan.items()}
+    model_cfg = (ModelConfig.from_manifest(manifest["model_cfg"])
+                 if "model_cfg" in manifest else None)
+    return DAArtifact(params=params, plan=plan,
+                      da_cfg=DAConfig(**manifest["da_cfg"]), model_cfg=model_cfg,
+                      version=manifest.get("artifact_version", 1),
+                      hwcost=manifest.get("hwcost"),
+                      analysis=manifest.get("analysis"))

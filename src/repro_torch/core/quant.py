@@ -1,10 +1,11 @@
 """Symmetric uniform quantization (paper §II-C: post-training symmetric INT8).
 
 Weights: per-output-channel symmetric int8.  Activations: signed codes with a
-dynamic per-token scale (the LM serving path).  Codes are int32 plus a float32
-scale.  The arithmetic mirrors the reference op for op: ``scale = max(amax,
-eps) / qmax`` in the input dtype, then ``round(x / scale)`` (a division, not a
-reciprocal multiply; ``torch.round`` rounds half to even).
+dynamic per-token scale (the LM serving path), or unsigned codes (the image
+path).  Codes are int32 plus a float32 scale.  The arithmetic mirrors the
+reference op for op: ``scale = max(amax, eps) / qmax`` in the input dtype,
+then ``round(x / scale)`` (a division, not a reciprocal multiply;
+``torch.round`` rounds half to even).
 """
 from __future__ import annotations
 
@@ -50,3 +51,14 @@ def quantize_acts_signed(x: torch.Tensor, bits: int = 8,
     """Dynamic per-row (per-token) symmetric activation quantization."""
     amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
     return _symmetric(x, amax, bits, eps)
+
+
+def quantize_acts_unsigned(x: torch.Tensor, bits: int = 8,
+                           eps: float = 1e-8) -> QTensor:
+    """Unsigned per-row activation quantization (e.g. [0, 255] grayscale
+    inputs, the paper's CONV1 image path)."""
+    qmax = (1 << bits) - 1
+    amax = torch.amax(x, dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=eps) / qmax
+    q = torch.clamp(torch.round(x / scale), 0, qmax).to(torch.int32)
+    return QTensor(q=q, scale=scale.to(torch.float32), bits=bits, signed=False)

@@ -22,7 +22,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("bitplane_vmm", "paged_attention")
+SOURCES = ("bitplane_vmm", "da_vmm", "paged_attention")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: ``-Xptxas -v`` resource summary of each build made in this process

@@ -1,7 +1,8 @@
-// Paged-attention read over fp pages for Hopper, sm_90a.
+// Paged-attention read over fp, int8 or packed-int4 pages for Hopper, sm_90a.
 //
 // Replaces the TPU kernel src/repro/kernels/paged_attention.py:
-// _paged_attn_kernel (driven by paged_attention).
+// _paged_attn_kernel (driven by paged_attention), both its fp branch and its
+// quantized branch (kv_fmt != "fp").
 //
 // Computes, for every batch row b and KV head kv, the grouped-GQA attention
 // of its G = H / KV query heads over the pages its page table names:
@@ -12,6 +13,15 @@
 // to the input dtype, and the PV sum rounded to the input dtype.  Every
 // rounding is the one the gather read (models/attention.paged_gather_read)
 // performs, so the two differ only by float32 summation order.
+//
+// Quantized pages hold int8 codes [.., hd], or two int4 codes per byte
+// [.., hd/2] (element 2i in the low nibble, sign-extended), beside one
+// float16 scale per (page slot, KV head) [.., 1] that rides the same table
+// walk.  A lane dequantizes its codes in registers with exactly the plain
+// formula codes.to(T) * scale.to(T): the f16 scale is rounded to T (f16 ->
+// f32 -> T, round to nearest even), then the product is rounded to T.  So
+// every dequantized element equals the plain read's, and the scores and PV
+// sums are those of fp pages holding the dequantized values.
 //
 // Design.  One block of 8 warps per (KV head, batch row).  The TPU kernel's
 // scalar prefetch and sequential page grid do not carry over: the block reads
@@ -37,7 +47,10 @@
 // read from device memory once per block, pages the table does not name are
 // never touched, and no gathered [B, S, kv, hd] view is materialised.  With
 // one block per (KV head, row) a decode step fills only B*KV SMs, so the
-// loads in flight per SM (U rows per warp) set the rate.
+// loads in flight per SM (U rows per warp) set the rate.  Quantized pages
+// move hd bytes (int8) or hd/2 bytes (int4) per row plus a 2-byte scale, a
+// half and a quarter of the bf16 bytes: each lane loads its hd/32 codes in one
+// vector, so a warp still reads a row in one coalesced transaction.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -52,23 +65,18 @@ constexpr int NWARPS = 8;
 constexpr int THREADS = NWARPS * 32;
 constexpr int RC = 8;  // query rows per reduction / accumulation chunk
 constexpr int U = 8;   // key positions whose rows a warp loads at once
+enum : int { KV_FP = 0, KV_I8 = 1, KV_I4 = 2 };  // page formats
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-template <> __device__ __forceinline__ float to_f<__half>(__half v) {
-  return __half2float(v);
-}
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float v) {
-  return __float2half_rn(v);
 }
 
 // round a float to the input dtype and back
@@ -103,6 +111,65 @@ __device__ __forceinline__ void load_f(const T* __restrict__ p, float (&o)[N]) {
   } else {
 #pragma unroll
     for (int j = 0; j < N; ++j) o[j] = to_f<T>(p[j]);
+  }
+}
+
+// N consecutive bytes at p (aligned to N when N is a power of two)
+template <int N>
+__device__ __forceinline__ void load_bytes(const uint8_t* __restrict__ p, uint8_t (&o)[N]) {
+  if constexpr (N == 8) {
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+    const uint8_t* e = reinterpret_cast<const uint8_t*>(&raw);
+#pragma unroll
+    for (int j = 0; j < N; ++j) o[j] = e[j];
+  } else if constexpr (N == 4) {
+    const unsigned raw = __ldg(reinterpret_cast<const unsigned*>(p));
+#pragma unroll
+    for (int j = 0; j < N; ++j) o[j] = (uint8_t)(raw >> (8 * j));
+  } else if constexpr (N == 2) {
+    const unsigned short raw = __ldg(reinterpret_cast<const unsigned short*>(p));
+    o[0] = (uint8_t)raw;
+    o[1] = (uint8_t)(raw >> 8);
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) o[j] = __ldg(p + j);
+  }
+}
+
+// a nibble as a sign-extended 4-bit integer
+__device__ __forceinline__ int sext4(unsigned x) { return (int)(x << 28) >> 28; }
+
+// This lane's EPL elements of K/V row `row` (page slot * KV + head) as
+// floats.  Quantized formats dequantize exactly as the plain read does:
+// codes.to(T) * scale.to(T), with both roundings to T.
+template <typename T, int EPL, int KF>
+__device__ __forceinline__ void load_kv(const void* __restrict__ pool,
+                                        const __half* __restrict__ scale, size_t row,
+                                        int lane, float (&o)[EPL]) {
+  constexpr int HD = 32 * EPL;
+  if constexpr (KF == KV_FP) {
+    load_f<T, EPL>(reinterpret_cast<const T*>(pool) + row * HD + lane * EPL, o);
+  } else {
+    const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(scale) + row);
+    const float s = rnd<T>(__half2float(__ushort_as_half(bits)));
+    float c[EPL];
+    if constexpr (KF == KV_I8) {
+      uint8_t b[EPL];
+      load_bytes<EPL>(reinterpret_cast<const uint8_t*>(pool) + row * HD + lane * EPL, b);
+#pragma unroll
+      for (int j = 0; j < EPL; ++j) c[j] = (float)(int8_t)b[j];
+    } else {
+      uint8_t b[EPL / 2];
+      load_bytes<EPL / 2>(
+          reinterpret_cast<const uint8_t*>(pool) + row * (HD / 2) + lane * (EPL / 2), b);
+#pragma unroll
+      for (int j = 0; j < EPL / 2; ++j) {
+        c[2 * j] = (float)sext4(b[j] & 0xfu);
+        c[2 * j + 1] = (float)sext4(b[j] >> 4);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < EPL; ++j) o[j] = rnd<T>(c[j] * s);
   }
 }
 
@@ -171,11 +238,13 @@ __device__ __forceinline__ int lane_row(int lane) {
   return ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 + ((lane >> 2) & 1);
 }
 
-// EPL: head_dim / 32 elements per lane
-template <typename T, int EPL>
+// EPL: head_dim / 32 elements per lane; KF: page format (KV_FP pools hold
+// T, quantized pools int8 codes with float16 scales kscale / vscale)
+template <typename T, int EPL, int KF>
 __global__ void __launch_bounds__(THREADS)
-paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                  const T* __restrict__ vpool, const int32_t* __restrict__ table,
+paged_attn_kernel(const T* __restrict__ q, const void* __restrict__ kpool,
+                  const void* __restrict__ vpool, const __half* __restrict__ kscale,
+                  const __half* __restrict__ vscale, const int32_t* __restrict__ table,
                   const int32_t* __restrict__ tpos, T* __restrict__ out,
                   float* __restrict__ scratch, int Tq, int H, int KV, int PS, int W,
                   float div, int additive) {
@@ -211,10 +280,9 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   int tmax = -1;
   for (int t = 0; t < Tq; ++t) tmax = max(tmax, tp_s[t]);
   const int s_end = tmax >= 0 ? min(S, tmax + 1) : S;
-  const size_t kv_stride = (size_t)KV * HD;
-  auto row_ptr = [&](const T* pool, int s) {
-    return pool + ((size_t)pg_s[s / PS] * PS + s % PS) * kv_stride + (size_t)kvh * HD +
-           lane * EPL;
+  // K/V row of position s: (page slot, this KV head)
+  auto row_of = [&](int s) {
+    return ((size_t)pg_s[s / PS] * PS + s % PS) * KV + kvh;
   };
 
   // scores
@@ -223,7 +291,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (s0 + u < s_end) {
-        load_f<T, EPL>(row_ptr(kpool, s0 + u), kr[u]);
+        load_kv<T, EPL, KF>(kpool, kscale, row_of(s0 + u), lane, kr[u]);
       } else {
 #pragma unroll
         for (int j = 0; j < EPL; ++j) kr[u][j] = 0.f;
@@ -296,7 +364,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
       float vr[U][EPL];
 #pragma unroll
       for (int u = 0; u < U; ++u)
-        if (s0 + u < s_end) load_f<T, EPL>(row_ptr(vpool, s0 + u), vr[u]);
+        if (s0 + u < s_end) load_kv<T, EPL, KF>(vpool, vscale, row_of(s0 + u), lane, vr[u]);
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         if (s0 + u >= s_end) break;
@@ -326,63 +394,88 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   }
 }
 
-template <typename T, int EPL>
-int launch(const void* q, const void* k, const void* v, const void* table,
-           const void* tpos, void* out, void* scratch, int B, int Tq, int H, int KV,
-           int PS, int W, float div, int additive, int smem_bytes, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_attn_kernel<T, EPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+template <typename T, int EPL, int KF>
+int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+           const void* table, const void* tpos, void* out, void* scratch, int B, int Tq,
+           int H, int KV, int PS, int W, float div, int additive, int smem_bytes,
+           void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(paged_attn_kernel<T, EPL, KF>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(KV, B);
-  paged_attn_kernel<T, EPL><<<grid, THREADS, smem_bytes, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int32_t*)table,
+  paged_attn_kernel<T, EPL, KF><<<grid, THREADS, smem_bytes, (cudaStream_t)stream>>>(
+      (const T*)q, k, v, (const __half*)ks, (const __half*)vs, (const int32_t*)table,
       (const int32_t*)tpos, (T*)out, (float*)scratch, Tq, H, KV, PS, W, div, additive);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, const void* table,
-              const void* tpos, void* out, void* scratch, int B, int Tq, int H, int KV,
-              int HD, int PS, int W, float div, int additive, int smem_bytes,
-              void* stream) {
-#define PA_CASE(E)                                                                     \
-  case E:                                                                              \
-    return launch<T, E>(q, k, v, table, tpos, out, scratch, B, Tq, H, KV, PS, W, div, \
-                        additive, smem_bytes, stream);
+template <typename T, int KF>
+int launch_hd(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+              const void* table, const void* tpos, void* out, void* scratch, int B, int Tq,
+              int H, int KV, int HD, int PS, int W, float div, int additive,
+              int smem_bytes, void* stream) {
+#define PA_CASE(E)                                                                      \
+  case E:                                                                               \
+    return launch<T, E, KF>(q, k, v, ks, vs, table, tpos, out, scratch, B, Tq, H, KV,   \
+                            PS, W, div, additive, smem_bytes, stream);
+  // the head widths a registered config serves (the LUT-serving model's 64,
+  // qwen3-8b's 128); widen the set when a config needs another
   switch (HD / 32) {
-    PA_CASE(1) PA_CASE(2) PA_CASE(3) PA_CASE(4) PA_CASE(5) PA_CASE(6) PA_CASE(7)
-    PA_CASE(8)
+    PA_CASE(2) PA_CASE(4)
     default:
       return (int)cudaErrorInvalidValue;
   }
 #undef PA_CASE
 }
 
+template <typename T>
+int launch_fmt(int kv_fmt, const void* q, const void* k, const void* v, const void* ks,
+               const void* vs, const void* table, const void* tpos, void* out,
+               void* scratch, int B, int Tq, int H, int KV, int HD, int PS, int W,
+               float div, int additive, int smem_bytes, void* stream) {
+  switch (kv_fmt) {
+    case KV_FP:
+      return launch_hd<T, KV_FP>(q, k, v, ks, vs, table, tpos, out, scratch, B, Tq, H,
+                                 KV, HD, PS, W, div, additive, smem_bytes, stream);
+    case KV_I8:
+      return launch_hd<T, KV_I8>(q, k, v, ks, vs, table, tpos, out, scratch, B, Tq, H,
+                                 KV, HD, PS, W, div, additive, smem_bytes, stream);
+    case KV_I4:
+      return launch_hd<T, KV_I4>(q, k, v, ks, vs, table, tpos, out, scratch, B, Tq, H,
+                                 KV, HD, PS, W, div, additive, smem_bytes, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16, 2 float16.  q [B,Tq,H,HD], pools
-// [P,PS,KV,HD], table int32 [B,W], tpos int32 [B,Tq], out [B,Tq,H,HD], all
-// contiguous and 16-byte aligned.  scratch: float32 [B,KV,G*Tq,W*PS], or null
-// to keep the scores in shared memory (smem_bytes then includes them).
-int paged_attention_fp(int dtype, const void* q, const void* k, const void* v,
-                       const void* table, const void* tpos, void* out, void* scratch,
-                       int B, int Tq, int H, int KV, int HD, int PS, int W, float div,
-                       int additive, int smem_bytes, void* stream) {
-  if (B <= 0 || Tq <= 0 || KV <= 0 || H % KV != 0 || HD % 32 != 0 || HD > 256 ||
-      PS <= 0 || W <= 0)
+// dtype: 0 float32, 1 bfloat16 (of q and out).  HD: 64 or 128.  kv_fmt: 0
+// fp pools [P,PS,KV,HD] of that dtype; 1 int8 codes [P,PS,KV,HD]; 2 int4 codes
+// [P,PS,KV,HD/2] (HD % 64 == 0); quantized pools with float16 scales
+// ks / vs [P,PS,KV,1], null for fp.  q [B,Tq,H,HD], table int32 [B,W], tpos
+// int32 [B,Tq], out [B,Tq,H,HD], all contiguous and 16-byte aligned.
+// scratch: float32 [B,KV,G*Tq,W*PS], or null to keep the scores in shared
+// memory (smem_bytes then includes them).
+int paged_attention_run(int dtype, int kv_fmt, const void* q, const void* k,
+                        const void* v, const void* ks, const void* vs, const void* table,
+                        const void* tpos, void* out, void* scratch, int B, int Tq, int H,
+                        int KV, int HD, int PS, int W, float div, int additive,
+                        int smem_bytes, void* stream) {
+  if (B <= 0 || Tq <= 0 || KV <= 0 || H % KV != 0 || (HD != 64 && HD != 128) ||
+      PS <= 0 || W <= 0 || (kv_fmt != KV_FP && (ks == nullptr || vs == nullptr)))
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
-      return launch_hd<float>(q, k, v, table, tpos, out, scratch, B, Tq, H, KV, HD, PS,
-                              W, div, additive, smem_bytes, stream);
+      return launch_fmt<float>(kv_fmt, q, k, v, ks, vs, table, tpos, out, scratch, B, Tq,
+                               H, KV, HD, PS, W, div, additive, smem_bytes, stream);
     case 1:
-      return launch_hd<__nv_bfloat16>(q, k, v, table, tpos, out, scratch, B, Tq, H, KV,
-                                      HD, PS, W, div, additive, smem_bytes, stream);
-    case 2:
-      return launch_hd<__half>(q, k, v, table, tpos, out, scratch, B, Tq, H, KV, HD, PS,
-                               W, div, additive, smem_bytes, stream);
+      return launch_fmt<__nv_bfloat16>(kv_fmt, q, k, v, ks, vs, table, tpos, out, scratch,
+                                       B, Tq, H, KV, HD, PS, W, div, additive, smem_bytes,
+                                       stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

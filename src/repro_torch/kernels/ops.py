@@ -7,6 +7,14 @@ import torch
 from repro_torch.core.da import DAConfig
 from repro_torch.kernels import ref
 from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
+from repro_torch.kernels.da_vmm import da_vmm_cuda
+
+
+def da_vmm(xq: torch.Tensor, luts: torch.Tensor, cfg: DAConfig) -> torch.Tensor:
+    """Faithful LUT-readout DA VMM (int32-exact). xq [M,K], luts [G,2^L,N]."""
+    if xq.device.type == "cuda":
+        return da_vmm_cuda(xq.contiguous(), luts, cfg)
+    return ref.da_vmm_ref(xq, luts, cfg)
 
 
 def bitplane_vmm(xq: torch.Tensor, wq: torch.Tensor,

@@ -5,12 +5,11 @@ kernel walks each row's page table itself, skips the positions past the
 row's largest tpos (masked for all its queries), scores the live K rows into
 float32 (in shared memory when they fit, else in a scratch tensor allocated
 here), runs a deferred softmax (exp and normalise after every page is scored,
-as the TPU kernel does, no online rescale) and the PV pass.  It repeats every
+as the TPU kernel does, no online rescale) and the PV pass.  Pools hold fp
+pages, or int8 / packed-int4 codes with float16 scales per (page slot, KV
+head), dequantized in registers with the plain formula.  It repeats every
 rounding of the plain version, :func:`repro_torch.models.attention.
 paged_gather_read`, which differs from it only by float32 summation order.
-
-fp pages only on CUDA; int8 / int4 pools run through the plain version on
-the CPU and raise on CUDA (ROADMAP queue 2 item 3).
 """
 from __future__ import annotations
 
@@ -19,8 +18,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.models import kv_quant
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: head widths the kernel is built for (the registered configs' 64 and 128)
+HEAD_DIMS = (64, 128)
+_KV_FORMATS = {"fp": 0, "int8": 1, "int4": 2}
 #: dynamic shared memory a block may take (H100: 227 KB)
 SMEM_LIMIT = 227 * 1024
 #: the kernel's warps per block and query rows per accumulation chunk
@@ -30,9 +33,9 @@ _NWARPS, _RC = 8, 8
 
 
 def _lib():
-    fn = build.load("paged_attention").paged_attention_fp
+    fn = build.load("paged_attention").paged_attention_run
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
                        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
                                                ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -55,17 +58,23 @@ def smem_plan(t: int, h: int, kv: int, hd: int, ps: int, w: int):
 def paged_attention_cuda(q, k_pool, v_pool, page_table, tpos, *,
                          softmax_dtype="float32", mask_mode: str = "where",
                          k_scale=None, v_scale=None) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors; returns ``[B, T, H, hd]``."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "paged_attention on CUDA reads fp pages only; int8/int4 pools are "
-            "ROADMAP queue 2 item 3 (the CPU plain version serves them)")
-    tensors = (q, k_pool, v_pool, page_table, tpos)
+    """Launch the kernel on CUDA tensors; returns ``[B, T, H, hd]``.
+    Quantized pools (int8 codes, or int4 packed two per byte along hd) come
+    with their float16 scales ``[P, ps, kv, 1]``."""
+    fmt = kv_quant.kv_format(k_pool, k_scale, q.shape[-1])
+    scales = () if fmt == "fp" else (k_scale, v_scale)
+    tensors = (q, k_pool, v_pool, page_table, tpos) + scales
     if any(x.device != q.device for x in tensors) or q.device.type != "cuda":
         raise ValueError("paged_attention_cuda: all operands on one CUDA device")
-    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError(f"paged_attention_cuda: q/k/v must share a float dtype "
-                        f"({q.dtype}, {k_pool.dtype}, {v_pool.dtype})")
+    pool_dtype = q.dtype if fmt == "fp" else torch.int8
+    if q.dtype not in _DTYPES or k_pool.dtype != pool_dtype or v_pool.dtype != pool_dtype:
+        raise TypeError(f"paged_attention_cuda: {fmt} pools of a {q.dtype} q "
+                        f"must be {pool_dtype} ({k_pool.dtype}, {v_pool.dtype})")
+    if fmt != "fp" and (v_scale is None or any(
+            x.dtype != kv_quant.KV_SCALE_DTYPE
+            or tuple(x.shape) != tuple(k_pool.shape[:-1]) + (1,) for x in scales)):
+        raise ValueError("paged_attention_cuda: quantized pools need float16 "
+                         "k_scale and v_scale of shape [P, ps, kv, 1]")
     if page_table.dtype != torch.int32 or tpos.dtype != torch.int32:
         raise TypeError("paged_attention_cuda: page_table and tpos are int32")
     if str(softmax_dtype) not in ("float32", "torch.float32"):
@@ -78,16 +87,17 @@ def paged_attention_cuda(q, k_pool, v_pool, page_table, tpos, *,
         raise ValueError("paged_attention_cuda: q and the pools must be "
                          "16-byte aligned (the kernel loads K/V rows as vectors)")
     b, t, h, hd = q.shape
-    _, ps, kv, hd_p = k_pool.shape
+    _, ps, kv, _ = k_pool.shape
     w = page_table.shape[1]
-    if (hd_p != hd or v_pool.shape != k_pool.shape or h % kv
+    if (k_pool.shape[-1] != (hd // 2 if fmt == "int4" else hd)
+            or v_pool.shape != k_pool.shape or h % kv
             or page_table.shape[0] != b or tuple(tpos.shape) != (b, t)):
         raise ValueError(f"paged_attention_cuda: inconsistent shapes q "
                          f"{tuple(q.shape)} pool {tuple(k_pool.shape)} table "
                          f"{tuple(page_table.shape)} tpos {tuple(tpos.shape)}")
-    if hd % 32 or hd > 256:
-        raise ValueError(f"paged_attention_cuda: head_dim {hd} must be a "
-                         "multiple of 32 and at most 256")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"paged_attention_cuda: head_dim {hd} is not one the "
+                         f"kernel is built for {HEAD_DIMS}")
     smem, in_smem = smem_plan(t, h, kv, hd, ps, w)
     scratch = None if in_smem else torch.empty(
         (b, kv, (h // kv) * t, w * ps), dtype=torch.float32, device=q.device)
@@ -95,18 +105,23 @@ def paged_attention_cuda(q, k_pool, v_pool, page_table, tpos, *,
     # the score divisor is sqrt(hd) rounded to the input dtype, as the plain
     # version divides by it in that dtype
     div = torch.tensor(hd ** 0.5, dtype=q.dtype).item()
-    err = _lib()(_DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-                 v_pool.data_ptr(), page_table.data_ptr(), tpos.data_ptr(),
-                 out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+    ks, vs = (x.data_ptr() for x in scales) if scales else (None, None)
+    err = _lib()(_DTYPES[q.dtype], _KV_FORMATS[fmt], q.data_ptr(),
+                 k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
+                 page_table.data_ptr(), tpos.data_ptr(), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(),
                  b, t, h, kv, hd, ps, w, div, int(mask_mode == "additive"),
                  smem, torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "paged_attention_fp")
+    build.check(err, "paged_attention_run")
     paged_attention_cuda.launches += 1
+    paged_attention_cuda.launches_by_format[fmt] += 1
     return out
 
 
-#: kernel launches in this process (reset by callers that count a run)
+#: kernel launches in this process, in all and by page format (reset by
+#: callers that count a run)
 paged_attention_cuda.launches = 0
+paged_attention_cuda.launches_by_format = dict.fromkeys(_KV_FORMATS, 0)
 
 
 def paged_attention(q, k_pool, v_pool, page_table, tpos, **kw) -> torch.Tensor:

@@ -3,7 +3,20 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.da import DAConfig, bit_coefs, bit_planes, plane_products
+from repro_torch.core.da import (
+    DAConfig,
+    bit_coefs,
+    bit_planes,
+    da_vmm_lut,
+    plane_products,
+)
+
+
+def da_vmm_ref(xq: torch.Tensor, luts: torch.Tensor,
+               cfg: DAConfig) -> torch.Tensor:
+    """Plain version of kernels/da_vmm.py: the faithful LUT-gather DA VMM →
+    int32."""
+    return da_vmm_lut(xq, luts, cfg)
 
 
 def bitplane_vmm_ref(xq: torch.Tensor, wq: torch.Tensor,

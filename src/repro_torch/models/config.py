@@ -3,12 +3,45 @@
 Field names and defaults follow the reference ``ModelConfig``; the port
 covers the dense attention family only (MoE, Mamba and M-RoPE arrive with
 later slices), so every layer position is an attention mixer with an MLP.
+An artifact manifest's ``model_cfg`` (the reference's full field set) reads
+through :meth:`ModelConfig.from_manifest`, which refuses any field that
+would change the model and that the port does not implement.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Dict
 
 import torch
+
+#: The reference's fields that the port's config does not carry, with their
+#: reference defaults.  A manifest may hold them at these values.
+_REFERENCE_ONLY: Dict[str, Any] = {
+    "modality": "text", "attn_bias": False, "mrope_sections": None,
+    "mlp_act": "swiglu", "norm_type": "rmsnorm",
+    "n_experts": 0, "top_k": 0, "moe_d_ff": 0, "n_shared_experts": 0,
+    "moe_period": 1, "moe_offset": 0, "capacity_factor": 1.25,
+    "moe_dropless": False, "moe_group_size": 1024,
+    "ssm_state": 0, "ssm_head_dim": 64, "ssm_conv": 4, "ssm_expand": 2,
+    "ssm_groups": 1, "ssm_chunk": 256, "attn_period": 0, "attn_offset": 0,
+    "remat": True, "remat_policy": "nothing", "attn_chunk_q": 0,
+    "tie_embeddings": False, "scan_unroll": False, "prefill_last_only": False,
+    "moe_impl": "dense", "attn_impl": "reference", "cache_mode": "scatter",
+}
+
+#: Of those, the ones that do not change what a dense model computes on the
+#: paged serving path, at any value: training and compile knobs, the MoE
+#: knobs without experts (``n_experts`` 0), the Mamba and hybrid knobs of a
+#: family without Mamba layers, the non-paged attention paths, and the
+#: prefill head slice (serving always slices the last token).
+_INERT_WHEN_DENSE = {
+    "remat", "remat_policy", "scan_unroll", "prefill_last_only",
+    "top_k", "moe_d_ff", "n_shared_experts", "moe_period", "moe_offset",
+    "capacity_factor", "moe_dropless", "moe_group_size", "moe_impl",
+    "ssm_state", "ssm_head_dim", "ssm_conv", "ssm_expand", "ssm_groups",
+    "ssm_chunk", "attn_period", "attn_offset",
+    "attn_chunk_q", "attn_impl", "cache_mode",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +78,36 @@ class ModelConfig:
             raise NotImplementedError(
                 f"{self.name}: family {self.family!r} is not ported yet (the "
                 "port covers dense attention models)")
+
+    # ---- artifact manifests ---------------------------------------------------
+    def to_manifest(self) -> Dict[str, Any]:
+        """The manifest's ``model_cfg``: only field names the reference's
+        ``ModelConfig(**raw)`` accepts."""
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_manifest(cls, raw: Dict[str, Any]) -> "ModelConfig":
+        """A manifest's ``model_cfg`` (the reference's fields) as the port's
+        config.  Raises on a non-dense family, an unknown field, or a
+        reference field away from its default that would change the model."""
+        if raw.get("family") != "dense":
+            raise NotImplementedError(
+                f"{raw.get('name')}: family {raw.get('family')!r} is not "
+                "ported yet (the port covers dense attention models)")
+        ours = {f.name for f in dataclasses.fields(cls)}
+        unknown = sorted(set(raw) - ours - set(_REFERENCE_ONLY))
+        if unknown:
+            raise ValueError(f"model_cfg has fields {unknown} that neither "
+                             "the port nor the reference defines")
+        changed = sorted(
+            k for k in set(raw) - ours
+            if k not in _INERT_WHEN_DENSE and raw[k] != _REFERENCE_ONLY[k])
+        if changed:
+            raise NotImplementedError(
+                f"{raw.get('name')}: model_cfg sets "
+                f"{ {k: raw[k] for k in changed} }, which the port does not "
+                "implement")
+        return cls(**{k: v for k, v in raw.items() if k in ours})
 
     # ---- derived ------------------------------------------------------------
     @property

@@ -50,6 +50,46 @@ def test_quantize_acts_signed_bit_exact(bits):
     np.testing.assert_array_equal(got.scale.numpy(), np.asarray(ref.scale))
 
 
+def test_quantize_acts_unsigned_bit_exact():
+    rng = np.random.default_rng(11)
+    x = rng.uniform(0, 255, size=(4, 25)).astype(np.float32)
+    x[0] = 0.0                        # an all-zero row hits the eps floor
+    x[1, :3] = [127.5, 0.5, 254.5]    # round-half-even lanes
+    ref = jquant.quantize_acts_unsigned(jnp.asarray(x))
+    got = tquant.quantize_acts_unsigned(_t(x))
+    np.testing.assert_array_equal(got.q.numpy(), np.asarray(ref.q))
+    np.testing.assert_array_equal(got.scale.numpy(), np.asarray(ref.scale))
+    assert not got.signed and got.q.dtype == torch.int32
+
+
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("x_bits", [2, 4, 8])
+@pytest.mark.parametrize("group", [4, 8])
+@pytest.mark.parametrize("k", [16, 37])
+def test_lut_forms_bit_exact(signed, x_bits, group, k):
+    """build_luts, group_addresses, da_vmm_lut and da_vmm_onehot against the
+    reference, K ragged against the group size."""
+    rng = np.random.default_rng(100 * k + 10 * x_bits + group)
+    lo, hi = (-(1 << (x_bits - 1)), 1 << (x_bits - 1)) if signed else (0, 1 << x_bits)
+    xq = rng.integers(lo, hi, (5, k)).astype(np.int32)
+    wq = rng.integers(-128, 128, (k, 11)).astype(np.int32)
+    jcfg = jda.DAConfig(group_size=group, x_bits=x_bits, x_signed=signed)
+    tcfg = tda.DAConfig(group_size=group, x_bits=x_bits, x_signed=signed)
+    jl = jda.build_luts(jnp.asarray(wq), group)
+    tl = tda.build_luts(_t(wq), group)
+    assert tl.dtype == torch.int32 and tuple(tl.shape) == (
+        tda.num_groups(k, group), tcfg.lut_rows, 11)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(
+        tda.group_addresses(_t(xq), tcfg).numpy(),
+        np.asarray(jda.group_addresses(jnp.asarray(xq), jcfg)))
+    for fn in ("da_vmm_lut", "da_vmm_onehot"):
+        got = getattr(tda, fn)(_t(xq), tl, tcfg)
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(getattr(jda, fn)(jnp.asarray(xq), jl, jcfg)))
+        np.testing.assert_array_equal(got.numpy(), xq.astype(np.int64) @ wq)
+
+
 @pytest.mark.parametrize("signed", [True, False])
 @pytest.mark.parametrize("eff", [1, 3, 8])
 def test_truncate_codes_bit_exact(signed, eff):
@@ -97,16 +137,30 @@ def test_pack_weights_codes_bit_exact(dtype):
     np.testing.assert_array_equal(got.wq.numpy(), np.asarray(ref.wq))
     np.testing.assert_array_equal(got.w_scale.numpy(), np.asarray(ref.w_scale))
     assert got.wq.dtype == torch.int8 and got.luts is None
+    # a LUT mode builds the tables once, at pack time, as the reference does
+    for mode in ("lut", "auto"):
+        ref = jeng.pack_weights(jnp.asarray(w, dtype=dtype), mode=mode)
+        got = teng.pack_weights(_t(w).to(getattr(torch, dtype)), mode=mode)
+        assert got.has_luts and ref.luts is not None
+        np.testing.assert_array_equal(got.luts.numpy(), np.asarray(ref.luts))
+    assert teng.lut_cells(40, 24, 8) == jeng.lut_cells(40, 24, 8)
+    assert teng.DEFAULT_LUT_LIMIT == jeng.DEFAULT_LUT_LIMIT
+    # "auto" skips the tables past the budget, as the reference does
+    big = np.ones((2056, 256), dtype=np.float32)
+    assert teng.lut_cells(2056, 256, 8) > teng.DEFAULT_LUT_LIMIT
+    assert not teng.pack_weights(_t(big), mode="auto").has_luts
+    assert jeng.pack_weights(jnp.asarray(big), mode="auto").luts is None
 
 
 @pytest.mark.parametrize("mode", ["bitplane", "bitplane_stacked",
-                                  "pallas_bitplane", "auto"])
+                                  "pallas_bitplane", "auto", "lut", "onehot",
+                                  "pallas_lut"])
 def test_da_matmul_matches_reference(mode):
     rng = np.random.default_rng(4)
     w = rng.normal(size=(37, 20)).astype(np.float32) / 6
     x = rng.normal(size=(2, 3, 37)).astype(np.float32)
-    jp = jeng.pack_weights(jnp.asarray(w), mode="bitplane")
-    tp = teng.pack_weights(_t(w), mode="bitplane")
+    jp = jeng.pack_weights(jnp.asarray(w), mode="lut")
+    tp = teng.pack_weights(_t(w), mode="lut")
     ref = jeng.da_matmul(jnp.asarray(x), jp, mode="bitplane")
     got = teng.da_matmul(_t(x), tp, mode=mode)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-7)
@@ -130,13 +184,20 @@ def test_da_qkv_matmul_matches_reference_and_separate_calls():
     separate = [teng.pack_weights(_t(w), mode="pallas_bitplane") for w in ws]
     shared = freeze_model({"wq": _t(ws[0]), "wk": _t(ws[1]), "wv": _t(ws[2])},
                           mode="pallas_bitplane", device="cpu")
+    lut = freeze_model({"wq": _t(ws[0]), "wk": _t(ws[1]), "wv": _t(ws[2])},
+                       mode="pallas_lut", device="cpu")
+    lut = [lut[n] for n in ("wq", "wk", "wv")]
+    # the LUT freeze co-locates the codes and gives each pack its own tables
+    assert lut[1].wq.untyped_storage().data_ptr() == \
+        lut[0].wq.untyped_storage().data_ptr()
+    assert [tuple(p.luts.shape) for p in lut] == [(4, 256, n) for n in (16, 8, 8)]
     shared = [shared[n] for n in ("wq", "wk", "wv")]
     assert shared[1].wq.untyped_storage().data_ptr() == \
         shared[0].wq.untyped_storage().data_ptr()
     merged = teng._merged_codes(shared)
     assert merged.untyped_storage().data_ptr() == \
         shared[0].wq.untyped_storage().data_ptr()  # a view, not a copy
-    for packs in (separate, shared):
+    for packs in (separate, shared, lut):
         got = teng.da_qkv_matmul(_t(x), packs)
         for g, r, p in zip(got, ref, packs):
             np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-6,
@@ -154,8 +215,21 @@ def test_registry_names_resolve_and_auto_by_device():
     assert teng.resolve_backend("stacked", cpu).name == "bitplane_stacked"
     assert teng.select_attn_backend("auto", cpu) == "gather"
     assert teng.select_attn_backend(None, torch.device("cuda")) == "fused"
-    with pytest.raises(NotImplementedError, match="LUT"):
-        teng.get_backend("pallas_lut")
+    for name in ("lut", "onehot", "pallas_lut"):
+        spec = teng.get_backend(name)
+        ref = jeng.get_backend(name)
+        assert spec.needs_luts and ref.needs_luts
+    assert teng.get_backend("pallas").name == "pallas_lut"
+    # a LUT mode on a pack without LUTs is a capability error, not garbage
+    bare = teng.pack_weights(torch.ones(16, 4), mode="bitplane")
+    with pytest.raises(ValueError, match="LUTs"):
+        teng.da_matmul(torch.ones(2, 16), bare, mode="pallas_lut")
+    packed = teng.pack_weights(torch.ones(16, 4), mode="lut")
+    with pytest.raises(ValueError, match="rows per PMA"):
+        teng.da_vmm(torch.ones(2, 16, dtype=torch.int32), packed,
+                    cfg=tda.DAConfig(group_size=4))
+    with pytest.raises(NotImplementedError, match="int8"):
+        teng.get_backend("int8")
     with pytest.raises(ValueError, match="unknown DA mode"):
         teng.get_backend("nope")
 

@@ -6,17 +6,19 @@ so it runs on a machine without JAX:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances: the bit-plane kernel equals its plain version exactly (int32);
-the paged read is within one bf16 ulp at magnitude 1 (2^-7) in bfloat16 and
-1e-5 in float32, since both round at the same points and differ only in
-float32 summation order.
+Tolerances: the bit-plane and LUT-readout kernels equal their plain versions
+exactly (int32); the paged read, over fp, int8 and int4 pages, is within one
+bf16 ulp at magnitude 1 (2^-7) in bfloat16 and 1e-5 in float32, since both
+round at the same points (the dequantized elements are equal) and differ
+only in float32 summation order.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.da import DAConfig
+from repro_torch.core.da import DAConfig, build_luts
 from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.models import kv_quant
 
 pytestmark = pytest.mark.gpu
 
@@ -52,6 +54,45 @@ def test_bitplane_kernel_equals_plain(card, m, k, n, x_bits, signed):
                        bitplane_vmm_ref(xq, wide[:, 24:24 + n], cfg))
     with pytest.raises(TypeError, match="int8"):
         bitplane_vmm_cuda(xq, wq.to(torch.int32), cfg)
+
+
+@pytest.mark.parametrize("m,k,n,x_bits,signed,group", [
+    (4, 256, 8000, 8, True, 8), (64, 256, 768, 8, True, 8),
+    (4, 768, 256, 8, True, 8), (4, 25, 6, 8, False, 8), (33, 100, 17, 4, True, 4),
+    (5, 37, 20, 2, False, 4), (3, 40, 12, 8, True, 16)])
+def test_lut_kernel_equals_plain(card, m, k, n, x_bits, signed, group):
+    from repro_torch.kernels.da_vmm import da_vmm_cuda
+    from repro_torch.kernels.ref import da_vmm_ref
+
+    g = torch.Generator(device=card).manual_seed(m + k + n)
+    lo, hi = (-(1 << (x_bits - 1)), 1 << (x_bits - 1)) if signed else (0, 1 << x_bits)
+    xq = torch.randint(lo, hi, (m, k), generator=g, device=card, dtype=torch.int32)
+    wq = torch.randint(-128, 128, (k, n), generator=g, device=card, dtype=torch.int32)
+    cfg = DAConfig(group_size=group, x_bits=x_bits, x_signed=signed)
+    luts = build_luts(wq, group)
+    before = da_vmm_cuda.launches
+    y = da_vmm_cuda(xq, luts, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(y, da_vmm_ref(xq, luts, cfg))
+    assert da_vmm_cuda.launches == before + 1
+    with pytest.raises(ValueError, match="group_size"):
+        da_vmm_cuda(xq, luts, DAConfig(group_size=group // 2, x_bits=x_bits))
+    with pytest.raises(TypeError, match="int32"):
+        da_vmm_cuda(xq, luts.to(torch.int64), cfg)
+
+
+def test_pallas_lut_pack_launches_the_kernel(card):
+    from repro_torch.core.engine import da_matmul, pack_weights
+    from repro_torch.kernels.da_vmm import da_vmm_cuda
+
+    w = torch.randn(256, 768, device=card)
+    p = pack_weights(w, mode="pallas_lut")
+    assert p.luts.device.type == "cuda" and tuple(p.luts.shape) == (32, 256, 768)
+    x = torch.randn(4, 256, device=card)
+    before = da_vmm_cuda.launches
+    y = p(x)
+    assert da_vmm_cuda.launches == before + 1
+    assert torch.equal(y, da_matmul(x, p, mode="lut"))
 
 
 def _paged_case(gen, dev, dtype, t, lens, hd=64, ps=4, n_pages=12, h=4, kv=2):
@@ -90,15 +131,28 @@ def test_paged_kernel_matches_plain(card, dtype, atol, mask_mode):
     assert paged_attention_cuda.launches == before + 1
 
 
-def test_paged_kernel_refuses_quantized_pools(card):
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2.0 ** -7),
+                                        (torch.float32, 1e-5)])
+def test_paged_kernel_reads_quantized_pools(card, kv_dtype, dtype, atol):
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.models.attention import paged_gather_read
+
     gen = torch.Generator(device=card).manual_seed(6)
-    q, k, v, table, tpos = _paged_case(gen, card, torch.float32, 1, [5, 7])
-    scale = torch.ones(k.shape[:-1] + (1,), dtype=torch.float16, device=card)
-    with pytest.raises(NotImplementedError, match="queue 2 item 3"):
-        paged_attention(q, k.to(torch.int8), v.to(torch.int8), table, tpos,
-                        k_scale=scale, v_scale=scale)
+    q, k, v, table, tpos = _paged_case(gen, card, dtype, 3, [5, 11, 8])
+    (kc, ks), (vc, vs) = (kv_quant.quantize_kv(x, kv_dtype) for x in (k, v))
+    before = paged_attention_cuda.launches_by_format[kv_dtype]
+    out = paged_attention(q, kc, vc, table, tpos, k_scale=ks, v_scale=vs)
+    ref = paged_gather_read(q, kc, vc, table, tpos, k_scale=ks, v_scale=vs)
+    assert (out.float() - ref.float()).abs().max().item() <= atol
+    assert paged_attention_cuda.launches_by_format[kv_dtype] == before + 1
     with pytest.raises(ValueError, match="head_dim"):
         paged_attention(*_paged_case(gen, card, torch.float32, 1, [5], hd=16))
+    if kv_dtype == "int4":  # a lane's codes would split a byte
+        q, k, v, table, tpos = _paged_case(gen, card, dtype, 1, [5], hd=32)
+        (kc, ks), (vc, vs) = (kv_quant.quantize_kv(x, kv_dtype) for x in (k, v))
+        with pytest.raises(ValueError, match="head_dim"):
+            paged_attention(q, kc, vc, table, tpos, k_scale=ks, v_scale=vs)
 
 
 def test_entry_points_run_on_the_card(card):

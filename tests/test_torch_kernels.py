@@ -2,7 +2,8 @@
 
 On the CPU each wrapper runs its plain version (only because its tensors lie
 on the CPU); those are held against the Pallas kernels run in interpret mode:
-the bit-plane VMM bit-exactly, the paged-attention read in float32 to
+the bit-plane and LUT-readout VMMs bit-exactly, the paged-attention read in
+float32 to
 atol 1e-5 / rtol 1e-5 (both compute the same roundings; only float32
 summation order differs), over fp, int8 and int4 pools.
 
@@ -14,10 +15,12 @@ import jax.numpy as jnp
 import torch
 
 from repro.core.da import DAConfig as JDA
+from repro.core.da import build_luts as jbuild_luts
 from repro.kernels.bitplane_vmm import bitplane_vmm_pallas
+from repro.kernels.da_vmm import da_vmm_pallas
 from repro.kernels.paged_attention import paged_attention as jpaged
 from repro.models import kv_quant as jkvq
-from repro_torch.core.da import DAConfig
+from repro_torch.core.da import DAConfig, build_luts
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.paged_attention import paged_attention, smem_plan
 from repro_torch.models import kv_quant as tkvq
@@ -49,6 +52,29 @@ def test_bitplane_plain_matches_pallas_interpret(signed, x_bits, k):
     np.testing.assert_array_equal(
         ops.bitplane_vmm(_t(xq), _t(wq).to(torch.int32), cfg).numpy(),
         np.asarray(ref))
+
+
+# ---------------------------------------------------------------------------
+# LUT-readout DA VMM
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 8, 1), (4, 25, 6), (16, 64, 32),
+                                   (33, 100, 17)])
+@pytest.mark.parametrize("signed", [False, True])
+def test_lut_plain_matches_pallas_interpret(m, k, n, signed):
+    """The reference's fast kernel shapes, CONV1's 4x25x6 among them."""
+    rng = np.random.default_rng(m * k + n)
+    xq = (rng.integers(-128, 128, (m, k)) if signed
+          else rng.integers(0, 256, (m, k))).astype(np.int32)
+    wq = rng.integers(-128, 128, (k, n)).astype(np.int32)
+    ref = da_vmm_pallas(jnp.asarray(xq), jbuild_luts(jnp.asarray(wq)),
+                        JDA(group_size=8, x_bits=8, x_signed=signed),
+                        bm=64, bn=32, bg=4, interpret=True)
+    cfg = DAConfig(group_size=8, x_bits=8, x_signed=signed)
+    got = ops.da_vmm(_t(xq), build_luts(_t(wq), 8), cfg)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(got.numpy(), xq.astype(np.int64) @ wq)
 
 
 # ---------------------------------------------------------------------------

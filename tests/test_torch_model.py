@@ -208,7 +208,7 @@ def test_entry_points_default_to_the_card():
 @pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
 def test_forward_logits_match_quantized_pool(setup, kv_dtype):
     """int8 / packed-int4 KV pages on the CPU path (the plain read serves
-    them; the CUDA kernel refuses them until ROADMAP queue 2 item 3)."""
+    them there; on the card the fused kernel reads them)."""
     jcfg, tcfg, _, fparams = setup
     tokens, pos, table, last = _paged_inputs(jcfg, seed=4)
     jc = jcaches(jcfg, 8, 4, jnp.float32, kv_dtypes=kv_dtype)
