@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                    # every phase
+    python3 chip_smoke.py --phase attention  # build, then the attention phase
 
 Phases, one JSON line each:
 
@@ -18,9 +19,11 @@ Phases, one JSON line each:
    unsigned, x_bits 2/4/8, group size 4/8/16, ragged K: int32 EQUAL;
 4. the paged-attention kernel against the plain gather read over fp, int8
    and int4 pages at the head shapes of both paths: qwen3-8b's in bfloat16
-   (T = 1 and 16, a long table whose scores spill to scratch) and the
-   LUT-serving model's in float32 (T = 1 and 16 at max_len 128); ragged tpos,
-   permuted pages, pad lanes on the garbage page;
+   (T = 1 and 16 at max_len 256, and a long table, W = 300, at T = 1 and 16)
+   and the LUT-serving model's in float32 (T = 1 and 16 at max_len 128);
+   ragged tpos, permuted pages, pad lanes on the garbage page, and at both
+   head shapes a row whose every query is masked; each case with the split
+   (chunks, blocks per launch, CUDA launches per read);
 5. one prefill step of qwen3-8b at full width and 2 layers, through the
    kernels and through the plain versions, with fp and with int8 KV pages:
    logits within a stated tolerance, argmax equal;
@@ -44,6 +47,7 @@ it exits non-zero before printing a result.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import gc
 import json
@@ -65,6 +69,9 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 #: clock, so the operations bound counts two adds per INT32 lane per clock
 INT32_OPS_PER_S = 67e12 / 2
 L2_FLUSH_BYTES = 256 << 20     # > the 50 MB L2: each timed launch starts cold
+#: device clock cycles spun before each timed call (about 0.1 ms at 1.98 GHz):
+#: the host enqueues the call meanwhile, so the events time the device alone
+HOST_COVER_CYCLES = 200_000
 
 #: qwen3-8b weight shapes the serving path hands the bit-plane kernel
 #: (fused q|k|v, wo, up/gate, down, LM head)
@@ -79,11 +86,13 @@ LUT_SHAPES = ((256, 256), (256, 128), (256, 768), (768, 256), (256, 8000))
 ATTN_ATOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
 #: head shapes and (B, T, W) cases of the attention phase.  qwen3-8b, bf16:
 #: decode and prefill at max_len 256 / page 16 (W = 17), and a long table
-#: (W = 300) whose scores do not fit in shared memory.  The LUT-serving
-#: model, f32: decode and prefill at max_len 128 / page 16 (W = 9).
+#: (W = 300) at decode and prefill.  The LUT-serving model, f32: decode and
+#: prefill at max_len 128 / page 16 (W = 9).
 ATTN_HEADS = (("bfloat16", dict(h=32, kv=8, hd=128), ((4, 1, 17), (4, 16, 17),
-                                                      (2, 16, 300))),
+                                                      (4, 1, 300), (2, 16, 300))),
               ("float32", dict(h=4, kv=2, hd=64), ((4, 1, 9), (4, 16, 9))))
+#: the case of each head shape run again with one row's queries all masked
+ATTN_MASKED = {"bfloat16": (4, 16, 17), "float32": (4, 1, 9)}
 #: the activation dtype each path hands the attention kernel
 PATH_DTYPE = {"serve": "bfloat16", "serve_int8kv": "bfloat16",
               "artifact_lut": "float32"}
@@ -104,23 +113,53 @@ def smi_line() -> str:
 
 
 def time_cuda(fn, iters: int, flush=None, warmup: int = 2) -> float:
-    """Mean ms of ``fn`` from CUDA events, each launch after an L2 flush."""
+    """Mean ms of ``fn`` from CUDA events, each call after an L2 flush.  A
+    device spin before the start event covers the host's enqueue of ``fn``
+    (a wrapper that makes several launches would otherwise leave its host
+    time between them on the clock)."""
     import torch
 
-    for _ in range(warmup):
-        fn()
     total = 0.0
-    for _ in range(iters):
+    for i in range(warmup + iters):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(HOST_COVER_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
         b.record()
         b.synchronize()
-        total += a.elapsed_time(b)
+        if i >= warmup:
+            total += a.elapsed_time(b)
     return total / iters
+
+
+def device_ms_by_kernel(fn, iters: int, flush, keys) -> dict:
+    """Device ms per call of ``fn`` by kernel from ``torch.profiler``: the
+    kernels whose name holds each of ``keys``, L2 flushed before each call.
+    A trace that holds none of them is taken again (the profiler has once
+    returned an empty one), three times at most."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        out = dict.fromkeys(keys, 0.0)
+        for e in prof.events():
+            key = next((k for k in keys if k in e.name), None)
+            if e.device_type == DeviceType.CUDA and key is not None:
+                out[key] += e.time_range.elapsed_us() / 1e3 / iters
+        if all(v > 0 for v in out.values()):
+            return out
+    raise AssertionError(f"the profiler traced none of {keys}")
 
 
 def phase_device():
@@ -297,14 +336,17 @@ def phase_attention(flush):
         for b, t, w in shapes:
             for mode in ("where", "additive"):
                 rows += _attention_case(gen, b, t, w, mode, dname, heads, flush)
+        for mode in ("where", "additive"):  # checked, not timed
+            rows += _attention_case(gen, *ATTN_MASKED[dname], mode, dname, heads,
+                                    None, masked_row=1)
     emit({"phase": "paged_attention", "atol": ATTN_ATOL, "cases": rows})
     return rows
 
 
-def _attention_case(gen, b, t, w, mode, dname, heads, flush):
+def _attention_case(gen, b, t, w, mode, dname, heads, flush, masked_row=None):
     import torch
 
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda, split_plan
     from repro_torch.models import kv_quant
     from repro_torch.models.attention import paged_gather_read
 
@@ -312,14 +354,21 @@ def _attention_case(gen, b, t, w, mode, dname, heads, flush):
     rows = []
     q, kp, vp, table, tpos = _paged_case(gen, b, t, w, b * w + 8,
                                          getattr(torch, dname), **heads)
+    if masked_row is not None:
+        tpos[masked_row] = -1
+    plan = split_plan(b, t, heads["h"], heads["kv"], heads["hd"], kp.shape[1], w,
+                      torch.cuda.get_device_properties(0).multi_processor_count)
     for fmt in ("fp", "int8", "int4"):
         if fmt == "fp":
             kc, vc, scales = kp, vp, {}
         else:
             (kc, ks), (vc, vs) = (kv_quant.quantize_kv(x, fmt) for x in (kp, vp))
             scales = {"k_scale": ks, "v_scale": vs}
+        before = paged_attention_cuda.launches, paged_attention_cuda.cuda_launches
         out = paged_attention_cuda(q, kc, vc, table, tpos, mask_mode=mode,
                                    **scales)
+        reads = paged_attention_cuda.launches - before[0]
+        per_read = (paged_attention_cuda.cuda_launches - before[1]) / reads
         ref = paged_gather_read(q, kc, vc, table, tpos, mask_mode=mode, **scales)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
@@ -329,8 +378,11 @@ def _attention_case(gen, b, t, w, mode, dname, heads, flush):
                 f"T={t} W={w} {heads} {dname} {mode} {fmt} pages")
         row = {"dtype": dname, "h": heads["h"], "kv_heads": heads["kv"],
                "hd": heads["hd"], "b": b, "t": t, "w": w, "kv": fmt,
-               "mask_mode": mode, "max_abs_err": err}
-        if mode == "where":
+               "mask_mode": mode, "all_masked_row": masked_row,
+               "chunks": plan.ns, "chunk_pages": plan.chunk,
+               "blocks_per_launch": heads["kv"] * b * plan.ns,
+               "cuda_launches_per_read": per_read, "max_abs_err": err}
+        if mode == "where" and flush is not None:
             row.update(_attention_times(q, kc, vc, table, tpos, scales, fmt,
                                         flush))
         rows.append(row)
@@ -352,6 +404,9 @@ def _attention_times(q, kc, vc, table, tpos, scales, fmt, flush):
     w = table.shape[1]
     row = {"ms": time_cuda(lambda: paged_attention_cuda(
                q, kc, vc, table, tpos, **scales), 20, flush),
+           "device_ms": device_ms_by_kernel(lambda: paged_attention_cuda(
+               q, kc, vc, table, tpos, **scales), 5, flush,
+               ("paged_attn_score", "paged_attn_pv", "paged_attn_combine")),
            "plain_ms": time_cuda(lambda: paged_gather_read(
                q, kc, vc, table, tpos, **scales), 10, flush)}
     tl = table.long()
@@ -458,6 +513,7 @@ def _reset_counts():
     bitplane_vmm_cuda.launches = 0
     da_vmm_cuda.launches = 0
     paged_attention_cuda.launches = 0
+    paged_attention_cuda.cuda_launches = 0
     for fmt in paged_attention_cuda.launches_by_format:
         paged_attention_cuda.launches_by_format[fmt] = 0
 
@@ -470,6 +526,7 @@ def _read_counts():
     return {"bitplane_vmm": bitplane_vmm_cuda.launches,
             "da_vmm": da_vmm_cuda.launches,
             "paged_attention": paged_attention_cuda.launches,
+            "paged_attention_cuda_launches": paged_attention_cuda.cuda_launches,
             "paged_attention_by_format": dict(paged_attention_cuda.launches_by_format)}
 
 
@@ -659,7 +716,7 @@ def decode_window(eng, vocab: int, steps: int = 4):
         if e.device_type != DeviceType.CUDA:
             continue
         key = ("bitplane_vmm" if "bitplane_vmm_kernel" in e.name else
-               "paged_attention" if "paged_attn_kernel" in e.name else "other")
+               "paged_attention" if "paged_attn_" in e.name else "other")
         dev[key] += e.time_range.elapsed_us() / 1e3 / steps
     eng.run()
     busy = sum(dev.values())
@@ -676,6 +733,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phase", choices=("all", "attention"), default="all",
+                        help="'attention': build the kernels and run only the "
+                             "attention phase (no result line)")
+    args = parser.parse_args()
     # the plain versions are references: full float32 and bf16 reductions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -683,6 +745,10 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_device()
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    if args.phase == "attention":
+        phase_attention(flush)
+        print(smi_line(), flush=True)
+        return 0
     vmm = phase_bitplane(flush)
     lut = phase_lut_vmm(flush)
     attn = phase_attention(flush)
@@ -737,6 +803,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:66",
          "launches": sum(f["launches"] for f in formats),
+         "cuda_launches": launches("paged_attention_cuda_launches")[0],
          "max_abs_err": max(r["max_abs_err"] for r in attn),
          **{k: formats[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                        "library_ms")},

@@ -12,7 +12,7 @@
 // form), then softmax in float32 as exp(x - max) / sum, probabilities rounded
 // to the input dtype, and the PV sum rounded to the input dtype.  Every
 // rounding is the one the gather read (models/attention.paged_gather_read)
-// performs, so the two differ only by float32 summation order.
+// performs.
 //
 // Quantized pages hold int8 codes [.., hd], or two int4 codes per byte
 // [.., hd/2] (element 2i in the low nibble, sign-extended), beside one
@@ -20,37 +20,52 @@
 // walk.  A lane dequantizes its codes in registers with exactly the plain
 // formula codes.to(T) * scale.to(T): the f16 scale is rounded to T (f16 ->
 // f32 -> T, round to nearest even), then the product is rounded to T.  So
-// every dequantized element equals the plain read's, and the scores and PV
-// sums are those of fp pages holding the dequantized values.
-//
-// Design.  One block of 8 warps per (KV head, batch row).  The TPU kernel's
-// scalar prefetch and sequential page grid do not carry over: the block reads
-// its own row of the page table into shared memory and addresses K/V rows
-// through it.  Positions past the largest tpos of the block are masked for
-// every one of its query rows: their probabilities are exactly 0, so the
-// block neither loads nor scores them (the plain read adds those zeros).
-// Scores: warps take U key positions at a time and load all U K rows before
-// any arithmetic (each lane one vector of head_dim/32 elements, a warp one
-// coalesced row), then for 8 query rows at a time a transposing butterfly
-// reduces the 8 lane-partial dots in 9 shuffles.  Exp and normalise are
-// deferred until every position has been scored, as in the TPU kernel (no
-// online rescale), so the roundings match the plain version's.  Scores live
-// in shared memory when G*T*S floats fit beside q, else in a float32 scratch
-// tensor the wrapper allocates.  PV: the warps split the positions again,
-// each lane accumulates its head_dim/32 output elements for 8 query rows over
-// U V rows loaded at once, and the 8 warp partials are summed in a fixed
-// order through shared memory.
+// every dequantized element equals the plain read's.
 //
 // What bounds it on this card.  At decode (T = 1) the work is about
 // 4*H*S*hd flops against 2*S*kv*hd*2 bytes of K and V per row: G = 4 flops
-// per byte, so the K/V page stream bounds it (3.35 TB/s).  Each live page is
-// read from device memory once per block, pages the table does not name are
-// never touched, and no gathered [B, S, kv, hd] view is materialised.  With
-// one block per (KV head, row) a decode step fills only B*KV SMs, so the
-// loads in flight per SM (U rows per warp) set the rate.  Quantized pages
-// move hd bytes (int8) or hd/2 bytes (int4) per row plus a 2-byte scale, a
-// half and a quarter of the bf16 bytes: each lane loads its hd/32 codes in one
-// vector, so a warp still reads a row in one coalesced transaction.
+// per byte, so the K/V page stream bounds it (3.35 TB/s); at T = 16 it is
+// 64 flops per byte, still below the tensor cores' ridge, but this kernel
+// scores and sums with scalar FMAs (67 TFLOP/s), so there the FMAs bound it.
+// Each live K row is read from device memory once (score launch) and each
+// live V row once (PV launch; its re-reads for every 8 query rows hit L2),
+// pages the table does not name are never touched, and no gathered
+// [B, S, kv, hd] view is materialised.  One block per (KV head, row) walking
+// every position would fill only B*KV of the 132 SMs (32 at a qwen3-8b
+// decode step) and serialise a long table on one SM.
+//
+// Design: the positions of a (KV head, row) are split into NS chunks of CW
+// whole pages, and three launches over a grid of (KV, B, NS) blocks keep the
+// deferred softmax's roundings, which an online softmax would not (it never
+// rounds the probabilities to T).  The wrapper picks NS and CW on the host
+// from the shapes and the SM count: about two waves of blocks, and at most
+// four rounds of U-row loads per warp in a chunk, since a block's rounds run
+// one after another (each waits on its loads) while blocks run side by side.
+//   (a) score: a block of 8 warps reads its chunk's slice of the page table,
+//       scores the chunk's live positions into shared memory (warps take U
+//       key positions at a time and load all U K rows before any arithmetic,
+//       each lane one vector of hd/32 elements; for 8 query rows at a time a
+//       transposing butterfly reduces the 8 lane-partial dots in 9 shuffles),
+//       then writes them to the float32 workspace [B, KV, G*T, S] and, per
+//       query row, the chunk's max m_s and l_s = sum exp(x - m_s);
+//   (b) PV: a block combines every live chunk's (m_s, l_s) in a fixed order
+//       (a warp butterfly over the chunks), m = max m_s and L = sum l_s *
+//       exp(m_s - m), forms p = rnd_T(exp(x - m) / L) from the workspace
+//       scores as the plain read does, and runs the PV pass over its chunk's
+//       V rows (each lane accumulates its hd/32 output
+//       elements for 8 query rows over U rows loaded at once; the 8 warp
+//       partials are summed in a fixed order through shared memory) into a
+//       float32 partial [B, KV, NS, G*T, hd];
+//   (c) combine: the live partials are summed in a fixed order and rounded to
+//       T.  No atomics: the result does not depend on the order blocks run.
+// The result differs from the plain read by float32 summation order and by
+// the roundings of exp(m_s - m) inside L (a few float32 ulps).  Positions
+// past the largest tpos of the row are masked for all its queries: their
+// probabilities are exactly 0, so no launch touches them, and a chunk wholly
+// past that end is skipped by all three launches (each computes the same live
+// end from tpos, so nothing marks it).  If no tpos of the row is >= 0 every
+// query is masked everywhere and the plain softmax is uniform over all S, so
+// nothing is skipped.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -238,33 +253,43 @@ __device__ __forceinline__ int lane_row(int lane) {
   return ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 + ((lane >> 2) & 1);
 }
 
-// EPL: head_dim / 32 elements per lane; KF: page format (KV_FP pools hold
-// T, quantized pools int8 codes with float16 scales kscale / vscale)
+// End of the live positions of a batch row, [0, s_end): past its largest
+// tpos every query is masked.  If no tpos >= 0, every query is masked
+// everywhere and the plain softmax is uniform over all S.
+__device__ __forceinline__ int live_end(const int32_t* __restrict__ tp, int Tq, int S) {
+  int tmax = -1;
+  for (int t = 0; t < Tq; ++t) tmax = max(tmax, __ldg(tp + t));
+  return tmax >= 0 ? min(S, tmax + 1) : S;
+}
+
+// (a) Scores of one chunk.  EPL: head_dim / 32 elements per lane; KF: page
+// format (KV_FP pools hold T, quantized pools int8 codes with float16 scales).
+// Writes the rounded, masked scores of the chunk's live positions to
+// scores [B, KV, G*Tq, S] and the chunk's (m_s, l_s) per query row to
+// stats [B, KV, NS, 2, G*Tq].
 template <typename T, int EPL, int KF>
 __global__ void __launch_bounds__(THREADS)
-paged_attn_kernel(const T* __restrict__ q, const void* __restrict__ kpool,
-                  const void* __restrict__ vpool, const __half* __restrict__ kscale,
-                  const __half* __restrict__ vscale, const int32_t* __restrict__ table,
-                  const int32_t* __restrict__ tpos, T* __restrict__ out,
-                  float* __restrict__ scratch, int Tq, int H, int KV, int PS, int W,
-                  float div, int additive) {
+paged_attn_score_kernel(const T* __restrict__ q, const void* __restrict__ kpool,
+                        const __half* __restrict__ kscale,
+                        const int32_t* __restrict__ table, const int32_t* __restrict__ tpos,
+                        float* __restrict__ scores, float* __restrict__ stats, int Tq,
+                        int H, int KV, int PS, int W, int CW, int NS, float div,
+                        int additive) {
   constexpr int HD = 32 * EPL;
   extern __shared__ __align__(16) float smem[];
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int G = H / KV;
-  const int GT = G * Tq;
-  const int S = W * PS;
+  const int kvh = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+  const int G = H / KV, GT = G * Tq, S = W * PS, CP = CW * PS;
+  const int s_end = live_end(tpos + (size_t)b * Tq, Tq, S);
+  const int c0 = sp * CP;
+  if (c0 >= s_end) return;
+  const int c1 = min(c0 + CP, s_end), n = c1 - c0;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
 
-  float* q_s = smem;                                          // [GT][HD]
-  float* red = q_s + GT * HD;                                 // [NWARPS][RC][HD]
-  int* tp_s = reinterpret_cast<int*>(red + NWARPS * RC * HD); // [Tq]
-  int* pg_s = tp_s + Tq;                                      // [W] this row's pages
-  float* sc = scratch != nullptr
-                  ? scratch + ((size_t)b * KV + kvh) * GT * S
-                  : reinterpret_cast<float*>(pg_s + W);         // [GT][S]
+  float* q_s = smem;                                    // [GT][HD]
+  float* sc_s = q_s + GT * HD;                          // [GT][CP] this chunk
+  int* tp_s = reinterpret_cast<int*>(sc_s + GT * CP);   // [Tq]
+  int* pg_s = tp_s + Tq;                                // [CW] this chunk's pages
 
   for (int i = tid; i < GT * HD; i += THREADS) {
     const int r = i / HD, d = i % HD;
@@ -272,25 +297,19 @@ paged_attn_kernel(const T* __restrict__ q, const void* __restrict__ kpool,
     q_s[i] = to_f<T>(q[(((size_t)b * Tq + t) * H + kvh * G + g) * HD + d]);
   }
   for (int i = tid; i < Tq; i += THREADS) tp_s[i] = tpos[(size_t)b * Tq + i];
-  for (int i = tid; i < W; i += THREADS) pg_s[i] = table[(size_t)b * W + i];
+  for (int i = tid; i < CW && sp * CW + i < W; i += THREADS)
+    pg_s[i] = table[(size_t)b * W + sp * CW + i];
   __syncthreads();
-
-  // live positions: [0, s_end).  If every row is masked everywhere (no tpos
-  // >= 0) the plain softmax is uniform over all S, so nothing is skipped.
-  int tmax = -1;
-  for (int t = 0; t < Tq; ++t) tmax = max(tmax, tp_s[t]);
-  const int s_end = tmax >= 0 ? min(S, tmax + 1) : S;
-  // K/V row of position s: (page slot, this KV head)
+  // K row of position s (page slot, this KV head); c0 is page-aligned
   auto row_of = [&](int s) {
-    return ((size_t)pg_s[s / PS] * PS + s % PS) * KV + kvh;
+    return ((size_t)pg_s[(s - c0) / PS] * PS + s % PS) * KV + kvh;
   };
 
-  // scores
-  for (int s0 = warp * U; s0 < s_end; s0 += NWARPS * U) {
+  for (int s0 = c0 + warp * U; s0 < c1; s0 += NWARPS * U) {
     float kr[U][EPL];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (s0 + u < s_end) {
+      if (s0 + u < c1) {
         load_kv<T, EPL, KF>(kpool, kscale, row_of(s0 + u), lane, kr[u]);
       } else {
 #pragma unroll
@@ -320,57 +339,120 @@ paged_attn_kernel(const T* __restrict__ q, const void* __restrict__ kpool,
         }
         const float dot = reduce8(part, lane);
         const int s = s0 + u;
-        if ((lane & 3) == 0 && r < GT && s < s_end) {
+        if ((lane & 3) == 0 && r < GT && s < c1) {
           float v = rnd<T>(rnd<T>(dot) / div);
           const bool valid = s <= tp_s[r % Tq];
           if (additive)
             v = v + (valid ? 0.f : NEG_INF);
           else
             v = valid ? v : NEG_INF;
-          sc[(size_t)r * S + s] = v;
+          sc_s[r * CP + (s - c0)] = v;
         }
       }
     }
   }
   __syncthreads();
 
-  // deferred softmax over the live positions: exp(x - max) / sum,
-  // probabilities rounded to T
+  // the chunk's max and sum of exp(x - max), per query row
+  float* st = stats + (((size_t)b * KV + kvh) * NS + sp) * 2 * GT;
   for (int r = warp; r < GT; r += NWARPS) {
-    float* row = sc + (size_t)r * S;
+    const float* row = sc_s + r * CP;
     float m = NEG_INF;
-    for (int s = lane; s < s_end; s += 32) m = fmaxf(m, row[s]);
+    for (int i = lane; i < n; i += 32) m = fmaxf(m, row[i]);
     for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
-    float sum = 0.f;
-    for (int s = lane; s < s_end; s += 32) {
-      const float e = expf(row[s] - m);
-      row[s] = e;
-      sum += e;
+    float l = 0.f;
+    for (int i = lane; i < n; i += 32) l += expf(row[i] - m);
+    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(FULL, l, o);
+    if (lane == 0) {
+      st[r] = m;
+      st[GT + r] = l;
     }
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
-    for (int s = lane; s < s_end; s += 32) row[s] = rnd<T>(row[s] / sum);
+  }
+  float* sc_g = scores + ((size_t)b * KV + kvh) * GT * S;
+  for (int i = tid; i < GT * n; i += THREADS) {
+    const int r = i / n, s = i % n;
+    sc_g[(size_t)r * S + c0 + s] = sc_s[r * CP + s];
+  }
+}
+
+// (b) PV of one chunk: combines the live chunks' (m_s, l_s) in a fixed
+// order, forms the rounded probabilities of its positions exactly as the
+// plain read does, and writes its float32 partial to part [B, KV, NS, G*Tq, HD].
+template <typename T, int EPL, int KF>
+__global__ void __launch_bounds__(THREADS)
+paged_attn_pv_kernel(const void* __restrict__ vpool, const __half* __restrict__ vscale,
+                     const int32_t* __restrict__ table, const int32_t* __restrict__ tpos,
+                     const float* __restrict__ scores, const float* __restrict__ stats,
+                     float* __restrict__ part, int Tq, int H, int KV, int PS, int W,
+                     int CW, int NS) {
+  constexpr int HD = 32 * EPL;
+  extern __shared__ __align__(16) float smem[];
+  const int kvh = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+  const int G = H / KV, GT = G * Tq, S = W * PS, CP = CW * PS;
+  const int s_end = live_end(tpos + (size_t)b * Tq, Tq, S);
+  const int c0 = sp * CP;
+  if (c0 >= s_end) return;
+  const int c1 = min(c0 + CP, s_end), n = c1 - c0;
+  const int nlive = (s_end + CP - 1) / CP;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+
+  float* red = smem;                                    // [NWARPS][RC][HD]
+  float* ml_s = red + NWARPS * RC * HD;                 // [2][GT] row max, sum
+  float* p_s = ml_s + 2 * GT;                           // [GT][CP] this chunk
+  int* pg_s = reinterpret_cast<int*>(p_s + GT * CP);    // [CW] this chunk's pages
+
+  // a warp per query row, its lanes over the live chunks: the loads go out
+  // together, and the butterflies sum in a fixed order
+  const float* st = stats + ((size_t)b * KV + kvh) * NS * 2 * GT;
+  for (int r = warp; r < GT; r += NWARPS) {
+    float m = NEG_INF;
+    for (int j = lane; j < nlive; j += 32) m = fmaxf(m, st[(size_t)j * 2 * GT + r]);
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
+    float L = 0.f;
+    for (int j = lane; j < nlive; j += 32)
+      L += st[(size_t)j * 2 * GT + GT + r] * expf(st[(size_t)j * 2 * GT + r] - m);
+    for (int o = 16; o > 0; o >>= 1) L += __shfl_xor_sync(FULL, L, o);
+    if (lane == 0) {
+      ml_s[r] = m;
+      ml_s[GT + r] = L;
+    }
+  }
+  for (int i = tid; i < CW && sp * CW + i < W; i += THREADS)
+    pg_s[i] = table[(size_t)b * W + sp * CW + i];
+  __syncthreads();
+  const float* sc_g = scores + ((size_t)b * KV + kvh) * GT * S;
+#pragma unroll 4
+  for (int i = tid; i < GT * n; i += THREADS) {
+    const int r = i / n, s = i % n;
+    p_s[r * CP + s] = rnd<T>(expf(sc_g[(size_t)r * S + c0 + s] - ml_s[r]) / ml_s[GT + r]);
   }
   __syncthreads();
+  // V row of position s (page slot, this KV head); c0 is page-aligned
+  auto row_of = [&](int s) {
+    return ((size_t)pg_s[(s - c0) / PS] * PS + s % PS) * KV + kvh;
+  };
 
-  // PV, RC query rows at a time: per-warp partials over its positions, then
-  // a fixed-order sum of the warps through shared memory
+  // RC query rows at a time: per-warp partials over its positions, then a
+  // fixed-order sum of the warps through shared memory
+  float* pt = part + (((size_t)b * KV + kvh) * NS + sp) * GT * HD;
   for (int r0 = 0; r0 < GT; r0 += RC) {
     float acc[RC][EPL];
 #pragma unroll
     for (int i = 0; i < RC; ++i)
 #pragma unroll
       for (int j = 0; j < EPL; ++j) acc[i][j] = 0.f;
-    for (int s0 = warp * U; s0 < s_end; s0 += NWARPS * U) {
+    for (int s0 = c0 + warp * U; s0 < c1; s0 += NWARPS * U) {
       float vr[U][EPL];
 #pragma unroll
       for (int u = 0; u < U; ++u)
-        if (s0 + u < s_end) load_kv<T, EPL, KF>(vpool, vscale, row_of(s0 + u), lane, vr[u]);
+        if (s0 + u < c1) load_kv<T, EPL, KF>(vpool, vscale, row_of(s0 + u), lane, vr[u]);
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        if (s0 + u >= s_end) break;
+        if (s0 + u >= c1) break;
 #pragma unroll
         for (int i = 0; i < RC; ++i) {
-          const float p = r0 + i < GT ? sc[(size_t)(r0 + i) * S + s0 + u] : 0.f;
+          const float p = r0 + i < GT ? p_s[(r0 + i) * CP + s0 + u - c0] : 0.f;
 #pragma unroll
           for (int j = 0; j < EPL; ++j) acc[i][j] = fmaf(p, vr[u][j], acc[i][j]);
         }
@@ -381,44 +463,82 @@ paged_attn_kernel(const T* __restrict__ q, const void* __restrict__ kpool,
     __syncthreads();
     for (int idx = tid; idx < RC * HD; idx += THREADS) {
       const int i = idx / HD, d = idx % HD;
-      const int r = r0 + i;
-      if (r < GT) {
+      if (r0 + i < GT) {
         float o = 0.f;
 #pragma unroll
         for (int w = 0; w < NWARPS; ++w) o += red[(w * RC + i) * HD + d];
-        const int g = r / Tq, t = r % Tq;
-        out[(((size_t)b * Tq + t) * H + kvh * G + g) * HD + d] = from_f<T>(o);
+        pt[(size_t)(r0 + i) * HD + d] = o;
       }
     }
     __syncthreads();
   }
 }
 
+// (c) The live chunks' partials of one query row summed in a fixed order and
+// rounded to T.  Grid (G*Tq, KV, B), HD threads.
+template <typename T, int EPL>
+__global__ void __launch_bounds__(32 * EPL)
+paged_attn_combine_kernel(const float* __restrict__ part, const int32_t* __restrict__ tpos,
+                          T* __restrict__ out, int Tq, int H, int KV, int PS, int W,
+                          int CW, int NS) {
+  constexpr int HD = 32 * EPL;
+  const int r = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
+  const int G = H / KV, GT = G * Tq;
+  const int CP = CW * PS;
+  const int nlive = (live_end(tpos + (size_t)b * Tq, Tq, W * PS) + CP - 1) / CP;
+  const float* pt = part + (((size_t)b * KV + kvh) * NS * GT + r) * HD + d;
+  float o = 0.f;
+  for (int j = 0; j < nlive; ++j) o += pt[(size_t)j * GT * HD];
+  const int g = r / Tq, t = r % Tq;
+  out[(((size_t)b * Tq + t) * H + kvh * G + g) * HD + d] = from_f<T>(o);
+}
+
+// The three launches of one read.  workspace: float32, partials
+// [B, KV, NS, G*Tq, HD], then scores [B, KV, G*Tq, W*PS], then stats
+// [B, KV, NS, 2, G*Tq].
 template <typename T, int EPL, int KF>
 int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-           const void* table, const void* tpos, void* out, void* scratch, int B, int Tq,
-           int H, int KV, int PS, int W, float div, int additive, int smem_bytes,
-           void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(paged_attn_kernel<T, EPL, KF>,
+           const void* table, const void* tpos, void* out, void* workspace, int B, int Tq,
+           int H, int KV, int PS, int W, int CW, int NS, float div, int additive,
+           int smem_bytes, void* stream) {
+  constexpr int HD = 32 * EPL;
+  const int GT = H / KV * Tq;
+  float* part = static_cast<float*>(workspace);
+  float* scores = part + (size_t)B * KV * NS * GT * HD;
+  float* stats = scores + (size_t)B * KV * GT * W * PS;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(paged_attn_score_kernel<T, EPL, KF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(paged_attn_pv_kernel<T, EPL, KF>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(KV, B);
-  paged_attn_kernel<T, EPL, KF><<<grid, THREADS, smem_bytes, (cudaStream_t)stream>>>(
-      (const T*)q, k, v, (const __half*)ks, (const __half*)vs, (const int32_t*)table,
-      (const int32_t*)tpos, (T*)out, (float*)scratch, Tq, H, KV, PS, W, div, additive);
+  const dim3 grid(KV, B, NS);
+  paged_attn_score_kernel<T, EPL, KF><<<grid, THREADS, smem_bytes, st>>>(
+      (const T*)q, k, (const __half*)ks, (const int32_t*)table, (const int32_t*)tpos,
+      scores, stats, Tq, H, KV, PS, W, CW, NS, div, additive);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  paged_attn_pv_kernel<T, EPL, KF><<<grid, THREADS, smem_bytes, st>>>(
+      v, (const __half*)vs, (const int32_t*)table, (const int32_t*)tpos, scores, stats,
+      part, Tq, H, KV, PS, W, CW, NS);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  paged_attn_combine_kernel<T, EPL><<<dim3(GT, KV, B), HD, 0, st>>>(
+      part, (const int32_t*)tpos, (T*)out, Tq, H, KV, PS, W, CW, NS);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int KF>
 int launch_hd(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-              const void* table, const void* tpos, void* out, void* scratch, int B, int Tq,
-              int H, int KV, int HD, int PS, int W, float div, int additive,
-              int smem_bytes, void* stream) {
-#define PA_CASE(E)                                                                      \
-  case E:                                                                               \
-    return launch<T, E, KF>(q, k, v, ks, vs, table, tpos, out, scratch, B, Tq, H, KV,   \
-                            PS, W, div, additive, smem_bytes, stream);
+              const void* table, const void* tpos, void* out, void* workspace, int B,
+              int Tq, int H, int KV, int HD, int PS, int W, int CW, int NS, float div,
+              int additive, int smem_bytes, void* stream) {
+#define PA_CASE(E)                                                                     \
+  case E:                                                                              \
+    return launch<T, E, KF>(q, k, v, ks, vs, table, tpos, out, workspace, B, Tq, H,    \
+                            KV, PS, W, CW, NS, div, additive, smem_bytes, stream);
   // the head widths a registered config serves (the LUT-serving model's 64,
   // qwen3-8b's 128); widen the set when a config needs another
   switch (HD / 32) {
@@ -432,21 +552,18 @@ int launch_hd(const void* q, const void* k, const void* v, const void* ks, const
 template <typename T>
 int launch_fmt(int kv_fmt, const void* q, const void* k, const void* v, const void* ks,
                const void* vs, const void* table, const void* tpos, void* out,
-               void* scratch, int B, int Tq, int H, int KV, int HD, int PS, int W,
-               float div, int additive, int smem_bytes, void* stream) {
+               void* workspace, int B, int Tq, int H, int KV, int HD, int PS, int W,
+               int CW, int NS, float div, int additive, int smem_bytes, void* stream) {
+#define PA_FMT(F)                                                                      \
+  case F:                                                                              \
+    return launch_hd<T, F>(q, k, v, ks, vs, table, tpos, out, workspace, B, Tq, H, KV, \
+                           HD, PS, W, CW, NS, div, additive, smem_bytes, stream);
   switch (kv_fmt) {
-    case KV_FP:
-      return launch_hd<T, KV_FP>(q, k, v, ks, vs, table, tpos, out, scratch, B, Tq, H,
-                                 KV, HD, PS, W, div, additive, smem_bytes, stream);
-    case KV_I8:
-      return launch_hd<T, KV_I8>(q, k, v, ks, vs, table, tpos, out, scratch, B, Tq, H,
-                                 KV, HD, PS, W, div, additive, smem_bytes, stream);
-    case KV_I4:
-      return launch_hd<T, KV_I4>(q, k, v, ks, vs, table, tpos, out, scratch, B, Tq, H,
-                                 KV, HD, PS, W, div, additive, smem_bytes, stream);
+    PA_FMT(KV_FP) PA_FMT(KV_I8) PA_FMT(KV_I4)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef PA_FMT
 }
 
 }  // namespace
@@ -457,25 +574,27 @@ extern "C" {
 // fp pools [P,PS,KV,HD] of that dtype; 1 int8 codes [P,PS,KV,HD]; 2 int4 codes
 // [P,PS,KV,HD/2] (HD % 64 == 0); quantized pools with float16 scales
 // ks / vs [P,PS,KV,1], null for fp.  q [B,Tq,H,HD], table int32 [B,W], tpos
-// int32 [B,Tq], out [B,Tq,H,HD], all contiguous and 16-byte aligned.
-// scratch: float32 [B,KV,G*Tq,W*PS], or null to keep the scores in shared
-// memory (smem_bytes then includes them).
+// int32 [B,Tq], out [B,Tq,H,HD], all contiguous and 16-byte aligned.  The
+// positions of a row are split into NS chunks of CW pages (NS = ceil(W / CW));
+// workspace: float32 of B*KV*G*Tq*(NS*(HD + 2) + W*PS) elements, 16-byte
+// aligned; smem_bytes: dynamic shared memory of the score and PV launches.
 int paged_attention_run(int dtype, int kv_fmt, const void* q, const void* k,
                         const void* v, const void* ks, const void* vs, const void* table,
-                        const void* tpos, void* out, void* scratch, int B, int Tq, int H,
-                        int KV, int HD, int PS, int W, float div, int additive,
-                        int smem_bytes, void* stream) {
+                        const void* tpos, void* out, void* workspace, int B, int Tq, int H,
+                        int KV, int HD, int PS, int W, int CW, int NS, float div,
+                        int additive, int smem_bytes, void* stream) {
   if (B <= 0 || Tq <= 0 || KV <= 0 || H % KV != 0 || (HD != 64 && HD != 128) ||
-      PS <= 0 || W <= 0 || (kv_fmt != KV_FP && (ks == nullptr || vs == nullptr)))
+      PS <= 0 || W <= 0 || CW <= 0 || NS != (W + CW - 1) / CW || workspace == nullptr ||
+      (kv_fmt != KV_FP && (ks == nullptr || vs == nullptr)))
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
-      return launch_fmt<float>(kv_fmt, q, k, v, ks, vs, table, tpos, out, scratch, B, Tq,
-                               H, KV, HD, PS, W, div, additive, smem_bytes, stream);
+      return launch_fmt<float>(kv_fmt, q, k, v, ks, vs, table, tpos, out, workspace, B, Tq,
+                               H, KV, HD, PS, W, CW, NS, div, additive, smem_bytes, stream);
     case 1:
-      return launch_fmt<__nv_bfloat16>(kv_fmt, q, k, v, ks, vs, table, tpos, out, scratch,
-                                       B, Tq, H, KV, HD, PS, W, div, additive, smem_bytes,
-                                       stream);
+      return launch_fmt<__nv_bfloat16>(kv_fmt, q, k, v, ks, vs, table, tpos, out,
+                                       workspace, B, Tq, H, KV, HD, PS, W, CW, NS, div,
+                                       additive, smem_bytes, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

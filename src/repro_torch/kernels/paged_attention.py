@@ -1,19 +1,27 @@
 """Paged-attention read: wrapper of the CUDA kernel ``csrc/paged_attention.cu``.
 
 Replaces the Pallas TPU kernel of ``repro/kernels/paged_attention.py``.  The
-kernel walks each row's page table itself, skips the positions past the
-row's largest tpos (masked for all its queries), scores the live K rows into
-float32 (in shared memory when they fit, else in a scratch tensor allocated
-here), runs a deferred softmax (exp and normalise after every page is scored,
-as the TPU kernel does, no online rescale) and the PV pass.  Pools hold fp
-pages, or int8 / packed-int4 codes with float16 scales per (page slot, KV
-head), dequantized in registers with the plain formula.  It repeats every
-rounding of the plain version, :func:`repro_torch.models.attention.
-paged_gather_read`, which differs from it only by float32 summation order.
+kernel walks each row's page table itself and skips the positions past the
+row's largest tpos (masked for all its queries).  One block walking all of a
+(KV head, row)'s positions would fill only B * KV SMs, so the positions are
+split into chunks of whole pages (:func:`split_plan`, picked here from the
+shapes and the SM count, never from tpos) and a read is three launches over
+a grid of (KV head, row, chunk) blocks: scores of each chunk into a float32
+workspace with the chunk's max and exp-sum; the PV pass of each chunk after
+combining every chunk's (max, sum) in a fixed order; the fixed-order sum of
+the chunks' partials.  The softmax stays deferred (exp and normalise against
+the row's global max, probabilities rounded to the input dtype), as in the
+TPU kernel, so it repeats every rounding of the plain version,
+:func:`repro_torch.models.attention.paged_gather_read`; the two differ by
+float32 summation order and the rounding of the per-chunk rescale inside the
+softmax sum.  Pools hold fp pages, or int8 / packed-int4 codes with float16
+scales per (page slot, KV head), dequantized in registers with the plain
+formula.  The workspace comes from torch's allocator on the current stream.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -30,29 +38,49 @@ SMEM_LIMIT = 227 * 1024
 #: (``NWARPS`` and ``RC`` in the source): its PV partials take
 #: NWARPS * RC * hd floats of shared memory
 _NWARPS, _RC = 8, 8
+#: blocks per SM the split aims at (about two waves)
+_WAVES = 2
+#: key positions a warp loads at once (``U`` in the source); a chunk holds at
+#: most _ROUNDS such loads per warp: past that its serial rounds cost more
+#: than another block's fixed start (H100: 18 pages beat 34 and 10 at W=300)
+_U, _ROUNDS = 8, 4
+
+
+class SplitPlan(NamedTuple):
+    """How a read splits each row's W pages: ``ns`` chunks of ``chunk``
+    pages, and the dynamic shared bytes of the score and PV launches."""
+    ns: int
+    chunk: int
+    smem: int
 
 
 def _lib():
     fn = build.load("paged_attention").paged_attention_run
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
-                       + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+                       + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,
                                                ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def smem_plan(t: int, h: int, kv: int, hd: int, ps: int, w: int):
-    """(shared bytes, scores in shared?) for one block of the kernel."""
+def split_plan(b: int, t: int, h: int, kv: int, hd: int, ps: int, w: int,
+               sms: int = 132) -> SplitPlan:
+    """Chunks for ``b`` rows of ``w`` pages on a card of ``sms`` SMs: about
+    ``_WAVES`` blocks per SM over the (kv, b, chunk) grid, at least two
+    chunks when ``w > 1``, at most ``_ROUNDS`` loads of ``_U`` positions per
+    warp in a chunk, and a chunk's ``G*t x chunk*ps`` float scores within the
+    shared memory beside q (score launch) or the PV partials (PV launch)."""
     gt = (h // kv) * t
-    base = 4 * (gt * hd + _NWARPS * _RC * hd + t + w)
-    with_scores = base + 4 * gt * w * ps
-    if with_scores <= SMEM_LIMIT:
-        return with_scores, True
-    if base > SMEM_LIMIT:
+    base = 4 * max(gt * hd + t, _NWARPS * _RC * hd + 2 * gt)
+    per_page = 4 * (gt * ps + 1)
+    cap = (SMEM_LIMIT - base) // per_page
+    if cap < 1:
         raise ValueError(f"paged_attention: {gt} query rows x head_dim {hd} "
-                         "exceed the block's shared memory")
-    return base, False
+                         f"with page size {ps} exceed the block's shared memory")
+    ns = min(w, max(2, -(-_WAVES * sms // (b * kv))))
+    chunk = min(-(-w // ns), cap, max(1, _ROUNDS * _NWARPS * _U // ps))
+    return SplitPlan(-(-w // chunk), chunk, base + per_page * chunk)
 
 
 def paged_attention_cuda(q, k_pool, v_pool, page_table, tpos, *,
@@ -98,9 +126,12 @@ def paged_attention_cuda(q, k_pool, v_pool, page_table, tpos, *,
     if hd not in HEAD_DIMS:
         raise ValueError(f"paged_attention_cuda: head_dim {hd} is not one the "
                          f"kernel is built for {HEAD_DIMS}")
-    smem, in_smem = smem_plan(t, h, kv, hd, ps, w)
-    scratch = None if in_smem else torch.empty(
-        (b, kv, (h // kv) * t, w * ps), dtype=torch.float32, device=q.device)
+    plan = split_plan(b, t, h, kv, hd, ps, w, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    # partials [B, KV, NS, G*T, hd], scores [B, KV, G*T, W*ps], chunk stats
+    # [B, KV, NS, 2, G*T], carved by the kernel in that order
+    workspace = torch.empty(b * kv * (h // kv) * t * (plan.ns * (hd + 2) + w * ps),
+                            dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     # the score divisor is sqrt(hd) rounded to the input dtype, as the plain
     # version divides by it in that dtype
@@ -109,19 +140,23 @@ def paged_attention_cuda(q, k_pool, v_pool, page_table, tpos, *,
     err = _lib()(_DTYPES[q.dtype], _KV_FORMATS[fmt], q.data_ptr(),
                  k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
                  page_table.data_ptr(), tpos.data_ptr(), out.data_ptr(),
-                 None if scratch is None else scratch.data_ptr(),
-                 b, t, h, kv, hd, ps, w, div, int(mask_mode == "additive"),
-                 smem, torch.cuda.current_stream(q.device).cuda_stream)
+                 workspace.data_ptr(), b, t, h, kv, hd, ps, w, plan.chunk,
+                 plan.ns, div, int(mask_mode == "additive"), plan.smem,
+                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_attention_run")
     paged_attention_cuda.launches += 1
     paged_attention_cuda.launches_by_format[fmt] += 1
+    paged_attention_cuda.cuda_launches += CUDA_LAUNCHES_PER_READ
     return out
 
 
-#: kernel launches in this process, in all and by page format (reset by
-#: callers that count a run)
+#: CUDA launches of one read: score, PV, combine
+CUDA_LAUNCHES_PER_READ = 3
+#: reads in this process, in all and by page format, and the CUDA launches
+#: they made (reset by callers that count a run)
 paged_attention_cuda.launches = 0
 paged_attention_cuda.launches_by_format = dict.fromkeys(_KV_FORMATS, 0)
+paged_attention_cuda.cuda_launches = 0
 
 
 def paged_attention(q, k_pool, v_pool, page_table, tpos, **kw) -> torch.Tensor:

@@ -10,7 +10,8 @@ Tolerances: the bit-plane and LUT-readout kernels equal their plain versions
 exactly (int32); the paged read, over fp, int8 and int4 pages, is within one
 bf16 ulp at magnitude 1 (2^-7) in bfloat16 and 1e-5 in float32, since both
 round at the same points (the dequantized elements are equal) and differ
-only in float32 summation order.
+only in float32 summation order and the few-ulp rounding of the per-chunk
+rescale inside the softmax sum.
 """
 import numpy as np
 import pytest
@@ -115,31 +116,52 @@ def _paged_case(gen, dev, dtype, t, lens, hd=64, ps=4, n_pages=12, h=4, kv=2):
     return q, k, v, table.to(dev), tpos.to(dev)
 
 
+#: (T, row lengths, page size, pages in the pool, all-masked row): a short
+#: table; a long one (W = 300, split into many chunks) at decode and at a
+#: prefill width; a row whose every query is masked (uniform over all S)
+PAGED_CASES = {"short": (3, [5, 11, 8], 4, 12, None),
+               "long_t1": (1, [4780, 2000], 16, 430, None),
+               "long_t16": (16, [4780, 2000], 16, 430, None),
+               "all_masked": (3, [5, 11, 8], 4, 12, 1)}
+
+
+def _paged_args(gen, dev, dtype, case):
+    t, lens, ps, n_pages, masked = PAGED_CASES[case]
+    q, k, v, table, tpos = _paged_case(gen, dev, dtype, t, lens, ps=ps,
+                                       n_pages=n_pages)
+    if masked is not None:
+        tpos[masked] = -1
+    return q, k, v, table, tpos
+
+
+@pytest.mark.parametrize("case", list(PAGED_CASES))
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2.0 ** -7),
                                         (torch.float32, 1e-5)])
 @pytest.mark.parametrize("mask_mode", ["where", "additive"])
-def test_paged_kernel_matches_plain(card, dtype, atol, mask_mode):
+def test_paged_kernel_matches_plain(card, dtype, atol, mask_mode, case):
     from repro_torch.kernels.paged_attention import paged_attention_cuda
     from repro_torch.models.attention import paged_gather_read
 
     gen = torch.Generator(device=card).manual_seed(5)
-    args = _paged_case(gen, card, dtype, 3, [5, 11, 8])
-    before = paged_attention_cuda.launches
+    args = _paged_args(gen, card, dtype, case)
+    before = paged_attention_cuda.launches, paged_attention_cuda.cuda_launches
     out = paged_attention(*args, mask_mode=mask_mode)
     ref = paged_gather_read(*args, mask_mode=mask_mode)
     assert (out.float() - ref.float()).abs().max().item() <= atol
-    assert paged_attention_cuda.launches == before + 1
+    assert (paged_attention_cuda.launches, paged_attention_cuda.cuda_launches) == (
+        before[0] + 1, before[1] + 3)
 
 
+@pytest.mark.parametrize("case", list(PAGED_CASES))
 @pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2.0 ** -7),
                                         (torch.float32, 1e-5)])
-def test_paged_kernel_reads_quantized_pools(card, kv_dtype, dtype, atol):
+def test_paged_kernel_reads_quantized_pools(card, kv_dtype, dtype, atol, case):
     from repro_torch.kernels.paged_attention import paged_attention_cuda
     from repro_torch.models.attention import paged_gather_read
 
     gen = torch.Generator(device=card).manual_seed(6)
-    q, k, v, table, tpos = _paged_case(gen, card, dtype, 3, [5, 11, 8])
+    q, k, v, table, tpos = _paged_args(gen, card, dtype, case)
     (kc, ks), (vc, vs) = (kv_quant.quantize_kv(x, kv_dtype) for x in (k, v))
     before = paged_attention_cuda.launches_by_format[kv_dtype]
     out = paged_attention(q, kc, vc, table, tpos, k_scale=ks, v_scale=vs)

@@ -5,7 +5,11 @@ on the CPU); those are held against the Pallas kernels run in interpret mode:
 the bit-plane and LUT-readout VMMs bit-exactly, the paged-attention read in
 float32 to
 atol 1e-5 / rtol 1e-5 (both compute the same roundings; only float32
-summation order differs), over fp, int8 and int4 pools.
+summation order differs), over fp, int8 and int4 pools.  The attention
+kernel's split arithmetic (chunk max and exp-sum, their fixed-order combine,
+rounded probabilities, per-chunk PV partials summed in order) is emulated in
+plain torch and held against both, at the card's tolerances: 2^-7 in
+bfloat16, 1e-5 in float32.
 
 The kernels themselves are tested on the card by ``tests/test_torch_gpu.py``.
 """
@@ -22,7 +26,7 @@ from repro.kernels.paged_attention import paged_attention as jpaged
 from repro.models import kv_quant as jkvq
 from repro_torch.core.da import DAConfig, build_luts
 from repro_torch.kernels import build, ops
-from repro_torch.kernels.paged_attention import paged_attention, smem_plan
+from repro_torch.kernels.paged_attention import paged_attention, split_plan
 from repro_torch.models import kv_quant as tkvq
 
 
@@ -137,11 +141,106 @@ def test_kv_quant_codes_bit_exact(kv_dtype):
     assert tkvq.kv_format(gc, gs, 16) == kv_dtype
 
 
-def test_smem_plan_spills_long_tables_to_scratch():
-    nbytes, in_smem = smem_plan(t=16, h=32, kv=8, hd=128, ps=16, w=17)
-    assert in_smem and nbytes <= 227 * 1024
-    nbytes, in_smem = smem_plan(t=16, h=32, kv=8, hd=128, ps=16, w=300)
-    assert not in_smem and nbytes == 4 * (64 * 128 + 8 * 8 * 128 + 16 + 300)
+def _split_read(q, k, v, table, tpos, chunk, mask_mode, k_scale=None,
+                v_scale=None):
+    """Plain-torch emulation of the CUDA kernel's three launches with the
+    positions of each row split into chunks of ``chunk`` pages: (a) rounded,
+    masked scores and each chunk's max m_s and l_s = sum exp(x - m_s); (b)
+    m = max m_s and L = sum l_s exp(m_s - m) in chunk order, probabilities
+    exp(x - m) / L rounded to q's dtype, a float32 PV partial per chunk; (c)
+    the partials summed in chunk order and rounded.  Chunks wholly past the
+    row's live end (its largest tpos + 1, or all S if every query is
+    masked) are skipped."""
+    dt = q.dtype
+    b, t, h, hd = q.shape
+    _, ps, kv, _ = k.shape
+    g, s_len, cp = h // kv, table.shape[1] * ps, chunk * ps
+    fmt = tkvq.kv_format(k, k_scale, hd)
+    kg, vg = k[table.long()], v[table.long()]
+    if fmt != "fp":
+        kg = tkvq.dequantize_kv(kg, k_scale[table.long()], fmt, dt)
+        vg = tkvq.dequantize_kv(vg, v_scale[table.long()], fmt, dt)
+    kg = kg.reshape(b, s_len, kv, hd).float()
+    vg = vg.reshape(b, s_len, kv, hd).float()
+    div = torch.tensor(hd ** 0.5, dtype=dt).float()
+    dot = torch.einsum("btkgd,bskd->bkgts", q.float().reshape(b, t, kv, g, hd), kg)
+    x = (dot.to(dt).float() / div).to(dt).float()
+    valid = (torch.arange(s_len)[None, None] <= tpos.long()[:, :, None])[:, None, None]
+    neg = torch.tensor(-1e30)
+    x = (x + torch.where(valid, torch.tensor(0.0), neg) if mask_mode == "additive"
+         else torch.where(valid, x, neg))
+    out = torch.empty(b, kv, g, t, hd)
+    for i in range(b):
+        tmax = int(tpos[i].max())
+        s_end = min(s_len, tmax + 1) if tmax >= 0 else s_len
+        chunks = [(c, min(c + cp, s_end)) for c in range(0, s_end, cp)]
+        stats = []
+        for c0, c1 in chunks:                                        # (a)
+            m_s = x[i, ..., c0:c1].amax(-1)
+            stats.append((m_s, torch.exp(x[i, ..., c0:c1] - m_s[..., None]).sum(-1)))
+        m = stats[0][0]
+        for m_s, _ in stats[1:]:
+            m = torch.maximum(m, m_s)
+        big_l = torch.zeros_like(m)
+        for m_s, l_s in stats:
+            big_l = big_l + l_s * torch.exp(m_s - m)
+        acc = torch.zeros(kv, g, t, hd)
+        for c0, c1 in chunks:                                        # (b), (c)
+            p = (torch.exp(x[i, ..., c0:c1] - m[..., None]) / big_l[..., None]).to(dt)
+            acc = acc + torch.einsum("kgts,skd->kgtd", p.float(), vg[i, c0:c1])
+        out[i] = acc
+    return out.to(dt).permute(0, 3, 1, 2, 4).reshape(b, t, h, hd)
+
+
+@pytest.mark.parametrize("ns", [1, 3, 7])
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("mask_mode", ["where", "additive"])
+def test_split_arithmetic_matches_plain_and_pallas_interpret(ns, kv_dtype, dtype,
+                                                             mask_mode):
+    """W = 7 pages split into 1, 3 or 7 chunks.  Row 0 has a pad lane at the
+    garbage position (every chunk live), row 2's live end leaves later
+    chunks wholly past it, and every query of row 3 is masked (uniform over
+    all positions)."""
+    rng = np.random.default_rng(ns + {"fp": 0, "int8": 10, "int4": 20}[kv_dtype])
+    q, k, v, table, tpos, (ks, vs) = _paged_case(rng, 3, [5, 22, 8, 6], kv_dtype,
+                                                 n_pages=16)
+    tpos[3] = -1
+    w = table.shape[1]
+    chunk = -(-w // ns)
+    assert w == 7 and -(-w // chunk) == ns
+    jkw = {} if ks is None else {"k_scale": jnp.asarray(ks), "v_scale": jnp.asarray(vs)}
+    ref = jpaged(jnp.asarray(q).astype(dtype), jnp.asarray(k).astype(
+                     dtype if kv_dtype == "fp" else k.dtype),
+                 jnp.asarray(v).astype(dtype if kv_dtype == "fp" else v.dtype),
+                 jnp.asarray(table), jnp.asarray(tpos), mask_mode=mask_mode,
+                 interpret=True, **jkw)
+    tdt = getattr(torch, dtype)
+    pools = [_t(x) if kv_dtype != "fp" else _t(x).to(tdt) for x in (k, v)]
+    tkw = {} if ks is None else {"k_scale": _t(ks), "v_scale": _t(vs)}
+    args = (_t(q).to(tdt), *pools, _t(table), _t(tpos))
+    got = _split_read(*args, chunk, mask_mode, **tkw)
+    plain = paged_attention(*args, mask_mode=mask_mode, **tkw)
+    atol = {"bfloat16": 2.0 ** -7, "float32": 1e-5}[dtype]
+    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(),
+                               rtol=0, atol=atol)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("b,t,w", [(4, 1, 17), (4, 16, 17), (2, 16, 300),
+                                   (2, 16, 2560), (4, 1, 1)])
+def test_split_plan_fills_the_card_and_fits_shared_memory(b, t, w):
+    """qwen3-8b heads (32 over 8 KV heads of 128), page 16: every page in one
+    chunk of whole pages, at least two chunks unless W = 1, at least 132
+    blocks at decode, and a chunk's scores within a block's shared memory."""
+    plan = split_plan(b, t, h=32, kv=8, hd=128, ps=16, w=w)
+    assert plan.ns == -(-w // plan.chunk)
+    assert plan.smem <= 227 * 1024 and 4 * 4 * t * plan.chunk * 16 < plan.smem
+    if w == 1:
+        assert plan.ns == 1
+    else:
+        assert plan.ns >= 2 and 8 * b * plan.ns >= 132
 
 
 def test_build_key_tracks_sources():
