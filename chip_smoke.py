@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py                    # every phase
     python3 chip_smoke.py --phase attention  # build, then the attention phase
+    python3 chip_smoke.py --phase attention --src OTHER/src
+                         # the same, on another checkout's port: compares two
+                         # commits' attention kernels with one set of timers
 
 Phases, one JSON line each:
 
@@ -23,7 +26,9 @@ Phases, one JSON line each:
    and the LUT-serving model's in float32 (T = 1 and 16 at max_len 128);
    ragged tpos, permuted pages, pad lanes on the garbage page, and at both
    head shapes a row whose every query is masked; each case with the split
-   (chunks, blocks per launch, CUDA launches per read);
+   (chunks, blocks per launch, CUDA launches per read), the read's time on
+   two event timers (device spin before the start event or not), its device
+   time per kernel from ``torch.profiler`` and its host time to enqueue;
 5. one prefill step of qwen3-8b at full width and 2 layers, through the
    kernels and through the plain versions, with fp and with int8 KV pages:
    logits within a stated tolerance, argmax equal;
@@ -50,8 +55,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import importlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -112,18 +119,20 @@ def smi_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def time_cuda(fn, iters: int, flush=None, warmup: int = 2) -> float:
-    """Mean ms of ``fn`` from CUDA events, each call after an L2 flush.  A
-    device spin before the start event covers the host's enqueue of ``fn``
-    (a wrapper that makes several launches would otherwise leave its host
-    time between them on the clock)."""
+def time_cuda(fn, iters: int, flush=None, warmup: int = 2, spin: bool = True) -> float:
+    """Mean ms of ``fn`` from CUDA events, each call after an L2 flush.  With
+    ``spin`` a device spin before the start event covers the host's enqueue
+    of ``fn`` (a wrapper that makes several launches would otherwise leave
+    its host time between them on the clock); without it the events also
+    time whatever of the enqueue the L2 flush does not cover."""
     import torch
 
     total = 0.0
     for i in range(warmup + iters):
         if flush is not None:
             flush.zero_()
-        torch.cuda._sleep(HOST_COVER_CYCLES)
+        if spin:
+            torch.cuda._sleep(HOST_COVER_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -135,11 +144,35 @@ def time_cuda(fn, iters: int, flush=None, warmup: int = 2) -> float:
     return total / iters
 
 
-def device_ms_by_kernel(fn, iters: int, flush, keys) -> dict:
-    """Device ms per call of ``fn`` by kernel from ``torch.profiler``: the
-    kernels whose name holds each of ``keys``, L2 flushed before each call.
-    A trace that holds none of them is taken again (the profiler has once
-    returned an empty one), three times at most."""
+def host_us(fn, iters: int) -> dict:
+    """Mean host µs to enqueue one call of ``fn``: ``idle`` with the device
+    idle before each call; ``busy`` behind a device spin, where a call that
+    waits for the device shows the wait."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    idle = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        idle += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10 * HOST_COVER_CYCLES * iters)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    busy = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return {"idle": idle / iters * 1e6, "busy": busy / iters * 1e6}
+
+
+def device_ms_by_kernel(fn, iters: int, flush, prefix: str) -> dict:
+    """Device ms per call of ``fn`` from ``torch.profiler`` for each kernel
+    whose name holds ``prefix`` (keyed by the word that starts there), L2
+    flushed before each call.  A trace that holds none is taken again (the
+    profiler has once returned an empty one), three times at most."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -152,14 +185,14 @@ def device_ms_by_kernel(fn, iters: int, flush, keys) -> dict:
                 flush.zero_()
                 fn()
             torch.cuda.synchronize()
-        out = dict.fromkeys(keys, 0.0)
+        out = {}
         for e in prof.events():
-            key = next((k for k in keys if k in e.name), None)
-            if e.device_type == DeviceType.CUDA and key is not None:
-                out[key] += e.time_range.elapsed_us() / 1e3 / iters
-        if all(v > 0 for v in out.values()):
+            m = re.search(re.escape(prefix) + r"\w*", e.name)
+            if e.device_type == DeviceType.CUDA and m:
+                out[m[0]] = out.get(m[0], 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+        if out:
             return out
-    raise AssertionError(f"the profiler traced none of {keys}")
+    raise AssertionError(f"the profiler traced no {prefix} kernel")
 
 
 def phase_device():
@@ -343,32 +376,46 @@ def phase_attention(flush):
     return rows
 
 
+def _split_fields(pa, b, t, w, ps, heads) -> dict:
+    """The split a read of this case runs with, where the port's wrapper has
+    one (a commit given by ``--src`` may predate it)."""
+    import torch
+
+    if not hasattr(pa, "split_plan"):
+        return {}
+    plan = pa.split_plan(b, t, heads["h"], heads["kv"], heads["hd"], ps, w,
+                         torch.cuda.get_device_properties(0).multi_processor_count)
+    return {"chunks": plan.ns, "chunk_pages": plan.chunk,
+            "blocks_per_launch": heads["kv"] * b * plan.ns}
+
+
 def _attention_case(gen, b, t, w, mode, dname, heads, flush, masked_row=None):
     import torch
 
-    from repro_torch.kernels.paged_attention import paged_attention_cuda, split_plan
     from repro_torch.models import kv_quant
     from repro_torch.models.attention import paged_gather_read
 
+    pa = importlib.import_module("repro_torch.kernels.paged_attention")
+    kernel = pa.paged_attention_cuda
     atol = ATTN_ATOL[dname]
     rows = []
     q, kp, vp, table, tpos = _paged_case(gen, b, t, w, b * w + 8,
                                          getattr(torch, dname), **heads)
     if masked_row is not None:
         tpos[masked_row] = -1
-    plan = split_plan(b, t, heads["h"], heads["kv"], heads["hd"], kp.shape[1], w,
-                      torch.cuda.get_device_properties(0).multi_processor_count)
+    split = _split_fields(pa, b, t, w, kp.shape[1], heads)
     for fmt in ("fp", "int8", "int4"):
         if fmt == "fp":
             kc, vc, scales = kp, vp, {}
         else:
             (kc, ks), (vc, vs) = (kv_quant.quantize_kv(x, fmt) for x in (kp, vp))
             scales = {"k_scale": ks, "v_scale": vs}
-        before = paged_attention_cuda.launches, paged_attention_cuda.cuda_launches
-        out = paged_attention_cuda(q, kc, vc, table, tpos, mask_mode=mode,
-                                   **scales)
-        reads = paged_attention_cuda.launches - before[0]
-        per_read = (paged_attention_cuda.cuda_launches - before[1]) / reads
+        before = kernel.launches, getattr(kernel, "cuda_launches", None)
+        out = kernel(q, kc, vc, table, tpos, mask_mode=mode, **scales)
+        if kernel.launches != before[0] + 1:
+            raise AssertionError("an attention read did not count one read")
+        if before[1] is not None:
+            split["cuda_launches_per_read"] = kernel.cuda_launches - before[1]
         ref = paged_gather_read(q, kc, vc, table, tpos, mask_mode=mode, **scales)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
@@ -378,35 +425,39 @@ def _attention_case(gen, b, t, w, mode, dname, heads, flush, masked_row=None):
                 f"T={t} W={w} {heads} {dname} {mode} {fmt} pages")
         row = {"dtype": dname, "h": heads["h"], "kv_heads": heads["kv"],
                "hd": heads["hd"], "b": b, "t": t, "w": w, "kv": fmt,
-               "mask_mode": mode, "all_masked_row": masked_row,
-               "chunks": plan.ns, "chunk_pages": plan.chunk,
-               "blocks_per_launch": heads["kv"] * b * plan.ns,
-               "cuda_launches_per_read": per_read, "max_abs_err": err}
+               "mask_mode": mode, "all_masked_row": masked_row, **split,
+               "max_abs_err": err}
         if mode == "where" and flush is not None:
-            row.update(_attention_times(q, kc, vc, table, tpos, scales, fmt,
-                                        flush))
+            row.update(_attention_times(kernel, q, kc, vc, table, tpos, scales,
+                                        fmt, flush))
         rows.append(row)
     return rows
 
 
-def _attention_times(q, kc, vc, table, tpos, scales, fmt, flush):
-    """Kernel, plain and SDPA times and the bound for one case.  SDPA runs on
-    the gathered (and dequantized) view, made outside the timing."""
+def _attention_times(kernel, q, kc, vc, table, tpos, scales, fmt, flush):
+    """Kernel, plain and SDPA times and the bound for one case.  The read is
+    timed on both event timers (``ms`` with the device spin before the start
+    event, ``ms_no_spin`` without), by kernel on the device, and on the
+    host.  SDPA runs on the gathered (and dequantized) view, made outside
+    the timing."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
     from repro_torch.models import kv_quant
     from repro_torch.models.attention import paged_gather_read
 
     b, t, h, hd = q.shape
     ps, kv = kc.shape[1], kc.shape[2]
     w = table.shape[1]
-    row = {"ms": time_cuda(lambda: paged_attention_cuda(
-               q, kc, vc, table, tpos, **scales), 20, flush),
-           "device_ms": device_ms_by_kernel(lambda: paged_attention_cuda(
-               q, kc, vc, table, tpos, **scales), 5, flush,
-               ("paged_attn_score", "paged_attn_pv", "paged_attn_combine")),
+
+    def read():
+        return kernel(q, kc, vc, table, tpos, **scales)
+
+    by_kernel = device_ms_by_kernel(read, 5, flush, "paged_attn_")
+    row = {"ms": time_cuda(read, 20, flush),
+           "ms_no_spin": time_cuda(read, 20, flush, spin=False),
+           "device_ms": sum(by_kernel.values()), "device_ms_by_kernel": by_kernel,
+           "host_us": host_us(read, 20),
            "plain_ms": time_cuda(lambda: paged_gather_read(
                q, kc, vc, table, tpos, **scales), 10, flush)}
     tl = table.long()
@@ -737,7 +788,14 @@ def main() -> int:
     parser.add_argument("--phase", choices=("all", "attention"), default="all",
                         help="'attention': build the kernels and run only the "
                              "attention phase (no result line)")
+    parser.add_argument("--src", help="import the port from this directory "
+                        "(another checkout's src/) instead of this one's; "
+                        "only with --phase attention")
     args = parser.parse_args()
+    if args.src:
+        if args.phase != "attention":
+            parser.error("--src needs --phase attention")
+        sys.path.insert(0, os.path.abspath(args.src))
     # the plain versions are references: full float32 and bf16 reductions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

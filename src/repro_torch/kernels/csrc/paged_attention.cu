@@ -35,7 +35,7 @@
 // decode step) and serialise a long table on one SM.
 //
 // Design: the positions of a (KV head, row) are split into NS chunks of CW
-// whole pages, and three launches over a grid of (KV, B, NS) blocks keep the
+// whole pages, and two launches over a grid of (KV, B, NS) blocks keep the
 // deferred softmax's roundings, which an online softmax would not (it never
 // rounds the probabilities to T).  The wrapper picks NS and CW on the host
 // from the shapes and the SM count: about two waves of blocks, and at most
@@ -55,15 +55,17 @@
 //       V rows (each lane accumulates its hd/32 output
 //       elements for 8 query rows over U rows loaded at once; the 8 warp
 //       partials are summed in a fixed order through shared memory) into a
-//       float32 partial [B, KV, NS, G*T, hd];
-//   (c) combine: the live partials are summed in a fixed order and rounded to
-//       T.  No atomics: the result does not depend on the order blocks run.
+//       float32 partial [B, KV, NS, G*T, hd].  The last block of a (KV head,
+//       row) to finish, found by a counter that the score launch zeroes, sums
+//       the live partials in chunk order and rounds to T; a row with one live
+//       chunk rounds its block's sum directly.  The counter only elects that
+//       block, so the result does not depend on the order blocks run.
 // The result differs from the plain read by float32 summation order and by
 // the roundings of exp(m_s - m) inside L (a few float32 ulps).  Positions
 // past the largest tpos of the row are masked for all its queries: their
 // probabilities are exactly 0, so no launch touches them, and a chunk wholly
-// past that end is skipped by all three launches (each computes the same live
-// end from tpos, so nothing marks it).  If no tpos of the row is >= 0 every
+// past that end is skipped by both launches (each computes the same live end
+// from tpos, so nothing marks it).  If no tpos of the row is >= 0 every
 // query is masked everywhere and the plain softmax is uniform over all S, so
 // nothing is skipped.
 
@@ -71,6 +73,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -80,6 +84,7 @@ constexpr int NWARPS = 8;
 constexpr int THREADS = NWARPS * 32;
 constexpr int RC = 8;  // query rows per reduction / accumulation chunk
 constexpr int U = 8;   // key positions whose rows a warp loads at once
+constexpr int SMEM_MAX = 227 * 1024;  // dynamic shared memory a block may take
 enum : int { KV_FP = 0, KV_I8 = 1, KV_I4 = 2 };  // page formats
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
@@ -266,24 +271,26 @@ __device__ __forceinline__ int live_end(const int32_t* __restrict__ tp, int Tq, 
 // format (KV_FP pools hold T, quantized pools int8 codes with float16 scales).
 // Writes the rounded, masked scores of the chunk's live positions to
 // scores [B, KV, G*Tq, S] and the chunk's (m_s, l_s) per query row to
-// stats [B, KV, NS, 2, G*Tq].
+// stats [B, KV, NS, 2, G*Tq]; the first chunk's block zeroes the (KV head,
+// row)'s counter [B, KV] of finished PV blocks.
 template <typename T, int EPL, int KF>
 __global__ void __launch_bounds__(THREADS)
 paged_attn_score_kernel(const T* __restrict__ q, const void* __restrict__ kpool,
                         const __half* __restrict__ kscale,
                         const int32_t* __restrict__ table, const int32_t* __restrict__ tpos,
-                        float* __restrict__ scores, float* __restrict__ stats, int Tq,
-                        int H, int KV, int PS, int W, int CW, int NS, float div,
-                        int additive) {
+                        float* __restrict__ scores, float* __restrict__ stats,
+                        int* __restrict__ done, int Tq, int H, int KV, int PS, int W,
+                        int CW, int NS, float div, int additive) {
   constexpr int HD = 32 * EPL;
   extern __shared__ __align__(16) float smem[];
   const int kvh = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
   const int G = H / KV, GT = G * Tq, S = W * PS, CP = CW * PS;
+  const int tid = threadIdx.x;
+  if (sp == 0 && tid == 0) done[(size_t)b * KV + kvh] = 0;
   const int s_end = live_end(tpos + (size_t)b * Tq, Tq, S);
   const int c0 = sp * CP;
   if (c0 >= s_end) return;
   const int c1 = min(c0 + CP, s_end), n = c1 - c0;
-  const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
 
   float* q_s = smem;                                    // [GT][HD]
@@ -377,14 +384,17 @@ paged_attn_score_kernel(const T* __restrict__ q, const void* __restrict__ kpool,
 
 // (b) PV of one chunk: combines the live chunks' (m_s, l_s) in a fixed
 // order, forms the rounded probabilities of its positions exactly as the
-// plain read does, and writes its float32 partial to part [B, KV, NS, G*Tq, HD].
+// plain read does, and writes its float32 partial to part [B, KV, NS, G*Tq,
+// HD].  The last of the row's live blocks to finish sums the partials in
+// chunk order into out, rounded to T; with one live chunk its block rounds
+// its own sum.
 template <typename T, int EPL, int KF>
 __global__ void __launch_bounds__(THREADS)
 paged_attn_pv_kernel(const void* __restrict__ vpool, const __half* __restrict__ vscale,
                      const int32_t* __restrict__ table, const int32_t* __restrict__ tpos,
                      const float* __restrict__ scores, const float* __restrict__ stats,
-                     float* __restrict__ part, int Tq, int H, int KV, int PS, int W,
-                     int CW, int NS) {
+                     float* __restrict__ part, int* __restrict__ done, T* __restrict__ out,
+                     int Tq, int H, int KV, int PS, int W, int CW, int NS) {
   constexpr int HD = 32 * EPL;
   extern __shared__ __align__(16) float smem[];
   const int kvh = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
@@ -433,9 +443,15 @@ paged_attn_pv_kernel(const void* __restrict__ vpool, const __half* __restrict__ 
     return ((size_t)pg_s[(s - c0) / PS] * PS + s % PS) * KV + kvh;
   };
 
+  // output element (query row r, d) of this (row, KV head)
+  auto out_at = [&](int r, int d) -> T& {
+    return out[(((size_t)b * Tq + r % Tq) * H + kvh * G + r / Tq) * HD + d];
+  };
+  float* const p0 = part + ((size_t)b * KV + kvh) * NS * GT * HD;
+  float* const pt = p0 + (size_t)sp * GT * HD;
+
   // RC query rows at a time: per-warp partials over its positions, then a
   // fixed-order sum of the warps through shared memory
-  float* pt = part + (((size_t)b * KV + kvh) * NS + sp) * GT * HD;
   for (int r0 = 0; r0 < GT; r0 += RC) {
     float acc[RC][EPL];
 #pragma unroll
@@ -467,78 +483,103 @@ paged_attn_pv_kernel(const void* __restrict__ vpool, const __half* __restrict__ 
         float o = 0.f;
 #pragma unroll
         for (int w = 0; w < NWARPS; ++w) o += red[(w * RC + i) * HD + d];
-        pt[(size_t)(r0 + i) * HD + d] = o;
+        if (nlive == 1)
+          out_at(r0 + i, d) = from_f<T>(o);
+        else
+          pt[(size_t)(r0 + i) * HD + d] = o;
       }
     }
     __syncthreads();
   }
+  if (nlive == 1) return;
+
+  // every thread's partial is visible before the count moves; the block that
+  // moves it last reads the other blocks' partials from L2.  The flag takes
+  // the first word of the (free) reduction buffer: a static __shared__ would
+  // push the kernel past the 227 KB the dynamic limit is raised to.
+  int* last = reinterpret_cast<int*>(red);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *last = atomicAdd(done + (size_t)b * KV + kvh, 1) == nlive - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  // four elements per thread (HD % 4 == 0, so one query row), eight chunks'
+  // loads in flight: one block reads nlive * G*Tq * HD floats here
+  const float4* p4 = reinterpret_cast<const float4*>(p0);
+  const size_t stride4 = (size_t)GT * HD / 4;
+  for (int i = tid; i < GT * HD / 4; i += THREADS) {
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int j = 0; j < nlive; ++j) {
+      const float4 x = __ldcg(p4 + j * stride4 + i);
+      o.x += x.x; o.y += x.y; o.z += x.z; o.w += x.w;
+    }
+    const int r = 4 * i / HD, d = 4 * i % HD;
+    out_at(r, d) = from_f<T>(o.x);
+    out_at(r, d + 1) = from_f<T>(o.y);
+    out_at(r, d + 2) = from_f<T>(o.z);
+    out_at(r, d + 3) = from_f<T>(o.w);
+  }
 }
 
-// (c) The live chunks' partials of one query row summed in a fixed order and
-// rounded to T.  Grid (G*Tq, KV, B), HD threads.
-template <typename T, int EPL>
-__global__ void __launch_bounds__(32 * EPL)
-paged_attn_combine_kernel(const float* __restrict__ part, const int32_t* __restrict__ tpos,
-                          T* __restrict__ out, int Tq, int H, int KV, int PS, int W,
-                          int CW, int NS) {
-  constexpr int HD = 32 * EPL;
-  const int r = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
-  const int G = H / KV, GT = G * Tq;
-  const int CP = CW * PS;
-  const int nlive = (live_end(tpos + (size_t)b * Tq, Tq, W * PS) + CP - 1) / CP;
-  const float* pt = part + (((size_t)b * KV + kvh) * NS * GT + r) * HD + d;
-  float o = 0.f;
-  for (int j = 0; j < nlive; ++j) o += pt[(size_t)j * GT * HD];
-  const int g = r / Tq, t = r % Tq;
-  out[(((size_t)b * Tq + t) * H + kvh * G + g) * HD + d] = from_f<T>(o);
-}
-
-// The three launches of one read.  workspace: float32, partials
-// [B, KV, NS, G*Tq, HD], then scores [B, KV, G*Tq, W*PS], then stats
-// [B, KV, NS, 2, G*Tq].
+// The two launches of one read, each adding one to *launched once it is
+// queued.  workspace: float32, partials [B, KV, NS, G*Tq, HD], then scores
+// [B, KV, G*Tq, W*PS], then stats [B, KV, NS, 2, G*Tq], then int32 counters
+// [B, KV].
 template <typename T, int EPL, int KF>
 int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
            const void* table, const void* tpos, void* out, void* workspace, int B, int Tq,
            int H, int KV, int PS, int W, int CW, int NS, float div, int additive,
-           int smem_bytes, void* stream) {
+           int smem_bytes, void* stream, int* launched) {
   constexpr int HD = 32 * EPL;
   const int GT = H / KV * Tq;
   float* part = static_cast<float*>(workspace);
   float* scores = part + (size_t)B * KV * NS * GT * HD;
   float* stats = scores + (size_t)B * KV * GT * W * PS;
+  int* done = reinterpret_cast<int*>(stats + (size_t)B * KV * NS * 2 * GT);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(paged_attn_score_kernel<T, EPL, KF>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem_bytes);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(paged_attn_pv_kernel<T, EPL, KF>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  // the kernels' dynamic shared-memory limit, raised to the most any plan
+  // takes once per device (a bit each), not on every read
+  static std::atomic<unsigned> raised{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev >= 32 || !((raised.load() >> dev) & 1u)) {
+    err = cudaFuncSetAttribute(paged_attn_score_kernel<T, EPL, KF>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(paged_attn_pv_kernel<T, EPL, KF>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 32) raised.fetch_or(1u << dev);
+  }
   const dim3 grid(KV, B, NS);
   paged_attn_score_kernel<T, EPL, KF><<<grid, THREADS, smem_bytes, st>>>(
       (const T*)q, k, (const __half*)ks, (const int32_t*)table, (const int32_t*)tpos,
-      scores, stats, Tq, H, KV, PS, W, CW, NS, div, additive);
+      scores, stats, done, Tq, H, KV, PS, W, CW, NS, div, additive);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  ++*launched;
   paged_attn_pv_kernel<T, EPL, KF><<<grid, THREADS, smem_bytes, st>>>(
       v, (const __half*)vs, (const int32_t*)table, (const int32_t*)tpos, scores, stats,
-      part, Tq, H, KV, PS, W, CW, NS);
+      part, done, (T*)out, Tq, H, KV, PS, W, CW, NS);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  paged_attn_combine_kernel<T, EPL><<<dim3(GT, KV, B), HD, 0, st>>>(
-      part, (const int32_t*)tpos, (T*)out, Tq, H, KV, PS, W, CW, NS);
-  return (int)cudaGetLastError();
+  ++*launched;
+  return 0;
 }
 
 template <typename T, int KF>
 int launch_hd(const void* q, const void* k, const void* v, const void* ks, const void* vs,
               const void* table, const void* tpos, void* out, void* workspace, int B,
               int Tq, int H, int KV, int HD, int PS, int W, int CW, int NS, float div,
-              int additive, int smem_bytes, void* stream) {
+              int additive, int smem_bytes, void* stream, int* launched) {
 #define PA_CASE(E)                                                                     \
   case E:                                                                              \
     return launch<T, E, KF>(q, k, v, ks, vs, table, tpos, out, workspace, B, Tq, H,    \
-                            KV, PS, W, CW, NS, div, additive, smem_bytes, stream);
+                            KV, PS, W, CW, NS, div, additive, smem_bytes, stream,  \
+                            launched);
   // the head widths a registered config serves (the LUT-serving model's 64,
   // qwen3-8b's 128); widen the set when a config needs another
   switch (HD / 32) {
@@ -553,11 +594,13 @@ template <typename T>
 int launch_fmt(int kv_fmt, const void* q, const void* k, const void* v, const void* ks,
                const void* vs, const void* table, const void* tpos, void* out,
                void* workspace, int B, int Tq, int H, int KV, int HD, int PS, int W,
-               int CW, int NS, float div, int additive, int smem_bytes, void* stream) {
+               int CW, int NS, float div, int additive, int smem_bytes, void* stream,
+               int* launched) {
 #define PA_FMT(F)                                                                      \
   case F:                                                                              \
     return launch_hd<T, F>(q, k, v, ks, vs, table, tpos, out, workspace, B, Tq, H, KV, \
-                           HD, PS, W, CW, NS, div, additive, smem_bytes, stream);
+                           HD, PS, W, CW, NS, div, additive, smem_bytes, stream,    \
+                           launched);
   switch (kv_fmt) {
     PA_FMT(KV_FP) PA_FMT(KV_I8) PA_FMT(KV_I4)
     default:
@@ -576,25 +619,28 @@ extern "C" {
 // ks / vs [P,PS,KV,1], null for fp.  q [B,Tq,H,HD], table int32 [B,W], tpos
 // int32 [B,Tq], out [B,Tq,H,HD], all contiguous and 16-byte aligned.  The
 // positions of a row are split into NS chunks of CW pages (NS = ceil(W / CW));
-// workspace: float32 of B*KV*G*Tq*(NS*(HD + 2) + W*PS) elements, 16-byte
-// aligned; smem_bytes: dynamic shared memory of the score and PV launches.
+// workspace: 4-byte words, B*KV*(G*Tq*(NS*(HD + 2) + W*PS) + 1) of them,
+// 16-byte aligned; smem_bytes: dynamic shared memory of the score and PV
+// launches (at most 227 KB).  Adds the CUDA launches it queued to *launched.
 int paged_attention_run(int dtype, int kv_fmt, const void* q, const void* k,
                         const void* v, const void* ks, const void* vs, const void* table,
                         const void* tpos, void* out, void* workspace, int B, int Tq, int H,
                         int KV, int HD, int PS, int W, int CW, int NS, float div,
-                        int additive, int smem_bytes, void* stream) {
+                        int additive, int smem_bytes, void* stream, int* launched) {
   if (B <= 0 || Tq <= 0 || KV <= 0 || H % KV != 0 || (HD != 64 && HD != 128) ||
       PS <= 0 || W <= 0 || CW <= 0 || NS != (W + CW - 1) / CW || workspace == nullptr ||
+      smem_bytes > SMEM_MAX || launched == nullptr ||
       (kv_fmt != KV_FP && (ks == nullptr || vs == nullptr)))
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
       return launch_fmt<float>(kv_fmt, q, k, v, ks, vs, table, tpos, out, workspace, B, Tq,
-                               H, KV, HD, PS, W, CW, NS, div, additive, smem_bytes, stream);
+                               H, KV, HD, PS, W, CW, NS, div, additive, smem_bytes, stream,
+                               launched);
     case 1:
       return launch_fmt<__nv_bfloat16>(kv_fmt, q, k, v, ks, vs, table, tpos, out,
                                        workspace, B, Tq, H, KV, HD, PS, W, CW, NS, div,
-                                       additive, smem_bytes, stream);
+                                       additive, smem_bytes, stream, launched);
     default:
       return (int)cudaErrorInvalidValue;
   }

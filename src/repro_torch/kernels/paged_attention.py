@@ -5,11 +5,11 @@ kernel walks each row's page table itself and skips the positions past the
 row's largest tpos (masked for all its queries).  One block walking all of a
 (KV head, row)'s positions would fill only B * KV SMs, so the positions are
 split into chunks of whole pages (:func:`split_plan`, picked here from the
-shapes and the SM count, never from tpos) and a read is three launches over
-a grid of (KV head, row, chunk) blocks: scores of each chunk into a float32
+shapes and the SM count, never from tpos) and a read is two launches over a
+grid of (KV head, row, chunk) blocks: scores of each chunk into a float32
 workspace with the chunk's max and exp-sum; the PV pass of each chunk after
-combining every chunk's (max, sum) in a fixed order; the fixed-order sum of
-the chunks' partials.  The softmax stays deferred (exp and normalise against
+combining every chunk's (max, sum) in a fixed order, whose last block to
+finish sums the chunks' partials in chunk order.  The softmax stays deferred (exp and normalise against
 the row's global max, probabilities rounded to the input dtype), as in the
 TPU kernel, so it repeats every rounding of the plain version,
 :func:`repro_torch.models.attention.paged_gather_read`; the two differ by
@@ -21,6 +21,7 @@ formula.  The workspace comes from torch's allocator on the current stream.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -59,13 +60,15 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
                        + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,
-                                               ctypes.c_int, ctypes.c_void_p])
+                                               ctypes.c_int, ctypes.c_void_p,
+                                               ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
     return fn
 
 
+@functools.lru_cache(maxsize=None)
 def split_plan(b: int, t: int, h: int, kv: int, hd: int, ps: int, w: int,
-               sms: int = 132) -> SplitPlan:
+               sms: int) -> SplitPlan:
     """Chunks for ``b`` rows of ``w`` pages on a card of ``sms`` SMs: about
     ``_WAVES`` blocks per SM over the (kv, b, chunk) grid, at least two
     chunks when ``w > 1``, at most ``_ROUNDS`` loads of ``_U`` positions per
@@ -81,6 +84,18 @@ def split_plan(b: int, t: int, h: int, kv: int, hd: int, ps: int, w: int,
     ns = min(w, max(2, -(-_WAVES * sms // (b * kv))))
     chunk = min(-(-w // ns), cap, max(1, _ROUNDS * _NWARPS * _U // ps))
     return SplitPlan(-(-w // chunk), chunk, base + per_page * chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _score_divisor(hd: int, dtype: torch.dtype) -> float:
+    """sqrt(hd) rounded to the input dtype, as the plain version divides the
+    scores by it in that dtype."""
+    return torch.tensor(hd ** 0.5, dtype=dtype).item()
 
 
 def paged_attention_cuda(q, k_pool, v_pool, page_table, tpos, *,
@@ -126,34 +141,32 @@ def paged_attention_cuda(q, k_pool, v_pool, page_table, tpos, *,
     if hd not in HEAD_DIMS:
         raise ValueError(f"paged_attention_cuda: head_dim {hd} is not one the "
                          f"kernel is built for {HEAD_DIMS}")
-    plan = split_plan(b, t, h, kv, hd, ps, w, torch.cuda.get_device_properties(
-        q.device).multi_processor_count)
+    plan = split_plan(b, t, h, kv, hd, ps, w, _sms(q.device.index))
     # partials [B, KV, NS, G*T, hd], scores [B, KV, G*T, W*ps], chunk stats
-    # [B, KV, NS, 2, G*T], carved by the kernel in that order
-    workspace = torch.empty(b * kv * (h // kv) * t * (plan.ns * (hd + 2) + w * ps),
+    # [B, KV, NS, 2, G*T], int32 counters [B, KV], carved by the kernel in
+    # that order
+    workspace = torch.empty(b * kv * ((h // kv) * t * (plan.ns * (hd + 2) + w * ps) + 1),
                             dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
-    # the score divisor is sqrt(hd) rounded to the input dtype, as the plain
-    # version divides by it in that dtype
-    div = torch.tensor(hd ** 0.5, dtype=q.dtype).item()
     ks, vs = (x.data_ptr() for x in scales) if scales else (None, None)
+    queued = ctypes.c_int(0)
     err = _lib()(_DTYPES[q.dtype], _KV_FORMATS[fmt], q.data_ptr(),
                  k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
                  page_table.data_ptr(), tpos.data_ptr(), out.data_ptr(),
                  workspace.data_ptr(), b, t, h, kv, hd, ps, w, plan.chunk,
-                 plan.ns, div, int(mask_mode == "additive"), plan.smem,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 plan.ns, _score_divisor(hd, q.dtype), int(mask_mode == "additive"),
+                 plan.smem, torch.cuda.current_stream(q.device).cuda_stream,
+                 ctypes.byref(queued))
+    paged_attention_cuda.cuda_launches += queued.value
     build.check(err, "paged_attention_run")
     paged_attention_cuda.launches += 1
     paged_attention_cuda.launches_by_format[fmt] += 1
-    paged_attention_cuda.cuda_launches += CUDA_LAUNCHES_PER_READ
     return out
 
 
-#: CUDA launches of one read: score, PV, combine
-CUDA_LAUNCHES_PER_READ = 3
 #: reads in this process, in all and by page format, and the CUDA launches
-#: they made (reset by callers that count a run)
+#: the kernel's entry point queued for them (reset by callers that count a
+#: run)
 paged_attention_cuda.launches = 0
 paged_attention_cuda.launches_by_format = dict.fromkeys(_KV_FORMATS, 0)
 paged_attention_cuda.cuda_launches = 0

@@ -143,12 +143,13 @@ def test_kv_quant_codes_bit_exact(kv_dtype):
 
 def _split_read(q, k, v, table, tpos, chunk, mask_mode, k_scale=None,
                 v_scale=None):
-    """Plain-torch emulation of the CUDA kernel's three launches with the
-    positions of each row split into chunks of ``chunk`` pages: (a) rounded,
-    masked scores and each chunk's max m_s and l_s = sum exp(x - m_s); (b)
-    m = max m_s and L = sum l_s exp(m_s - m) in chunk order, probabilities
-    exp(x - m) / L rounded to q's dtype, a float32 PV partial per chunk; (c)
-    the partials summed in chunk order and rounded.  Chunks wholly past the
+    """Plain-torch emulation of the CUDA kernel's arithmetic with the
+    positions of each row split into chunks of ``chunk`` pages: (a, score
+    launch) rounded, masked scores and each chunk's max m_s and l_s = sum
+    exp(x - m_s); (b, PV launch) m = max m_s and L = sum l_s exp(m_s - m) in
+    chunk order, probabilities exp(x - m) / L rounded to q's dtype, a
+    float32 PV partial per chunk; (c, the PV launch's last block) the
+    partials summed in chunk order and rounded.  Chunks wholly past the
     row's live end (its largest tpos + 1, or all S if every query is
     masked) are skipped."""
     dt = q.dtype
@@ -231,10 +232,11 @@ def test_split_arithmetic_matches_plain_and_pallas_interpret(ns, kv_dtype, dtype
 @pytest.mark.parametrize("b,t,w", [(4, 1, 17), (4, 16, 17), (2, 16, 300),
                                    (2, 16, 2560), (4, 1, 1)])
 def test_split_plan_fills_the_card_and_fits_shared_memory(b, t, w):
-    """qwen3-8b heads (32 over 8 KV heads of 128), page 16: every page in one
-    chunk of whole pages, at least two chunks unless W = 1, at least 132
-    blocks at decode, and a chunk's scores within a block's shared memory."""
-    plan = split_plan(b, t, h=32, kv=8, hd=128, ps=16, w=w)
+    """qwen3-8b heads (32 over 8 KV heads of 128), page 16, an H100's 132
+    SMs: every page in one chunk of whole pages, at least two chunks unless
+    W = 1, at least 132 blocks at decode, and a chunk's scores within a
+    block's shared memory."""
+    plan = split_plan(b, t, h=32, kv=8, hd=128, ps=16, w=w, sms=132)
     assert plan.ns == -(-w // plan.chunk)
     assert plan.smem <= 227 * 1024 and 4 * 4 * t * plan.chunk * 16 < plan.smem
     if w == 1:
