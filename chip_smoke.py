@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py                    # every phase
     python3 chip_smoke.py --phase attention  # build, then the attention phase
+    python3 chip_smoke.py --phase vmm        # build, then the two VMM phases
+    python3 chip_smoke.py --phase plans      # build, then the VMM plans' sweep
     python3 chip_smoke.py --phase attention --src OTHER/src
+    python3 chip_smoke.py --phase vmm --src OTHER/src
                          # the same, on another checkout's port: compares two
-                         # commits' attention kernels with one set of timers
+                         # commits' kernels with one set of timers
 
 Phases, one JSON line each:
 
@@ -19,7 +22,11 @@ Phases, one JSON line each:
 3. the LUT-readout DA VMM kernel against its plain version (the LUT gather)
    at every LUT shape of the LUT-serving model, M in {4, 64}, and at the
    reference's kernel-test shapes (CONV1's 4x25x6 among them), signed and
-   unsigned, x_bits 2/4/8, group size 4/8/16, ragged K: int32 EQUAL;
+   unsigned, x_bits 2/4/8, group size 4/8/16, ragged K: int32 EQUAL.  Each
+   timed shape of phases 2-3 gives its time on two event timers (device
+   spin before the start event or not), device ms per kernel from
+   ``torch.profiler``, host µs to enqueue, and the plan's tile, split and
+   blocks per launch;
 4. the paged-attention kernel against the plain gather read over fp, int8
    and int4 pages at the head shapes of both paths: qwen3-8b's in bfloat16
    (T = 1 and 16 at max_len 256, and a long table, W = 300, at T = 1 and 16)
@@ -44,6 +51,11 @@ Phases, one JSON line each:
    ``ServeEngine.from_artifact`` and served through the LUT kernel; the same
    artifact booted with the plain ``lut`` gather must give identical tokens.
 
+``--phase plans`` runs none of these after the build: it times each
+constant of the two VMM plans (kernels/bitplane_vmm.py, kernels/da_vmm.py)
+against its alternatives at the shapes of phases 2-3, each EQUAL to the
+plain version, in two passes of opposite order.
+
 Each path (6, 7, 8) sets the kernels' launch counts to 0 just before it runs
 and reads them just after.  Then the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power line, and last the ``{"ok": true, "device": ...}``
@@ -54,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import importlib
 import json
@@ -168,11 +181,13 @@ def host_us(fn, iters: int) -> dict:
     return {"idle": idle / iters * 1e6, "busy": busy / iters * 1e6}
 
 
-def device_ms_by_kernel(fn, iters: int, flush, prefix: str) -> dict:
-    """Device ms per call of ``fn`` from ``torch.profiler`` for each kernel
-    whose name holds ``prefix`` (keyed by the word that starts there), L2
-    flushed before each call.  A trace that holds none is taken again (the
-    profiler has once returned an empty one), three times at most."""
+def device_ms_by_kernel(fn, iters: int, flush, pattern: str) -> dict:
+    """Device ms per call of ``fn`` from ``torch.profiler`` for each device
+    event whose name matches the regex ``pattern`` (keyed by the word that
+    starts there; a memset shows as ``Memset``), L2 flushed before each call
+    by an elementwise kernel (not a memset).  A trace that holds none is
+    taken again (the profiler has once returned an empty one), three times
+    at most."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -182,17 +197,28 @@ def device_ms_by_kernel(fn, iters: int, flush, prefix: str) -> dict:
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
-                flush.zero_()
+                flush.add_(1)
                 fn()
             torch.cuda.synchronize()
         out = {}
         for e in prof.events():
-            m = re.search(re.escape(prefix) + r"\w*", e.name)
+            m = re.search(r"(?:" + pattern + r")\w*", e.name)
             if e.device_type == DeviceType.CUDA and m:
                 out[m[0]] = out.get(m[0], 0.0) + e.time_range.elapsed_us() / 1e3 / iters
         if out:
             return out
-    raise AssertionError(f"the profiler traced no {prefix} kernel")
+    raise AssertionError(f"the profiler traced no {pattern} kernel")
+
+
+def call_times(fn, flush, pattern: str) -> dict:
+    """One call of ``fn`` on both event timers (``ms`` with the device spin
+    before the start event, ``ms_no_spin`` without), by kernel on the
+    device (``torch.profiler``) and on the host (µs to enqueue)."""
+    by_kernel = device_ms_by_kernel(fn, 5, flush, pattern)
+    return {"ms": time_cuda(fn, 20, flush),
+            "ms_no_spin": time_cuda(fn, 20, flush, spin=False),
+            "device_ms": sum(by_kernel.values()), "device_ms_by_kernel": by_kernel,
+            "host_us": host_us(fn, 20)}
 
 
 def phase_device():
@@ -215,13 +241,26 @@ def lut_model_cfg():
         param_dtype="float32", compute_dtype="float32")
 
 
+def _vmm_module(name):
+    """The port's kernel module (this checkout's, or ``--src``'s)."""
+    return importlib.import_module(f"repro_torch.kernels.{name}")
+
+
+def _bitplane_fields(mod, m, k, n) -> dict:
+    """The tile and split a call of this shape runs with."""
+    plan = mod.bitplane_plan(m, k, n, _vmm_module("build").sms(0))
+    return {"tokens_per_block": plan.tokens, "k_splits": plan.splits,
+            "blocks_per_launch": plan.blocks}
+
+
 def phase_bitplane(flush):
     import torch
 
     from repro_torch.core.da import DAConfig
-    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
     from repro_torch.kernels.ref import bitplane_vmm_ref
 
+    mod = _vmm_module("bitplane_vmm")
+    kernel = mod.bitplane_vmm_cuda
     cfg = DAConfig(x_bits=8, x_signed=True)
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
@@ -231,13 +270,15 @@ def phase_bitplane(flush):
         for m in (4, 64):
             xq = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
                                dtype=torch.int32)
-            y = bitplane_vmm_cuda(xq, wq, cfg)
+            y = kernel(xq, wq, cfg)
             ref = bitplane_vmm_ref(xq, wq, cfg)
             torch.cuda.synchronize()
             if not torch.equal(y, ref):
                 raise AssertionError(f"bitplane kernel != plain at M={m} K={k} N={n}")
-            ms = time_cuda(lambda: bitplane_vmm_cuda(xq, wq, cfg), 20, flush)
-            plain_ms = time_cuda(lambda: bitplane_vmm_ref(xq, wq, cfg), 3, flush, 1)
+            row = {"m": m, "k": k, "n": n, "equal": True, "max_abs_err": 0,
+                   **_bitplane_fields(mod, m, k, n),
+                   **call_times(lambda: kernel(xq, wq, cfg), flush, BITPLANE_KERNELS)}
+            row["plain_ms"] = time_cuda(lambda: bitplane_vmm_ref(xq, wq, cfg), 3, flush, 1)
             lib_ms = None
             if m > 16 and k % 8 == 0 and n % 8 == 0:  # torch._int_mm's shape rule
                 x8 = xq.to(torch.int8)
@@ -247,9 +288,8 @@ def phase_bitplane(flush):
             bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
                      "operations": ops / INT8_OPS_PER_S * 1e3}
             by = max(bound, key=bound.get)
-            rows.append({"m": m, "k": k, "n": n, "equal": True, "max_abs_err": 0,
-                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[by],
-                         "bound_by": by, "library_ms": lib_ms})
+            row.update(bound_ms=bound[by], bound_by=by, library_ms=lib_ms)
+            rows.append(row)
             del xq, y, ref
         del wq
         torch.cuda.empty_cache()
@@ -277,13 +317,27 @@ def _lut_bound(xq, luts, cfg):
     return bound[by], by, rows
 
 
+#: the kernels' names in the profiler's trace, and the output zeroing of a
+#: split call
+BITPLANE_KERNELS = "bitplane_vmm_kernel|Memset"
+LUT_KERNELS = "lut_gather_kernel|Memset"
+
+
+def _lut_fields(mod, m, n, luts) -> dict:
+    """The split a call of this shape runs with."""
+    plan = mod.lut_plan(m, n, luts.shape[0], _vmm_module("build").sms(0))
+    return {"tokens_per_block": plan.bm, "groups_per_block": plan.gpb,
+            "blocks_per_launch": plan.blocks}
+
+
 def phase_lut_vmm(flush):
     import torch
 
     from repro_torch.core.da import DAConfig, build_luts
-    from repro_torch.kernels.da_vmm import da_vmm_cuda
     from repro_torch.kernels.ref import da_vmm_ref
 
+    mod = _vmm_module("da_vmm")
+    kernel = mod.da_vmm_cuda
     gen = torch.Generator(device="cuda").manual_seed(4)
 
     def case(m, k, n, x_bits, signed, group):
@@ -295,8 +349,8 @@ def phase_lut_vmm(flush):
                            dtype=torch.int8)
         cfg = DAConfig(group_size=group, x_bits=x_bits, x_signed=signed)
         luts = build_luts(wq, group)
-        y = da_vmm_cuda(xq, luts, cfg)
         ref = da_vmm_ref(xq, luts, cfg)
+        y = kernel(xq, luts, cfg)
         torch.cuda.synchronize()
         if not torch.equal(y, ref):
             raise AssertionError(f"LUT kernel != plain at M={m} K={k} N={n} "
@@ -307,17 +361,18 @@ def phase_lut_vmm(flush):
     for k, n in LUT_SHAPES:
         for m in (4, 64):
             xq, wq, luts, cfg = case(m, k, n, 8, True, 8)
-            ms = time_cuda(lambda: da_vmm_cuda(xq, luts, cfg), 20, flush)
-            plain_ms = time_cuda(lambda: da_vmm_ref(xq, luts, cfg), 5, flush, 1)
+            row = {"m": m, "k": k, "n": n, "equal": True, "max_abs_err": 0,
+                   **_lut_fields(mod, m, n, luts),
+                   **call_times(lambda: kernel(xq, luts, cfg), flush, LUT_KERNELS)}
+            row["plain_ms"] = time_cuda(lambda: da_vmm_ref(xq, luts, cfg), 5, flush, 1)
             lib_ms = None
             if m > 16:  # torch._int_mm's shape rule; signed int8 codes
                 x8 = xq.to(torch.int8)
                 lib_ms = time_cuda(lambda: torch._int_mm(x8, wq), 20, flush)
             bound, by, rows = _lut_bound(xq, luts, cfg)
-            timed.append({"m": m, "k": k, "n": n, "equal": True, "max_abs_err": 0,
-                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                          "bound_by": by, "rows_read": rows,
-                          "table_mb": luts.numel() * 4 / 1e6, "library_ms": lib_ms})
+            row.update(bound_ms=bound, bound_by=by, rows_read=rows,
+                       table_mb=luts.numel() * 4 / 1e6, library_ms=lib_ms)
+            timed.append(row)
             del xq, wq, luts
     checked = 0
     # the reference's kernel-test shapes (tests/test_kernels.py), both
@@ -334,12 +389,82 @@ def phase_lut_vmm(flush):
                 checked += 1
     case(5, 40, 12, 8, True, 16)
     case(4, 4096, 300, 8, True, 8)
-    checked += 2
+    case(300, 100, 17, 8, True, 16)
+    checked += 3
     emit({"phase": "lut_vmm", "plain": "LUT gather (int32)",
           "library": "torch._int_mm on the int8 codes where M > 16; none at "
                      "M = 4 (it needs M > 16)",
           "shapes": timed, "cases_checked": checked + len(timed)})
     return timed
+
+
+#: the VMM plans' constants the plans phase times, each with the values it
+#: tries (the shipped one among them) and the M it tries them at, over
+#: VMM_SHAPES (bit-plane) or LUT_SHAPES (LUT readout)
+PLAN_SWEEP = (("bitplane_vmm", "_WAVES", (1, 2, 4), (4, 64)),
+              ("bitplane_vmm", "_MIN_STEPS", (2, 4, 8), (4, 64)),
+              ("bitplane_vmm", "_WM", (2, 4), (64,)),
+              ("da_vmm", "_GPB", (4, 8, 16), (4, 64)),
+              ("da_vmm", "_DECODE_BM", (1, 2), (4,)),
+              ("da_vmm", "_PREFILL_BM", (1, 2), (64,)))
+
+
+def phase_plans(flush):
+    """Each constant of PLAN_SWEEP at each of its values, at every shape:
+    the call EQUAL to the plain version, its device ms (``torch.profiler``)
+    and its ms on the spin timer, in two passes, the second in the
+    opposite order of values."""
+    import torch
+
+    from repro_torch.core.da import DAConfig, build_luts
+    from repro_torch.kernels.ref import bitplane_vmm_ref, da_vmm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cfg = DAConfig(group_size=8, x_bits=8, x_signed=True)
+    sms = _vmm_module("build").sms(0)
+    for name, const, values, ms in PLAN_SWEEP:
+        mod = _vmm_module(name)
+        plan_fn = mod.bitplane_plan if name == "bitplane_vmm" else mod.lut_plan
+        shipped = getattr(mod, const)
+        rows = []
+        for k, n in VMM_SHAPES if name == "bitplane_vmm" else LUT_SHAPES:
+            wq = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                               dtype=torch.int8)
+            luts = build_luts(wq, 8) if name == "da_vmm" else None
+            for m in ms:
+                xq = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                                   dtype=torch.int32)
+                if luts is None:
+                    ref, pattern = bitplane_vmm_ref(xq, wq, cfg), BITPLANE_KERNELS
+                    call = functools.partial(mod.bitplane_vmm_cuda, xq, wq, cfg)
+                    plan_args = (m, k, n, sms)
+                else:
+                    ref, pattern = da_vmm_ref(xq, luts, cfg), LUT_KERNELS
+                    call = functools.partial(mod.da_vmm_cuda, xq, luts, cfg)
+                    plan_args = (m, n, luts.shape[0], sms)
+                row = {"m": m, "k": k, "n": n}
+                try:
+                    for order in (values, values[::-1]):
+                        for v in order:
+                            setattr(mod, const, v)
+                            plan_fn.cache_clear()
+                            if not torch.equal(call(), ref):
+                                raise AssertionError(f"{name} with {const}={v} != plain "
+                                                     f"at M={m} K={k} N={n}")
+                            r = row.setdefault(str(v), {"blocks": plan_fn(*plan_args).blocks,
+                                                        "device_ms": [], "ms": []})
+                            r["device_ms"].append(sum(
+                                device_ms_by_kernel(call, 5, flush, pattern).values()))
+                            r["ms"].append(time_cuda(call, 10, flush))
+                finally:
+                    setattr(mod, const, shipped)
+                    plan_fn.cache_clear()
+                rows.append(row)
+                del xq, ref
+            del wq, luts
+            torch.cuda.empty_cache()
+        emit({"phase": "plans", "kernel": name, "constant": const,
+              "shipped": shipped, "shapes": rows})
 
 
 def _paged_case(gen, b, t, w, p, dtype, ps=16, kv=8, h=32, hd=128):
@@ -377,14 +502,9 @@ def phase_attention(flush):
 
 
 def _split_fields(pa, b, t, w, ps, heads) -> dict:
-    """The split a read of this case runs with, where the port's wrapper has
-    one (a commit given by ``--src`` may predate it)."""
-    import torch
-
-    if not hasattr(pa, "split_plan"):
-        return {}
+    """The split a read of this case runs with."""
     plan = pa.split_plan(b, t, heads["h"], heads["kv"], heads["hd"], ps, w,
-                         torch.cuda.get_device_properties(0).multi_processor_count)
+                         _vmm_module("build").sms(0))
     return {"chunks": plan.ns, "chunk_pages": plan.chunk,
             "blocks_per_launch": heads["kv"] * b * plan.ns}
 
@@ -453,11 +573,7 @@ def _attention_times(kernel, q, kc, vc, table, tpos, scales, fmt, flush):
     def read():
         return kernel(q, kc, vc, table, tpos, **scales)
 
-    by_kernel = device_ms_by_kernel(read, 5, flush, "paged_attn_")
-    row = {"ms": time_cuda(read, 20, flush),
-           "ms_no_spin": time_cuda(read, 20, flush, spin=False),
-           "device_ms": sum(by_kernel.values()), "device_ms_by_kernel": by_kernel,
-           "host_us": host_us(read, 20),
+    row = {**call_times(read, flush, "paged_attn_"),
            "plain_ms": time_cuda(lambda: paged_gather_read(
                q, kc, vc, table, tpos, **scales), 10, flush)}
     tl = table.long()
@@ -561,8 +677,8 @@ def _reset_counts():
     from repro_torch.kernels.da_vmm import da_vmm_cuda
     from repro_torch.kernels.paged_attention import paged_attention_cuda
 
-    bitplane_vmm_cuda.launches = 0
-    da_vmm_cuda.launches = 0
+    bitplane_vmm_cuda.launches = bitplane_vmm_cuda.cuda_launches = 0
+    da_vmm_cuda.launches = da_vmm_cuda.cuda_launches = 0
     paged_attention_cuda.launches = 0
     paged_attention_cuda.cuda_launches = 0
     for fmt in paged_attention_cuda.launches_by_format:
@@ -575,7 +691,9 @@ def _read_counts():
     from repro_torch.kernels.paged_attention import paged_attention_cuda
 
     return {"bitplane_vmm": bitplane_vmm_cuda.launches,
+            "bitplane_vmm_cuda_launches": bitplane_vmm_cuda.cuda_launches,
             "da_vmm": da_vmm_cuda.launches,
+            "da_vmm_cuda_launches": da_vmm_cuda.cuda_launches,
             "paged_attention": paged_attention_cuda.launches,
             "paged_attention_cuda_launches": paged_attention_cuda.cuda_launches,
             "paged_attention_by_format": dict(paged_attention_cuda.launches_by_format)}
@@ -758,24 +876,34 @@ def decode_window(eng, vocab: int, steps: int = 4):
         eng.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    _reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
-    dev = {"bitplane_vmm": 0.0, "paged_attention": 0.0, "other": 0.0}
+    counts = _read_counts()
+    dev = {"bitplane_vmm": 0.0, "paged_attention": 0.0, "memset": 0.0, "other": 0.0}
+    memsets = 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         key = ("bitplane_vmm" if "bitplane_vmm_kernel" in e.name else
-               "paged_attention" if "paged_attn_" in e.name else "other")
+               "paged_attention" if "paged_attn_" in e.name else
+               "memset" if "Memset" in e.name else "other")
         dev[key] += e.time_range.elapsed_us() / 1e3 / steps
+        memsets += key == "memset"
     eng.run()
     busy = sum(dev.values())
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
+    # the memsets the VMM entry points queued (one per split call), against
+    # every memset the trace holds
+    zeroings = sum(counts[f"{k}_cuda_launches"] - counts[k]
+                   for k in ("bitplane_vmm", "da_vmm"))
     return {"phase": "decode_step", "width": 4, "steps": steps,
             "wall_ms": wall_ms, "device_ms": dev, "device_busy_ms": busy,
-            "busy_share": busy / wall_ms}
+            "busy_share": busy / wall_ms, "memsets_per_step": memsets / steps,
+            "vmm_zeroings_per_step": zeroings / steps}
 
 
 def main() -> int:
@@ -785,16 +913,19 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", choices=("all", "attention"), default="all",
-                        help="'attention': build the kernels and run only the "
-                             "attention phase (no result line)")
+    parser.add_argument("--phase", choices=("all", "attention", "vmm", "plans"),
+                        default="all",
+                        help="'attention', 'vmm' or 'plans': build the kernels "
+                             "and run only the attention phase, only the "
+                             "bit-plane and LUT phases, or only the VMM plans' "
+                             "sweep (no result line)")
     parser.add_argument("--src", help="import the port from this directory "
                         "(another checkout's src/) instead of this one's; "
-                        "only with --phase attention")
+                        "only with --phase attention or vmm")
     args = parser.parse_args()
     if args.src:
-        if args.phase != "attention":
-            parser.error("--src needs --phase attention")
+        if args.phase in ("all", "plans"):
+            parser.error("--src needs --phase attention or vmm")
         sys.path.insert(0, os.path.abspath(args.src))
     # the plain versions are references: full float32 and bf16 reductions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -805,6 +936,12 @@ def main() -> int:
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     if args.phase == "attention":
         phase_attention(flush)
+    if args.phase == "vmm":
+        phase_bitplane(flush)
+        phase_lut_vmm(flush)
+    if args.phase == "plans":
+        phase_plans(flush)
+    if args.phase != "all":
         print(smi_line(), flush=True)
         return 0
     vmm = phase_bitplane(flush)
@@ -853,6 +990,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/bitplane_vmm.cu",
          "replaces": "src/repro/kernels/bitplane_vmm.py:33",
          "launches": bp_total, "launches_by_path": bp_paths,
+         "cuda_launches": launches("bitplane_vmm_cuda_launches")[0],
          "max_abs_err": max(r["max_abs_err"] for r in vmm),
          "ms": dec_vmm["ms"], "plain_ms": dec_vmm["plain_ms"],
          "bound_ms": dec_vmm["bound_ms"], "bound_by": dec_vmm["bound_by"],
@@ -871,6 +1009,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/da_vmm.cu",
          "replaces": "src/repro/kernels/da_vmm.py:33",
          "launches": lut_total, "launches_by_path": lut_paths,
+         "cuda_launches": launches("da_vmm_cuda_launches")[0],
          "max_abs_err": max(r["max_abs_err"] for r in lut),
          "ms": dec_lut["ms"], "plain_ms": dec_lut["plain_ms"],
          "bound_ms": dec_lut["bound_ms"], "bound_by": dec_lut["bound_by"],

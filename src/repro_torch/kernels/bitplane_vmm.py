@@ -10,30 +10,67 @@ ops.bitplane_vmm` picks between the two by device.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.da import DAConfig
 from repro_torch.kernels import build
 
-_SMS = 132          # H100 SXM streaming multiprocessors
-_BM, _BN, _BK = 8, 64, 128   # block tile of the kernel
+#: the kernel's column and K tile, and its ring of weight tiles
+_BN, _BK, _STAGES = 128, 128, 4
+#: blocks per SM the K split aims at, and the fewest K steps a split keeps
+#: (a shorter range would not fill the ring)
+_WAVES, _MIN_STEPS = 2, 4
+#: warps along M of the tile above 16 tokens, 8 tokens (64 plane rows) each
+_WM = 4
+
+
+class BitplanePlan(NamedTuple):
+    """One call's tile and K split: ``mt`` m16 tiles (2 tokens each) per
+    warp, ``wm`` warps along M, ``tokens`` per block, K in ``splits`` ranges
+    of ``k_per_split``, the grid's block count and its dynamic shared
+    bytes."""
+    mt: int
+    wm: int
+    tokens: int
+    splits: int
+    k_per_split: int
+    blocks: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def bitplane_plan(m: int, k: int, n: int, sms: int) -> BitplanePlan:
+    """Tile and K split of an ``[m, k] x [k, n]`` call on ``sms`` SMs: a
+    decode tile of 2, 4 or 8 tokens for ``m <= 8``, else 16 (``m <= 16``)
+    or ``8·_WM`` tokens in token slices of 8 (one warp of 64 plane rows per
+    slice and column quarter); K split so about ``_WAVES`` blocks per SM
+    keep weight loads in flight, each range at least ``_MIN_STEPS`` steps
+    of ``_BK``.  ``chip_smoke.py --phase plans`` times the constants'
+    alternatives."""
+    if m <= 8:
+        mt, wm = (1 if m <= 2 else 2 if m <= 4 else 4), 1
+    else:
+        mt, wm = 4, 2 if m <= 16 else _WM
+    tokens = 2 * mt * wm
+    tiles = -(-m // tokens) * -(-n // _BN)
+    steps = -(-k // _BK)
+    splits = max(1, min(-(-steps // _MIN_STEPS), -(-_WAVES * sms // tiles)))
+    per = -(-steps // splits)
+    splits = -(-steps // per)
+    return BitplanePlan(mt, wm, tokens, splits, per * _BK, tiles * splits,
+                        _STAGES * _BK * _BN + 2 * tokens * _BK)
 
 
 def _lib():
-    lib = build.load("bitplane_vmm")
-    fn = lib.bitplane_vmm_s8
+    fn = build.load("bitplane_vmm").bitplane_vmm_s8
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
     return fn
-
-
-def split_k(m: int, k: int, n: int) -> int:
-    """K splits so about four blocks per SM keep weight loads in flight
-    (decode grids of N/64 blocks alone leave most SMs idle)."""
-    blocks = -(-m // _BM) * -(-n // _BN)
-    return max(1, min(-(-k // _BK), -(-4 * _SMS // blocks)))
 
 
 def bitplane_vmm_cuda(xq: torch.Tensor, wq: torch.Tensor,
@@ -56,17 +93,21 @@ def bitplane_vmm_cuda(xq: torch.Tensor, wq: torch.Tensor,
                          "row-major with unit column stride")
     m, k = xq.shape
     n = wq.shape[1]
-    splits = split_k(m, k, n)
-    y = (torch.zeros if splits > 1 else torch.empty)(
-        (m, n), dtype=torch.int32, device=xq.device)
+    plan = bitplane_plan(m, k, n, build.sms(xq.device.index))
+    y = torch.empty((m, n), dtype=torch.int32, device=xq.device)
+    queued = ctypes.c_int(0)
     err = _lib()(xq.data_ptr(), wq.data_ptr(), y.data_ptr(), m, k, n,
-                 wq.stride(0), cfg.x_bits, int(cfg.x_signed), splits,
-                 torch.cuda.current_stream(xq.device).cuda_stream)
+                 wq.stride(0), cfg.x_bits, int(cfg.x_signed), plan.mt, plan.wm,
+                 plan.k_per_split, torch.cuda.current_stream(xq.device).cuda_stream,
+                 ctypes.byref(queued))
+    bitplane_vmm_cuda.cuda_launches += queued.value
     build.check(err, "bitplane_vmm_s8")
     bitplane_vmm_cuda.launches += 1
     return y
 
 
-#: kernel launches in this process (reset by callers that count a run)
+#: calls in this process, and the CUDA launches (the kernel, and the zeroing
+#: of the output when K is split) the entry point queued for them (reset by
+#: callers that count a run)
 bitplane_vmm_cuda.launches = 0
-
+bitplane_vmm_cuda.cuda_launches = 0

@@ -10,6 +10,7 @@ on its own.  :func:`build_all` starts one ``nvcc`` per source together.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -95,6 +96,15 @@ def ptxas_summary() -> List[str]:
     keep = ("registers", "spill", "smem", "Compiling entry")
     return [line.strip() for log in PTXAS_LOG.values()
             for line in log.splitlines() if any(k in line for k in keep)]
+
+
+@functools.lru_cache(maxsize=None)
+def sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``: the kernels'
+    plans size their grids from it."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

@@ -87,11 +87,6 @@ def split_plan(b: int, t: int, h: int, kv: int, hd: int, ps: int, w: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def _score_divisor(hd: int, dtype: torch.dtype) -> float:
     """sqrt(hd) rounded to the input dtype, as the plain version divides the
     scores by it in that dtype."""
@@ -141,7 +136,7 @@ def paged_attention_cuda(q, k_pool, v_pool, page_table, tpos, *,
     if hd not in HEAD_DIMS:
         raise ValueError(f"paged_attention_cuda: head_dim {hd} is not one the "
                          f"kernel is built for {HEAD_DIMS}")
-    plan = split_plan(b, t, h, kv, hd, ps, w, _sms(q.device.index))
+    plan = split_plan(b, t, h, kv, hd, ps, w, build.sms(q.device.index))
     # partials [B, KV, NS, G*T, hd], scores [B, KV, G*T, W*ps], chunk stats
     # [B, KV, NS, 2, G*T], int32 counters [B, KV], carved by the kernel in
     # that order

@@ -31,11 +31,20 @@ def card():
     return torch.device("cuda")
 
 
+def _queued(plan_splits: int) -> int:
+    """CUDA launches of one VMM call: the kernel, and the zeroing of the
+    output when its reduction is split across blocks."""
+    return 1 + (plan_splits > 1)
+
+
 @pytest.mark.parametrize("m,k,n,x_bits,signed", [
     (4, 4096, 6144, 8, True), (64, 4096, 4096, 8, True), (3, 37, 20, 8, True),
-    (5, 300, 70, 4, True), (9, 129, 65, 8, False)])
+    (5, 300, 70, 4, True), (9, 129, 65, 8, False), (1, 45, 6, 8, True),
+    (4, 45, 6, 8, True), (8, 45, 6, 8, False), (64, 45, 6, 8, True),
+    (300, 45, 6, 8, True), (300, 1000, 200, 8, True)])
 def test_bitplane_kernel_equals_plain(card, m, k, n, x_bits, signed):
-    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
+    from repro_torch.kernels import build
+    from repro_torch.kernels.bitplane_vmm import bitplane_plan, bitplane_vmm_cuda
     from repro_torch.kernels.ref import bitplane_vmm_ref
 
     g = torch.Generator(device=card).manual_seed(m + k + n)
@@ -43,26 +52,41 @@ def test_bitplane_kernel_equals_plain(card, m, k, n, x_bits, signed):
     xq = torch.randint(lo, hi, (m, k), generator=g, device=card, dtype=torch.int32)
     wq = torch.randint(-128, 128, (k, n), generator=g, device=card, dtype=torch.int8)
     cfg = DAConfig(x_bits=x_bits, x_signed=signed)
-    before = bitplane_vmm_cuda.launches
+    plan = bitplane_plan(m, k, n, build.sms(card.index or 0))
+    before = bitplane_vmm_cuda.launches, bitplane_vmm_cuda.cuda_launches
     y = bitplane_vmm_cuda(xq, wq, cfg)
     torch.cuda.synchronize()
     assert torch.equal(y, bitplane_vmm_ref(xq, wq, cfg))
-    assert bitplane_vmm_cuda.launches == before + 1
-    # a column slice of a wider buffer (the fused q|k|v layout)
-    wide = torch.randint(-128, 128, (k, n + 40), generator=g, device=card,
-                         dtype=torch.int8)
-    assert torch.equal(bitplane_vmm_cuda(xq, wide[:, 24:24 + n], cfg),
-                       bitplane_vmm_ref(xq, wide[:, 24:24 + n], cfg))
+    assert (bitplane_vmm_cuda.launches, bitplane_vmm_cuda.cuda_launches) == (
+        before[0] + 1, before[1] + _queued(plan.splits))
+    # split K adds with atomics: any order, the same bits
+    assert torch.equal(bitplane_vmm_cuda(xq, wq, cfg), y)
+    # a column slice of a wider buffer (the fused q|k|v layout): 16-byte
+    # aligned rows (the serve's) and misaligned ones
+    for width, off in ((n + 48, 16), (n + 40, 24)):
+        wide = torch.randint(-128, 128, (k, width), generator=g, device=card,
+                             dtype=torch.int8)
+        view = wide[:, off:off + n]
+        assert view.stride(0) > n
+        assert torch.equal(bitplane_vmm_cuda(xq, view, cfg),
+                           bitplane_vmm_ref(xq, view, cfg))
     with pytest.raises(TypeError, match="int8"):
         bitplane_vmm_cuda(xq, wq.to(torch.int32), cfg)
 
 
 @pytest.mark.parametrize("m,k,n,x_bits,signed,group", [
     (4, 256, 8000, 8, True, 8), (64, 256, 768, 8, True, 8),
-    (4, 768, 256, 8, True, 8), (4, 25, 6, 8, False, 8), (33, 100, 17, 4, True, 4),
-    (5, 37, 20, 2, False, 4), (3, 40, 12, 8, True, 16)])
+    (4, 768, 256, 8, True, 8), (4, 25, 6, 8, False, 8),
+    (33, 100, 17, 4, True, 4), (5, 37, 20, 2, False, 4),
+    (3, 40, 12, 8, True, 16),
+    # prefill widths, ragged N and K among them
+    (64, 256, 256, 8, True, 8), (64, 768, 256, 8, False, 8),
+    (300, 256, 8000, 8, True, 8), (300, 130, 70, 8, True, 8),
+    (64, 37, 17, 4, False, 4), (128, 256, 8000, 8, False, 8),
+    (300, 100, 17, 8, True, 16)])
 def test_lut_kernel_equals_plain(card, m, k, n, x_bits, signed, group):
-    from repro_torch.kernels.da_vmm import da_vmm_cuda
+    from repro_torch.kernels import build
+    from repro_torch.kernels.da_vmm import da_vmm_cuda, lut_plan
     from repro_torch.kernels.ref import da_vmm_ref
 
     g = torch.Generator(device=card).manual_seed(m + k + n)
@@ -71,11 +95,16 @@ def test_lut_kernel_equals_plain(card, m, k, n, x_bits, signed, group):
     wq = torch.randint(-128, 128, (k, n), generator=g, device=card, dtype=torch.int32)
     cfg = DAConfig(group_size=group, x_bits=x_bits, x_signed=signed)
     luts = build_luts(wq, group)
-    before = da_vmm_cuda.launches
+    plan = lut_plan(m, n, luts.shape[0], build.sms(card.index or 0))
+    before = da_vmm_cuda.launches, da_vmm_cuda.cuda_launches
     y = da_vmm_cuda(xq, luts, cfg)
     torch.cuda.synchronize()
     assert torch.equal(y, da_vmm_ref(xq, luts, cfg))
-    assert da_vmm_cuda.launches == before + 1
+    splits = -(-luts.shape[0] // plan.gpb)
+    assert (da_vmm_cuda.launches, da_vmm_cuda.cuda_launches) == (
+        before[0] + 1, before[1] + _queued(splits))
+    # split groups add with atomics: any order, the same bits
+    assert torch.equal(da_vmm_cuda(xq, luts, cfg), y)
     with pytest.raises(ValueError, match="group_size"):
         da_vmm_cuda(xq, luts, DAConfig(group_size=group // 2, x_bits=x_bits))
     with pytest.raises(TypeError, match="int32"):

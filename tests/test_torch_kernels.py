@@ -9,7 +9,10 @@ summation order differs), over fp, int8 and int4 pools.  The attention
 kernel's split arithmetic (chunk max and exp-sum, their fixed-order combine,
 rounded probabilities, per-chunk PV partials summed in order) is emulated in
 plain torch and held against both, at the card's tolerances: 2^-7 in
-bfloat16, 1e-5 in float32.
+bfloat16, 1e-5 in float32.  The two VMM kernels' splits (group ranges of the
+LUT readout, K ranges of the bit-plane kernel, each from the wrapper's plan)
+are emulated the same way and held bit-exactly against both; the plans
+themselves are checked for coverage, grid size and shared memory.
 
 The kernels themselves are tested on the card by ``tests/test_torch_gpu.py``.
 """
@@ -24,8 +27,10 @@ from repro.kernels.bitplane_vmm import bitplane_vmm_pallas
 from repro.kernels.da_vmm import da_vmm_pallas
 from repro.kernels.paged_attention import paged_attention as jpaged
 from repro.models import kv_quant as jkvq
-from repro_torch.core.da import DAConfig, build_luts
+from repro_torch.core.da import DAConfig, bit_planes, build_luts, group_addresses
 from repro_torch.kernels import build, ops
+from repro_torch.kernels.bitplane_vmm import bitplane_plan
+from repro_torch.kernels.da_vmm import lut_plan
 from repro_torch.kernels.paged_attention import paged_attention, split_plan
 from repro_torch.models import kv_quant as tkvq
 
@@ -79,6 +84,142 @@ def test_lut_plain_matches_pallas_interpret(m, k, n, signed):
     got = ops.da_vmm(_t(xq), build_luts(_t(wq), 8), cfg)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     np.testing.assert_array_equal(got.numpy(), xq.astype(np.int64) @ wq)
+
+
+# ---------------------------------------------------------------------------
+# the VMM kernels' plans and split arithmetic
+# ---------------------------------------------------------------------------
+
+#: an H100: 132 SMs, 227 KB of shared memory a block may take
+SMS, SMEM_LIMIT = 132, 232448
+#: the (K, N) shapes chip_smoke.py times: the LUT-serving model's, qwen3-8b's
+LUT_SHAPES = ((256, 256), (256, 128), (256, 768), (768, 256), (256, 8000))
+VMM_SHAPES = ((4096, 6144), (4096, 4096), (4096, 12288), (12288, 4096),
+              (4096, 151936))
+
+
+def _ranges(total: int, per: int):
+    return [(s, min(total, s + per)) for s in range(0, total, per)]
+
+
+@pytest.mark.parametrize("m", [4, 8, 16, 64, 128, 300])
+@pytest.mark.parametrize("k,n", LUT_SHAPES)
+def test_lut_plan_covers_groups_fills_the_card_and_fits(m, k, n):
+    """The decode (M = 4) and prefill (M = 64) shapes chip_smoke.py runs,
+    and the widths between and past them."""
+    g = -(-k // 8)
+    plan = lut_plan(m, n, g, SMS)
+    covered = [gi for a, b in _ranges(g, plan.gpb) for gi in range(a, b)]
+    assert covered == list(range(g))  # every group in exactly one range
+    cols = 32 * plan.vec
+    assert plan.blocks == -(-n // cols) * -(-m // plan.bm) * -(-g // plan.gpb)
+    assert plan.blocks >= SMS
+    assert plan.bm == (1 if m <= 8 else 2) and plan.gpb <= 8
+    assert plan.warps == min(4, plan.gpb)
+    # the warps' partials meet in static shared memory, below 48 KB
+    assert plan.warps * plan.bm * cols * 4 <= 48 << 10
+
+
+@pytest.mark.parametrize("m", [4, 64])
+@pytest.mark.parametrize("k,n", VMM_SHAPES)
+def test_bitplane_plan_covers_k_fills_the_card_and_fits(m, k, n):
+    plan = bitplane_plan(m, k, n, SMS)
+    assert plan.k_per_split % 128 == 0
+    steps = [s for a, b in _ranges(k, plan.k_per_split)
+             for s in range(a, b, 128)]
+    assert steps == list(range(0, k, 128))  # every K step in exactly one range
+    assert len(_ranges(k, plan.k_per_split)) == plan.splits
+    assert plan.tokens == 2 * plan.mt * plan.wm and plan.tokens >= min(m, 32)
+    assert plan.blocks == -(-m // plan.tokens) * -(-n // 128) * plan.splits
+    assert plan.blocks >= SMS and plan.smem <= SMEM_LIMIT
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 → int32 with two's-complement wrap (the kernels' int32 adds)."""
+    return (((x + (1 << 31)) % (1 << 32)) - (1 << 31)).to(torch.int32)
+
+
+def _coefs(cfg) -> list:
+    return [-(1 << b) if cfg.x_signed and b == cfg.x_bits - 1 else 1 << b
+            for b in range(cfg.x_bits)]
+
+
+def _lut_split(xq, luts, cfg, plan) -> torch.Tensor:
+    """The LUT kernel's arithmetic under ``plan``: each group range's
+    readout Σ_b coef(b)·Σ_{g in range} LUT[g, addr, n], shift-added in int32,
+    and the ranges' partials wrap-added (atomicAdd into a zeroed output)."""
+    addr = group_addresses(xq, cfg).long()                  # [M, B, G]
+    out = torch.zeros(xq.shape[0], luts.shape[-1], dtype=torch.int64)
+    for a, b in _ranges(luts.shape[0], plan.gpb):
+        part = torch.zeros_like(out)
+        for bit, c in enumerate(_coefs(cfg)):
+            rows = luts[torch.arange(a, b), addr[:, bit, a:b]]  # [M, g, N]
+            part = part + c * rows.sum(1, dtype=torch.int64)
+        out = out + _wrap32(part)
+    return _wrap32(out)
+
+
+def _bitplane_split(xq, wq, cfg, plan) -> torch.Tensor:
+    """The bit-plane kernel's arithmetic under ``plan``: each K range's
+    plane sums MR_b, shift-added (Σ_b coef(b)·MR_b) in int32, and the
+    ranges' partials wrap-added."""
+    planes = bit_planes(xq, cfg).long()                     # [B, M, K]
+    out = torch.zeros(xq.shape[0], wq.shape[1], dtype=torch.int64)
+    for a, b in _ranges(xq.shape[1], plan.k_per_split):
+        mr = planes[:, :, a:b] @ wq[a:b].long()              # [B, M, N]
+        out = out + _wrap32(sum(c * mr[i] for i, c in enumerate(_coefs(cfg))))
+    return _wrap32(out)
+
+
+def _codes(rng, shape, x_bits, signed):
+    lo, hi = (-(1 << (x_bits - 1)), 1 << (x_bits - 1)) if signed else (0, 1 << x_bits)
+    return rng.integers(lo, hi, shape).astype(np.int32)
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("x_bits", [4, 8])
+@pytest.mark.parametrize("group,k", [
+    (4, 37), (4, 64), (8, 100), (8, 256), (16, 40), (16, 45)])
+def test_lut_split_arithmetic_matches_plain_and_pallas_interpret(signed, x_bits,
+                                                                 group, k):
+    """Ragged K (37, 100, 40, 45 are not whole groups) and whole groups; the
+    plan of a 132-SM card cuts these small shapes into many group ranges."""
+    rng = np.random.default_rng(k + group + x_bits + 2 * signed)
+    m, n = 5, 19
+    xq = _codes(rng, (m, k), x_bits, signed)
+    wq = rng.integers(-128, 128, (k, n)).astype(np.int32)
+    cfg = DAConfig(group_size=group, x_bits=x_bits, x_signed=signed)
+    luts = build_luts(_t(wq), group)
+    plan = lut_plan(m, n, luts.shape[0], SMS)
+    assert -(-luts.shape[0] // plan.gpb) > 1  # the sum really is split
+    got = _lut_split(_t(xq), luts, cfg, plan)
+    np.testing.assert_array_equal(got.numpy(), ops.da_vmm(_t(xq), luts, cfg).numpy())
+    ref = da_vmm_pallas(jnp.asarray(xq), jnp.asarray(luts.numpy()),
+                        JDA(group_size=group, x_bits=x_bits, x_signed=signed),
+                        bm=8, bn=32, bg=4, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("x_bits", [4, 8])
+@pytest.mark.parametrize("m,k", [(4, 1100), (40, 700)])
+def test_bitplane_split_arithmetic_matches_plain_and_pallas_interpret(signed, x_bits,
+                                                                      m, k):
+    """K split into ranges of whole 128-steps, a ragged last one; M = 4 takes
+    a decode tile, M = 40 the prefill tile."""
+    rng = np.random.default_rng(m + k + x_bits + 2 * signed)
+    n = 24
+    xq = _codes(rng, (m, k), x_bits, signed)
+    wq = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    cfg = DAConfig(x_bits=x_bits, x_signed=signed)
+    plan = bitplane_plan(m, k, n, SMS)
+    assert plan.splits > 1 and k % plan.k_per_split  # split, ragged last range
+    got = _bitplane_split(_t(xq), _t(wq), cfg, plan)
+    np.testing.assert_array_equal(got.numpy(),
+                                  ops.bitplane_vmm(_t(xq), _t(wq), cfg).numpy())
+    ref = bitplane_vmm_pallas(jnp.asarray(xq), jnp.asarray(wq),
+                              JDA(x_bits=x_bits, x_signed=signed), interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
 # ---------------------------------------------------------------------------
