@@ -5,10 +5,15 @@
     python3 chip_smoke.py --phase attention  # build, then the attention phase
     python3 chip_smoke.py --phase vmm        # build, then the two VMM phases
     python3 chip_smoke.py --phase plans      # build, then the VMM plans' sweep
+    python3 chip_smoke.py --phase ci_boot    # build, then one boot and serve
+                                             # of the CI smoke's artifact
+    python3 chip_smoke.py --phase serve      # build, then phase 6 alone
     python3 chip_smoke.py --phase attention --src OTHER/src
     python3 chip_smoke.py --phase vmm --src OTHER/src
+    python3 chip_smoke.py --phase ci_boot --src OTHER/src
+    python3 chip_smoke.py --phase serve --src OTHER/src
                          # the same, on another checkout's port: compares two
-                         # commits' kernels with one set of timers
+                         # commits with one set of timers
 
 Phases, one JSON line each:
 
@@ -16,11 +21,14 @@ Phases, one JSON line each:
    sources in the checkout (one ``nvcc`` per source, all started together)
    with its ``-Xptxas -v`` summary;
 2. the bit-plane DA VMM kernel against its plain version at every qwen3-8b
-   weight shape, M in {4, 64}: int32 results must be EQUAL (the plain version
+   weight shape, M in {4, 16, 64} (decode, verify at batch 4, prefill), and
+   at M = 4 with 4-bit codes (the truncated draft's): int32 results must be
+   EQUAL (the plain version
    forms each plane product in float64, exact since every partial is an
    integer far below 2^53);
 3. the LUT-readout DA VMM kernel against its plain version (the LUT gather)
-   at every LUT shape of the LUT-serving model, M in {4, 64}, and at the
+   at every LUT shape of the LUT-serving model, M in {4, 16, 64} and M = 4
+   at x_bits 4, and at the
    reference's kernel-test shapes (CONV1's 4x25x6 among them), signed and
    unsigned, x_bits 2/4/8, group size 4/8/16, ragged K: int32 EQUAL.  Each
    timed shape of phases 2-3 gives its time on two event timers (device
@@ -29,13 +37,21 @@ Phases, one JSON line each:
    blocks per launch;
 4. the paged-attention kernel against the plain gather read over fp, int8
    and int4 pages at the head shapes of both paths: qwen3-8b's in bfloat16
-   (T = 1 and 16 at max_len 256, and a long table, W = 300, at T = 1 and 16)
-   and the LUT-serving model's in float32 (T = 1 and 16 at max_len 128);
+   (T = 1 at batch 4, 2 and 1, T = 4 (verify, its last column a pad query at
+   the garbage position) and 16 at max_len 256, and a long table, W = 300,
+   at T = 1 and 16) and the LUT-serving model's in float32 (the same at
+   max_len 128, no long table);
    ragged tpos, permuted pages, pad lanes on the garbage page, and at both
    head shapes a row whose every query is masked; each case with the split
    (chunks, blocks per launch, CUDA launches per read), the read's time on
    two event timers (device spin before the start event or not), its device
    time per kernel from ``torch.profiler`` and its host time to enqueue;
+   then each query of a verify-shaped read (T = 3, and T = 4 with a pad
+   column at the garbage position) must EQUAL the T = 1 read of its row at
+   its position, at batch 4 and batch 1, a decode row at batch 2-4 must
+   EQUAL the row read alone, and the RMS norm's sum of squares of a row
+   must not depend on the row count (the spec and prefix paths' tokens rest
+   on it);
 5. one prefill step of qwen3-8b at full width and 2 layers, through the
    kernels and through the plain versions, with fp and with int8 KV pages:
    logits within a stated tolerance, argmax equal;
@@ -46,21 +62,39 @@ Phases, one JSON line each:
    by kernel;
 7. the same frozen weights served again with int8 KV pages: every request
    finishes through the attention kernel's quantized branch;
-8. the LUT path: the LUT-serving model (qwen3 family, 4 layers, d 256) frozen
+8. shared-prefix serving (``serve_prefix``): the same frozen weights, 8
+   requests sharing a 48-token prefix, once with ``prefix_cache=True`` and
+   once without: tokens EQUAL, with prefix hits, COW copies and pages saved;
+9. speculative decoding (``serve_spec``): the same weights and requests as
+   phase 6 with ``SpecConfig("bitplane", gamma=2, draft_x_bits=4)``: tokens
+   EQUAL to phase 6's, then one draft round and one verify step traced with
+   ``torch.profiler`` for the device time by kernel;
+10. the LUT path: the LUT-serving model (qwen3 family, 4 layers, d 256) frozen
    on the card with ``pallas_lut``, saved as a DA artifact, booted with
    ``ServeEngine.from_artifact`` and served through the LUT kernel; the same
-   artifact booted with the plain ``lut`` gather must give identical tokens.
+   artifact booted with the plain ``lut`` gather must give identical tokens,
+   and a spec run (gamma 2, draft x_bits 4, the LUT kernel at 4 bits) too;
+11. the CI serve smoke's legs (``artifact_ci``, ``.github/workflows/ci.yml``):
+   the LUT-serving model frozen with ``bitplane_stacked`` (the bit-plane
+   kernel on the card), saved, booted with ``from_artifact`` and served: 2
+   requests; 2 with ``--spec bitplane --spec-gamma 2``; 4 at batch 2 with
+   ``--prefix-cache``; 2 at batch 2 with ``--paged-attn fused``; 2 at batch
+   2 with ``--kv-dtype int8``; spec and prefix tokens EQUAL to their plain
+   runs'.  ``--phase ci_boot`` runs only its boot and first leg.
 
 ``--phase plans`` runs none of these after the build: it times each
 constant of the two VMM plans (kernels/bitplane_vmm.py, kernels/da_vmm.py)
 against its alternatives at the shapes of phases 2-3, each EQUAL to the
-plain version, in two passes of opposite order.
+plain version, and the attention split's rows constant
+(kernels/paged_attention.py) at decode and verify reads of batch 1-4, each
+within ATTN_ATOL of the plain read, in two passes of opposite order.
 
-Each path (6, 7, 8) sets the kernels' launch counts to 0 just before it runs
-and reads them just after.  Then the ``{"kernels": [...]}`` line, the
-``nvidia-smi`` name/power line, and last the ``{"ok": true, "device": ...}``
-line.  Any failed check raises and the script exits non-zero; with no card
-it exits non-zero before printing a result.
+Each path (6-11, and each leg of 10 and 11) sets the kernels' launch counts
+to 0 just before it runs and reads them just after.  Then the
+``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and last
+the ``{"ok": true, "device": ...}`` line.  Any failed check raises and the
+script exits non-zero; with no card it exits 2, and without the port beside
+it (``src/repro_torch``) it exits 3, before printing a result.
 """
 from __future__ import annotations
 
@@ -100,22 +134,34 @@ VMM_SHAPES = ((4096, 6144), (4096, 4096), (4096, 12288), (12288, 4096),
 #: LUT-serving model shapes the LUT kernel reads (q and wo, k and v, up and
 #: gate, down, LM head), each with its own tables
 LUT_SHAPES = ((256, 256), (256, 128), (256, 768), (768, 256), (256, 8000))
+#: the speculative paths' draft: gamma tokens on the top DRAFT_X_BITS planes;
+#: verify reads pow2(gamma + 1) query rows, the last a pad column
+GAMMA, DRAFT_X_BITS, VERIFY_T = 2, 4, 4
+#: (M, x_bits) of each VMM shape the two VMM phases check and time: decode
+#: and verify (4 lanes x VERIFY_T rows) and prefill at 8 bits, and the
+#: truncated draft's decode at DRAFT_X_BITS
+VMM_ROWS = ((4, 8), (4 * VERIFY_T, 8), (64, 8), (4, DRAFT_X_BITS))
 #: tolerances of the paged-attention kernel against the plain read: both
 #: round at the same points, so they differ by float32 summation order only;
 #: one bf16 ulp at magnitude 1 bounds that in bfloat16, 1e-5 in float32
 ATTN_ATOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
 #: head shapes and (B, T, W) cases of the attention phase.  qwen3-8b, bf16:
-#: decode and prefill at max_len 256 / page 16 (W = 17), and a long table
-#: (W = 300) at decode and prefill.  The LUT-serving model, f32: decode and
-#: prefill at max_len 128 / page 16 (W = 9).
-ATTN_HEADS = (("bfloat16", dict(h=32, kv=8, hd=128), ((4, 1, 17), (4, 16, 17),
-                                                      (4, 1, 300), (2, 16, 300))),
-              ("float32", dict(h=4, kv=2, hd=64), ((4, 1, 9), (4, 16, 9))))
+#: decode at batch 4, 2 and 1, verify (T = VERIFY_T, batch 4) and prefill at
+#: max_len 256 / page 16 (W = 17), and a long table (W = 300) at decode and
+#: prefill.  The LUT-serving model, f32: the same at max_len 128 / page 16
+#: (W = 9), without the long table.  The first case of each is its decode.
+ATTN_HEADS = (("bfloat16", dict(h=32, kv=8, hd=128),
+               ((4, 1, 17), (2, 1, 17), (1, 1, 17), (4, VERIFY_T, 17),
+                (4, 16, 17), (4, 1, 300), (2, 16, 300))),
+              ("float32", dict(h=4, kv=2, hd=64),
+               ((4, 1, 9), (2, 1, 9), (1, 1, 9), (4, VERIFY_T, 9), (4, 16, 9))))
 #: the case of each head shape run again with one row's queries all masked
 ATTN_MASKED = {"bfloat16": (4, 16, 17), "float32": (4, 1, 9)}
 #: the activation dtype each path hands the attention kernel
 PATH_DTYPE = {"serve": "bfloat16", "serve_int8kv": "bfloat16",
-              "artifact_lut": "float32"}
+              "serve_prefix": "bfloat16", "serve_spec": "bfloat16",
+              "artifact_lut": "float32", "artifact_lut_spec": "float32",
+              "artifact_ci": "float32"}
 #: logits tolerance of the 2-layer full-width step, kernels vs plain: the DA
 #: layers are exact, so the gap is attention rounding carried through
 #: activation quantization and two layers; see PERF.md
@@ -261,21 +307,27 @@ def phase_bitplane(flush):
 
     mod = _vmm_module("bitplane_vmm")
     kernel = mod.bitplane_vmm_cuda
-    cfg = DAConfig(x_bits=8, x_signed=True)
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     for k, n in VMM_SHAPES:
         wq = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
                            dtype=torch.int8)
-        for m in (4, 64):
-            xq = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+        # decode, verify (batch 4 x pow2(gamma + 1) rows) and prefill at 8
+        # bits, and the truncated draft's decode: the top 4 planes of the
+        # codes, shifted down (core.da.truncate_codes)
+        for m, x_bits in VMM_ROWS:
+            cfg = DAConfig(x_bits=x_bits, x_signed=True)
+            half = 1 << (x_bits - 1)
+            xq = torch.randint(-half, half, (m, k), generator=gen, device="cuda",
                                dtype=torch.int32)
             y = kernel(xq, wq, cfg)
             ref = bitplane_vmm_ref(xq, wq, cfg)
             torch.cuda.synchronize()
             if not torch.equal(y, ref):
-                raise AssertionError(f"bitplane kernel != plain at M={m} K={k} N={n}")
-            row = {"m": m, "k": k, "n": n, "equal": True, "max_abs_err": 0,
+                raise AssertionError(f"bitplane kernel != plain at M={m} K={k} "
+                                     f"N={n} x_bits={x_bits}")
+            row = {"m": m, "k": k, "n": n, "x_bits": x_bits, "equal": True,
+                   "max_abs_err": 0,
                    **_bitplane_fields(mod, m, k, n),
                    **call_times(lambda: kernel(xq, wq, cfg), flush, BITPLANE_KERNELS)}
             row["plain_ms"] = time_cuda(lambda: bitplane_vmm_ref(xq, wq, cfg), 3, flush, 1)
@@ -359,9 +411,10 @@ def phase_lut_vmm(flush):
 
     timed = []
     for k, n in LUT_SHAPES:
-        for m in (4, 64):
-            xq, wq, luts, cfg = case(m, k, n, 8, True, 8)
-            row = {"m": m, "k": k, "n": n, "equal": True, "max_abs_err": 0,
+        for m, x_bits in VMM_ROWS:
+            xq, wq, luts, cfg = case(m, k, n, x_bits, True, 8)
+            row = {"m": m, "k": k, "n": n, "x_bits": x_bits, "equal": True,
+                   "max_abs_err": 0,
                    **_lut_fields(mod, m, n, luts),
                    **call_times(lambda: kernel(xq, luts, cfg), flush, LUT_KERNELS)}
             row["plain_ms"] = time_cuda(lambda: da_vmm_ref(xq, luts, cfg), 5, flush, 1)
@@ -465,11 +518,63 @@ def phase_plans(flush):
             torch.cuda.empty_cache()
         emit({"phase": "plans", "kernel": name, "constant": const,
               "shipped": shipped, "shapes": rows})
+    _attention_plan_sweep(flush)
+
+
+#: the attention split's constant the plans phase times, its values, and the
+#: (B, T) reads it times them at, at each head shape's decode width
+ATTN_PLAN_SWEEP = ("_PLAN_ROWS", (1, 2, 4), ((1, 1), (2, 1), (4, 1), (4, VERIFY_T)))
+
+
+def _attention_plan_sweep(flush):
+    """ATTN_PLAN_SWEEP's constant at each of its values, at both head shapes
+    over fp pages: the read within ATTN_ATOL of the plain read, its split,
+    its device ms (``torch.profiler``) and its ms on the spin timer, in two
+    passes of opposite order."""
+    import torch
+
+    from repro_torch.models.attention import paged_gather_read
+
+    pa = importlib.import_module("repro_torch.kernels.paged_attention")
+    const, values, cases = ATTN_PLAN_SWEEP
+    shipped = getattr(pa, const)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for dname, heads, shapes in ATTN_HEADS:
+        w = shapes[0][2]
+        for b, t in cases:
+            q, kp, vp, table, tpos = _paged_case(gen, b, t, w, b * w + 8,
+                                                 getattr(torch, dname), **heads)
+            ref = paged_gather_read(q, kp, vp, table, tpos).float()
+            call = functools.partial(pa.paged_attention_cuda, q, kp, vp, table, tpos)
+            row = {"dtype": dname, "b": b, "t": t, "w": w}
+            try:
+                for order in (values, values[::-1]):
+                    for v in order:
+                        setattr(pa, const, v)
+                        pa.split_plan.cache_clear()
+                        err = (call().float() - ref).abs().max().item()
+                        if not err <= ATTN_ATOL[dname]:
+                            raise AssertionError(f"attention with {const}={v}: {err} "
+                                                 f"> {ATTN_ATOL[dname]} at {row}")
+                        r = row.setdefault(str(v), {
+                            **_split_fields(pa, b, t, w, kp.shape[1], heads),
+                            "device_ms": [], "ms": []})
+                        r["device_ms"].append(sum(
+                            device_ms_by_kernel(call, 5, flush, "paged_attn_").values()))
+                        r["ms"].append(time_cuda(call, 10, flush))
+            finally:
+                setattr(pa, const, shipped)
+                pa.split_plan.cache_clear()
+            rows.append(row)
+    emit({"phase": "plans", "kernel": "paged_attention", "constant": const,
+          "shipped": shipped, "shapes": rows})
 
 
 def _paged_case(gen, b, t, w, p, dtype, ps=16, kv=8, h=32, hd=128):
     """Pool with permuted physical pages, a garbage column, ragged tpos and a
-    pad lane at the garbage position."""
+    pad lane at the garbage position; a read of VERIFY_T rows is verify's,
+    its last column the pad query at the garbage position."""
     import torch
 
     q = torch.randn(b, t, h, hd, generator=gen, device="cuda").to(dtype)
@@ -481,6 +586,8 @@ def _paged_case(gen, b, t, w, p, dtype, ps=16, kv=8, h=32, hd=128):
     lens = torch.randint(t, (w - 1) * ps, (b,), generator=gen, device="cuda")
     tpos = (lens[:, None] - t + torch.arange(t, device="cuda")[None]).to(torch.int32)
     tpos[0, 0] = (w - 1) * ps  # pad lane: garbage position
+    if t == VERIFY_T:
+        tpos[:, -1] = (w - 1) * ps
     return q, kp, vp, table.contiguous(), tpos.contiguous()
 
 
@@ -498,12 +605,102 @@ def phase_attention(flush):
             rows += _attention_case(gen, *ATTN_MASKED[dname], mode, dname, heads,
                                     None, masked_row=1)
     emit({"phase": "paged_attention", "atol": ATTN_ATOL, "cases": rows})
+    _row_invariance(gen)
     return rows
+
+
+def _row_invariance(gen):
+    """Spec and prefix serving keep the plain serve's tokens only if a row's
+    result does not depend on the call it rides in.  At both head shapes and
+    over fp and int8 pages: a read of VERIFY_T rows (windows at ragged
+    starts, the last column at the garbage position as the verify step's
+    pad) and one of its first 3 rows, against T = 1 reads of each query at
+    batch 4 and of row 0 alone: EQUAL.  Decode reads of a row at batch 2-4
+    against the row alone, 50 random position sets: EQUAL.  The norm's sum
+    of squares of a row at 1-64 rows: EQUAL (the float32 sum's count of
+    differing rows is printed beside it)."""
+    import torch
+
+    from repro_torch.models import kv_quant
+
+    kernel = importlib.import_module(
+        "repro_torch.kernels.paged_attention").paged_attention_cuda
+    rows = []
+    for dname, heads, shapes in ATTN_HEADS:
+        w = shapes[0][2]
+        q, kp, vp, table, _ = _paged_case(gen, 4, VERIFY_T, w, 4 * w + 8,
+                                          getattr(torch, dname), **heads)
+        ps = kp.shape[1]
+        start = torch.randint(0, (w - 1) * ps - VERIFY_T, (4,), generator=gen,
+                              device="cuda")
+        tpos = (start[:, None] + torch.arange(VERIFY_T, device="cuda")[None]
+                ).to(torch.int32)
+        tpos[:, -1] = (w - 1) * ps
+        for fmt in ("fp", "int8"):
+            if fmt == "fp":
+                kc, vc, scales = kp, vp, {}
+            else:
+                (kc, ks), (vc, vs) = (kv_quant.quantize_kv(x, fmt) for x in (kp, vp))
+                scales = {"k_scale": ks, "v_scale": vs}
+
+            def read(qq, tp, tb=table):
+                return kernel(qq.contiguous(), kc, vc, tb.contiguous(),
+                              tp.contiguous(), **scales)
+
+            full, three = read(q, tpos), read(q[:, :3], tpos[:, :3])
+            equal = True
+            for j in range(VERIFY_T - 1):
+                one = read(q[:, j:j + 1], tpos[:, j:j + 1])
+                solo = read(q[:1, j:j + 1], tpos[:1, j:j + 1], table[:1])
+                equal &= (torch.equal(full[:, j], one[:, 0])
+                          and torch.equal(three[:, j], one[:, 0])
+                          and torch.equal(solo[0, 0], one[0, 0]))
+            rows.append({"dtype": dname, "kv": fmt, "w": w, "t": VERIFY_T,
+                         "starts": start.tolist(), "equal": bool(equal)})
+    # decode reads: a row at batch 2-4 against the same row read alone, at
+    # random positions (the split's chunk must not follow the batch)
+    decode = []
+    for dname, heads, shapes in ATTN_HEADS:
+        w = shapes[0][2]
+        q, kp, vp, table, _ = _paged_case(gen, 4, 1, w, 4 * w + 8,
+                                          getattr(torch, dname), **heads)
+        differ = total = 0
+        for _ in range(50):
+            q.normal_(generator=gen)
+            tpos = torch.randint(0, (w - 1) * kp.shape[1], (4, 1), generator=gen,
+                                 device="cuda").to(torch.int32)
+            alone = [kernel(q[r:r + 1], kp, vp, table[r:r + 1].contiguous(),
+                            tpos[r:r + 1]) for r in range(4)]
+            for b in (2, 3, 4):
+                out = kernel(q[:b], kp, vp, table[:b].contiguous(),
+                             tpos[:b].contiguous())
+                total += b
+                differ += sum(not torch.equal(out[r], alone[r][0]) for r in range(b))
+        decode.append({"dtype": dname, "w": w, "rows": total, "differing": differ})
+    # the RMS norm's sum of squares: in float32 CUDA's reduction splits a row
+    # by the row count; summed in float64 (models/layers.py) it does not
+    from repro_torch.models.layers import _mean_square
+
+    # activations as the model holds them: bfloat16 values, widened
+    x = (3 * torch.randn(64, 4096, generator=gen, device="cuda")).to(
+        torch.bfloat16).float()
+    f32 = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    norms = {"rows": 64, "f32_differing": {}, "f64_differing": {}}
+    for r in (1, 2, 4, 16, 64):
+        norms["f32_differing"][r] = int((torch.mean(torch.square(x[:r]), dim=-1,
+                                                     keepdim=True) != f32[:r]).sum())
+        norms["f64_differing"][r] = int((_mean_square(x[:r]) != _mean_square(x)[:r]).sum())
+    emit({"phase": "row_invariance", "verify": rows, "decode": decode,
+          "norm_sum_of_squares": norms})
+    if not all(r["equal"] for r in rows):
+        raise AssertionError(f"a verify read's rows differ from decode reads: {rows}")
+    if any(d["differing"] for d in decode) or any(norms["f64_differing"].values()):
+        raise AssertionError(f"a row's read or norm depends on its batch: {decode} {norms}")
 
 
 def _split_fields(pa, b, t, w, ps, heads) -> dict:
     """The split a read of this case runs with."""
-    plan = pa.split_plan(b, t, heads["h"], heads["kv"], heads["hd"], ps, w,
+    plan = pa.split_plan(t, heads["h"], heads["kv"], heads["hd"], ps, w,
                          _vmm_module("build").sms(0))
     return {"chunks": plan.ns, "chunk_pages": plan.chunk,
             "blocks_per_launch": heads["kv"] * b * plan.ns}
@@ -683,6 +880,9 @@ def _reset_counts():
     paged_attention_cuda.cuda_launches = 0
     for fmt in paged_attention_cuda.launches_by_format:
         paged_attention_cuda.launches_by_format[fmt] = 0
+    bitplane_vmm_cuda.launches_by_bits = {}
+    da_vmm_cuda.launches_by_bits = {}
+    paged_attention_cuda.launches_by_t = {}
 
 
 def _read_counts():
@@ -696,14 +896,16 @@ def _read_counts():
             "da_vmm_cuda_launches": da_vmm_cuda.cuda_launches,
             "paged_attention": paged_attention_cuda.launches,
             "paged_attention_cuda_launches": paged_attention_cuda.cuda_launches,
-            "paged_attention_by_format": dict(paged_attention_cuda.launches_by_format)}
+            "paged_attention_by_format": dict(paged_attention_cuda.launches_by_format),
+            "bitplane_vmm_by_bits": dict(bitplane_vmm_cuda.launches_by_bits),
+            "da_vmm_by_bits": dict(da_vmm_cuda.launches_by_bits),
+            "paged_attention_by_t": dict(paged_attention_cuda.launches_by_t)}
 
 
 def _serve_requests(eng, vocab, n, seed=0, new=16):
     """Submit ``n`` requests with prompts of 16–64 tokens, run them with the
-    launch counts set to 0 just before, and return (done, counts)."""
+    launch counts set to 0 just before, and return (reqs, done, counts)."""
     import numpy as np
-    import torch
 
     from repro_torch.serve.engine import Request
 
@@ -711,6 +913,15 @@ def _serve_requests(eng, vocab, n, seed=0, new=16):
     reqs = [Request(uid=u, prompt=rng.integers(0, vocab, int(rng.integers(16, 65))
                                                ).astype(np.int32), max_new_tokens=new)
             for u in range(n)]
+    return _run_requests(eng, reqs, vocab)
+
+
+def _run_requests(eng, reqs, vocab):
+    """Submit ``reqs``, run them with the launch counts set to 0 just before,
+    check every one finished with its ``max_new_tokens`` in-vocab tokens (a
+    stop at max_len aside) and return (reqs, done, counts)."""
+    import torch
+
     for r in reqs:
         eng.submit(r)
     torch.cuda.synchronize()
@@ -719,11 +930,16 @@ def _serve_requests(eng, vocab, n, seed=0, new=16):
     torch.cuda.synchronize()
     counts = _read_counts()
     if len(done) != len(reqs) or any(
-            len(done[r.uid].generated) != new
+            len(done[r.uid].generated) != min(r.max_new_tokens,
+                                              eng.max_len - len(r.prompt))
             or not all(0 <= tok < vocab for tok in done[r.uid].generated)
             for r in reqs):
-        raise AssertionError(f"not every request finished with {new} in-vocab tokens")
+        raise AssertionError("not every request finished with its in-vocab tokens")
     return reqs, done, counts
+
+
+def _tokens(done, reqs):
+    return {r.uid: list(done[r.uid].generated) for r in reqs}
 
 
 def phase_serve():
@@ -752,7 +968,7 @@ def phase_serve():
     emit(_serve_line("serve", eng, reqs, done, counts,
                      init_s=t1 - t0, freeze_s=t2 - t1))
     emit(decode_window(eng, cfg.vocab))
-    return eng.params, counts
+    return eng.params, counts, _tokens(done, reqs)
 
 
 def _serve_line(phase, eng, reqs, done, counts, **extra):
@@ -791,6 +1007,176 @@ def phase_serve_int8kv(params):
     return counts
 
 
+def phase_serve_prefix(params):
+    """Shared-prefix serving at full width and depth on the fp serve's frozen
+    weights: 8 requests share a 48-token prefix (3 pages) with 16–32 tokens
+    of their own, served with the prefix cache and without; tokens EQUAL."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get("qwen3-8b")
+    rng = np.random.default_rng(6)
+    shared = rng.integers(0, cfg.vocab, 48)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, int(rng.integers(
+        16, 33)))]).astype(np.int32) for _ in range(8)]
+    runs, line = {}, {}
+    for cached in (True, False):
+        eng = ServeEngine(cfg, params, batch_size=4, max_len=256, page_size=16,
+                          paged_attn="fused", prefix_cache=cached, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        reqs, done, counts = _run_requests(
+            eng, [Request(uid=u, prompt=p, max_new_tokens=16)
+                  for u, p in enumerate(prompts)], cfg.vocab)
+        runs[cached] = _tokens(done, reqs)
+        m = eng.metrics()
+        if cached:
+            pc = m["prefix_cache"]
+            if min(counts["bitplane_vmm"], counts["paged_attention"]) <= 0:
+                raise AssertionError(f"the prefix serve missed a kernel: {counts}")
+            if pc["hits"] <= 0:
+                raise AssertionError(f"the prefix cache never hit: {pc}")
+            line = _serve_line("serve_prefix", eng, reqs, done, counts,
+                               prefix_hits=pc["hits"], cow_copies=pc["cow_copies"],
+                               cached_tokens=pc["cached_tokens"],
+                               pages_saved=pc["cached_tokens"] // 16,
+                               hit_rate=pc["hit_rate"], ctx_tokens=m["ctx_tokens"])
+            path_counts = counts
+        else:
+            line.update(uncached={k: m[k] for k in (
+                "ttft_p50_ms", "itl_p50_ms", "itl_p99_ms", "tokens_per_s",
+                "ctx_tokens", "steps", "wall_s")})
+        del eng
+        gc.collect()
+    line["tokens_equal"] = runs[True] == runs[False]
+    emit(line)
+    if not line["tokens_equal"]:
+        raise AssertionError("prefix-cached serve and plain serve disagree on tokens")
+    return path_counts
+
+
+def phase_serve_spec(params, plain_tokens):
+    """Speculative decoding at full width and depth: the fp serve's weights
+    and requests with a truncated-bitplane self-draft (gamma 2, the top 4
+    planes); tokens EQUAL to the plain serve's for every request; then one
+    draft round and one verify step traced by kernel."""
+    import torch
+
+    from repro_torch.configs.registry import get
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.spec import SpecConfig
+
+    cfg = get("qwen3-8b")
+    eng = ServeEngine(cfg, params, batch_size=4, max_len=256, page_size=16,
+                      paged_attn="fused", device="cuda",
+                      spec=SpecConfig(provider="bitplane", gamma=GAMMA,
+                                      draft_x_bits=DRAFT_X_BITS))
+    torch.cuda.reset_peak_memory_stats()
+    reqs, done, counts = _serve_requests(eng, cfg.vocab, 8)
+    sm = eng.metrics()["spec"]
+    same = _tokens(done, reqs) == plain_tokens
+    line = _serve_line("serve_spec", eng, reqs, done, counts,
+                       tokens_equal_plain=same,
+                       differing=[u for u, t in _tokens(done, reqs).items()
+                                  if t != plain_tokens[u]],
+                       spec={k: sm[k] for k in (
+                           "acceptance_rate", "rounds", "draft_steps",
+                           "verify_steps", "drafted_tokens", "accepted_drafts",
+                           "bonus_tokens", "disabled_requests", "disable_floor")})
+    line["round"] = spec_window(eng, cfg.vocab)
+    emit(line)
+    if not same:
+        raise AssertionError("spec serve and plain serve disagree on tokens")
+    if (counts["bitplane_vmm_by_bits"].get(DRAFT_X_BITS, 0) <= 0
+            or counts["paged_attention_by_t"].get(VERIFY_T, 0) <= 0):
+        raise AssertionError(f"the spec serve missed the draft or verify kernels: {counts}")
+    del eng
+    gc.collect()
+    return counts
+
+
+def _device_ms(fn, calls: int = 1):
+    """Device ms per call of ``fn`` by kernel (``torch.profiler`` over
+    ``calls`` calls), the memsets per call among them, and the host wall of
+    the traced calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = {"bitplane_vmm": 0.0, "da_vmm": 0.0, "paged_attention": 0.0,
+           "memset": 0.0, "other": 0.0}
+    memsets = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = ("bitplane_vmm" if "bitplane_vmm_kernel" in e.name else
+               "da_vmm" if "lut_gather_kernel" in e.name else
+               "paged_attention" if "paged_attn_" in e.name else
+               "memset" if "Memset" in e.name else "other")
+        dev[key] += e.time_range.elapsed_us() / 1e3 / calls
+        memsets += key == "memset"
+    busy = sum(dev.values())
+    if busy <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return {"wall_ms": wall * 1e3 / calls, "device_ms": dev,
+            "device_busy_ms": busy, "memsets": memsets / calls}
+
+
+def spec_window(eng, vocab: int):
+    """One speculative round of four decoding lanes, by kernel: the fused
+    draft call (gamma steps at the draft's planes) and the verify step
+    (pow2(gamma + 1) rows at full precision), each traced once after one
+    untraced call.  The draft rewrites x_t's KV row and verify rewrites it at
+    full precision, as a round does, so the lanes then finish as usual."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.scheduler import pow2_bucket
+
+    rt = eng._rt
+    rng = np.random.default_rng(2)
+    for u in range(4):
+        eng.submit(Request(uid=200 + u, prompt=rng.integers(0, vocab, 16).astype(
+            np.int32), max_new_tokens=48))
+    for _ in range(64):
+        if all(l is not None and l.remaining == 1 for l in rt.lanes[:4]):
+            break
+        eng.step()
+    else:
+        raise AssertionError("the spec window's lanes never all reached decode")
+    g = rt.spec.gamma
+    rows = [(r, i, l) for r, (i, l) in enumerate(
+        (i, l) for i, l in enumerate(rt.lanes) if l is not None)]
+    toks = {i: [l.ctx[l.pos]] for _, i, l in rows}
+    poss = {i: [l.pos] for _, i, l in rows}
+    width, tv = len(rows), pow2_bucket(g + 1)
+
+    def draft():
+        return rt._run_draft(rows, toks, poss, width, 1)
+
+    drafts = draft()
+    vt = {i: [l.ctx[l.pos]] + [int(t) for t in drafts[r]] for r, i, l in rows}
+    vp = {i: list(range(l.pos, l.pos + g + 1)) for _, i, l in rows}
+
+    def verify():
+        return rt._run_verify(rows, vt, vp, width, tv)
+
+    verify()
+    out = {"width": width, "gamma": g, "draft_x_bits": rt.spec.draft_x_bits,
+           "verify_t": tv, "draft": _device_ms(draft), "verify": _device_ms(verify)}
+    eng.run()
+    return out
+
+
 def phase_artifact_lut():
     """The LUT path: freeze the LUT-serving model with pallas_lut on the card,
     save the artifact, boot it with from_artifact and serve; the same
@@ -800,6 +1186,7 @@ def phase_artifact_lut():
     from repro_torch.core.freeze import load_artifact
     from repro_torch.models.model import init_model
     from repro_torch.serve.engine import ServeEngine
+    from repro_torch.spec import SpecConfig
 
     cfg = lut_model_cfg()
     kw = dict(batch_size=4, max_len=128, page_size=16, paged_attn="fused",
@@ -840,12 +1227,145 @@ def phase_artifact_lut():
     same = all(plain_done[r.uid].generated == done[r.uid].generated for r in reqs)
     line.update(plain_tokens_identical=same, plain_launches=plain_counts,
                 plain_tokens_per_s=plain.metrics()["tokens_per_s"])
+    # the truncated-bitplane self-draft on the LUT artifact: the LUT kernel
+    # at 4 bits; its tokens are the kernel boot's
+    spec = ServeEngine(art.model_cfg, art.params, spec=SpecConfig(
+        provider="bitplane", gamma=GAMMA, draft_x_bits=DRAFT_X_BITS), **kw)
+    _, spec_done, spec_counts = _serve_requests(spec, cfg.vocab, 4, seed=5)
+    spec_same = all(spec_done[r.uid].generated == done[r.uid].generated
+                    for r in reqs)
+    sm = spec.metrics()
+    line["spec"] = {"tokens_identical": spec_same, "launches": spec_counts,
+                    "tokens_per_s": sm["tokens_per_s"],
+                    "itl_p50_ms": sm["itl_p50_ms"],
+                    **{k: sm["spec"][k] for k in ("acceptance_rate", "rounds",
+                                                  "draft_steps", "verify_steps")}}
     emit(line)
     if not same:
         raise AssertionError("LUT kernel boot and plain lut boot disagree on tokens")
     if plain_counts["da_vmm"] != 0:
         raise AssertionError(f"the plain lut boot launched the LUT kernel: {plain_counts}")
-    return counts
+    if not spec_same:
+        raise AssertionError("the LUT spec serve and the LUT serve disagree on tokens")
+    if spec_counts["da_vmm_by_bits"].get(DRAFT_X_BITS, 0) <= 0:
+        raise AssertionError(f"the LUT spec serve never ran the 4-bit draft: {spec_counts}")
+    return counts, spec_counts
+
+
+def _ci_requests(n, shared_len, vocab):
+    """The CI smoke's requests (``examples/serve_da.py``, seed 0): a shared
+    prefix of ``shared_len`` tokens, 4–23 own tokens, 8–23 new tokens."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, vocab, shared_len)
+    return [Request(uid=u, prompt=np.concatenate(
+        [shared, rng.integers(0, vocab, rng.integers(4, 24))]).astype(np.int32),
+        max_new_tokens=int(rng.integers(8, 24))) for u in range(n)]
+
+
+def _ci_artifact(directory):
+    """Freeze the CI smoke's model (``lut_model_cfg``) with
+    ``bitplane_stacked`` on the card and save it; returns its path."""
+    import torch
+
+    from repro_torch.models.model import init_model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = lut_model_cfg()
+    eng = ServeEngine(cfg, init_model(cfg, seed=0, device="cuda"), batch_size=4,
+                      max_len=96, da_mode="bitplane_stacked", device="cuda")
+    path = eng.save_artifact(os.path.join(directory, "smoke_da"))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return path
+
+
+def _ci_leg(directory, n, batch, shared_len=0, **kw):
+    """Boot the artifact with ``from_artifact`` (timed) and serve one leg of
+    the smoke (timed, launch counts from just before to just after)."""
+    import torch
+
+    from repro_torch.serve.engine import ServeEngine
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = ServeEngine.from_artifact(directory, batch_size=batch, max_len=96,
+                                    device="cuda", **kw)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    reqs, done, counts = _run_requests(eng, _ci_requests(n, shared_len,
+                                                         eng.cfg.vocab),
+                                       eng.cfg.vocab)
+    leg = {"requests": n, "batch": batch, "boot_s": boot_s,
+           "serve_s": time.perf_counter() - t1,
+           "out_tokens": eng.metrics()["out_tokens"], "launches": counts,
+           "first_tokens": done[0].generated[:8]}
+    return eng, _tokens(done, reqs), leg
+
+
+def phase_ci_boot():
+    """The CI smoke's first leg alone: freeze and save its artifact, boot it
+    with ``from_artifact`` and serve 2 requests at batch 4, timed (with
+    ``--src``, on another checkout's port)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, leg = _ci_leg(_ci_artifact(tmp), 2, 4)
+    emit({"phase": "ci_boot", **leg})
+
+
+def phase_artifact_ci():
+    """The CI serve smoke's five legs on the card (``.github/workflows/ci.yml``
+    "Serve smoke"), from a ``bitplane_stacked`` artifact of its model: plain;
+    spec (``--spec bitplane --spec-gamma 2``, draft bits 4); prefix cache (4
+    requests at batch 2, a 32-token shared prefix) against the same requests
+    served plainly; ``--paged-attn fused``; ``--kv-dtype int8``."""
+    import torch
+
+    from repro_torch.spec import SpecConfig
+
+    legs, total = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        directory = _ci_artifact(tmp)
+        _, plain2, legs["plain"] = _ci_leg(directory, 2, 4)
+        _, spec2, legs["spec"] = _ci_leg(directory, 2, 4, spec=SpecConfig(
+            provider="bitplane", gamma=GAMMA, draft_x_bits=DRAFT_X_BITS))
+        _, plain4, legs["plain_b2"] = _ci_leg(directory, 4, 2, shared_len=32)
+        eng, prefix4, legs["prefix_cache"] = _ci_leg(directory, 4, 2,
+                                                     shared_len=32,
+                                                     prefix_cache=True)
+        legs["prefix_cache"]["prefix"] = eng.metrics()["prefix_cache"]
+        _, _, legs["paged_attn_fused"] = _ci_leg(directory, 2, 2,
+                                                 paged_attn="fused")
+        eng, _, legs["kv_int8"] = _ci_leg(directory, 2, 2, kv_dtype="int8")
+        if eng.cfg.kv_dtype != "int8":
+            raise AssertionError("the int8 leg did not serve int8 pages")
+    legs["spec"]["tokens_equal_plain"] = spec2 == plain2
+    legs["prefix_cache"]["tokens_equal_plain"] = prefix4 == plain4
+    for leg in legs.values():
+        for k, v in leg["launches"].items():
+            if isinstance(v, dict):
+                into = total.setdefault(k, {})
+                for kk, vv in v.items():
+                    into[kk] = into.get(kk, 0) + vv
+            else:
+                total[k] = total.get(k, 0) + v
+    emit({"phase": "artifact_ci", "model": lut_model_cfg().name,
+          "mode": "bitplane_stacked", "legs": legs, "launches": total})
+    if not (legs["spec"]["tokens_equal_plain"]
+            and legs["prefix_cache"]["tokens_equal_plain"]):
+        raise AssertionError("a spec or prefix leg of the CI smoke disagrees "
+                             "with its plain leg")
+    if (total["bitplane_vmm"] <= 0 or total["paged_attention"] <= 0
+            or total["bitplane_vmm_by_bits"].get(DRAFT_X_BITS, 0) <= 0
+            or total["paged_attention_by_format"]["int8"] <= 0
+            or legs["prefix_cache"]["prefix"]["hits"] <= 0):
+        raise AssertionError(f"the CI smoke's legs missed a kernel path: {total}")
+    torch.cuda.empty_cache()
+    return total
 
 
 def decode_window(eng, vocab: int, steps: int = 4):
@@ -855,8 +1375,6 @@ def decode_window(eng, vocab: int, steps: int = 4):
     device time over the untraced wall."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import Request
 
@@ -877,32 +1395,18 @@ def decode_window(eng, vocab: int, steps: int = 4):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     _reset_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
+    traced = _device_ms(eng.step, steps)
     counts = _read_counts()
-    dev = {"bitplane_vmm": 0.0, "paged_attention": 0.0, "memset": 0.0, "other": 0.0}
-    memsets = 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        key = ("bitplane_vmm" if "bitplane_vmm_kernel" in e.name else
-               "paged_attention" if "paged_attn_" in e.name else
-               "memset" if "Memset" in e.name else "other")
-        dev[key] += e.time_range.elapsed_us() / 1e3 / steps
-        memsets += key == "memset"
     eng.run()
-    busy = sum(dev.values())
-    if busy <= 0:
-        raise AssertionError("the profiler recorded no device time")
+    busy = traced["device_busy_ms"]
     # the memsets the VMM entry points queued (one per split call), against
     # every memset the trace holds
     zeroings = sum(counts[f"{k}_cuda_launches"] - counts[k]
                    for k in ("bitplane_vmm", "da_vmm"))
     return {"phase": "decode_step", "width": 4, "steps": steps,
-            "wall_ms": wall_ms, "device_ms": dev, "device_busy_ms": busy,
-            "busy_share": busy / wall_ms, "memsets_per_step": memsets / steps,
+            "wall_ms": wall_ms, "device_ms": traced["device_ms"],
+            "device_busy_ms": busy, "busy_share": busy / wall_ms,
+            "memsets_per_step": traced["memsets"],
             "vmm_zeroings_per_step": zeroings / steps}
 
 
@@ -913,26 +1417,41 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", choices=("all", "attention", "vmm", "plans"),
+    parser.add_argument("--phase", choices=("all", "attention", "vmm", "plans",
+                                            "ci_boot", "serve"),
                         default="all",
-                        help="'attention', 'vmm' or 'plans': build the kernels "
-                             "and run only the attention phase, only the "
-                             "bit-plane and LUT phases, or only the VMM plans' "
-                             "sweep (no result line)")
+                        help="'attention', 'vmm', 'plans', 'ci_boot' or "
+                             "'serve': build the kernels and run only the "
+                             "attention phase, only the bit-plane and LUT "
+                             "phases, only the plans' sweep, only the CI "
+                             "smoke artifact's boot and first leg, or only "
+                             "the qwen3-8b serve and its decode window (no "
+                             "result line)")
     parser.add_argument("--src", help="import the port from this directory "
                         "(another checkout's src/) instead of this one's; "
-                        "only with --phase attention or vmm")
+                        "only with --phase attention, vmm, ci_boot or serve")
     args = parser.parse_args()
     if args.src:
         if args.phase in ("all", "plans"):
-            parser.error("--src needs --phase attention or vmm")
+            parser.error("--src needs --phase attention, vmm or ci_boot")
         sys.path.insert(0, os.path.abspath(args.src))
+    elif not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
+        print(f"chip_smoke: the port (src/repro_torch) is not beside {__file__}",
+              file=sys.stderr)
+        return 3
     # the plain versions are references: full float32 and bf16 reductions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t_start = time.perf_counter()
     phase_device()
+    if args.phase in ("ci_boot", "serve"):
+        if args.phase == "ci_boot":
+            phase_ci_boot()
+        else:
+            phase_serve()
+        print(smi_line(), flush=True)
+        return 0
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     if args.phase == "attention":
         phase_attention(flush)
@@ -950,27 +1469,38 @@ def main() -> int:
     del flush
     torch.cuda.empty_cache()
     phase_logits()
-    params, fp_counts = phase_serve()
+    params, fp_counts, plain_tokens = phase_serve()
     int8_counts = phase_serve_int8kv(params)
+    prefix_counts = phase_serve_prefix(params)
+    spec_counts = phase_serve_spec(params, plain_tokens)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    lut_counts = phase_artifact_lut()
+    lut_counts, lut_spec_counts = phase_artifact_lut()
+    ci_counts = phase_artifact_ci()
     paths = {"serve": fp_counts, "serve_int8kv": int8_counts,
-             "artifact_lut": lut_counts}
+             "serve_prefix": prefix_counts, "serve_spec": spec_counts,
+             "artifact_lut": lut_counts, "artifact_lut_spec": lut_spec_counts,
+             "artifact_ci": ci_counts}
 
-    def launches(name, fmt=None, dtype=None):
-        by = {p: (c["paged_attention_by_format"][fmt] if fmt else c[name])
+    def launches(name, fmt=None, dtype=None, key=None):
+        """Launches over the paths (that run ``dtype``): of ``name``, of its
+        page format ``fmt``, or of entry ``key`` of the by-x_bits / by-T
+        count ``name``."""
+        by = {p: (c["paged_attention_by_format"][fmt] if fmt else
+                  c[name].get(key, 0) if key is not None else c[name])
               for p, c in paths.items() if dtype in (None, PATH_DTYPE[p])}
         return sum(by.values()), {p: n for p, n in by.items() if n}
 
-    def attn_row(fmt, dtype, w):
-        # the decode case of the paths that run this dtype
-        r = next(r for r in attn if (r["dtype"], r["t"], r["w"], r["kv"])
-                 == (dtype, 1, w, fmt) and "ms" in r)
-        total, by_path = launches("paged_attention", fmt, dtype)
-        return {"kv": fmt, "dtype": dtype, "head_dim": r["hd"],
-                "shape": f"B={r['b']} T=1 W={w} ps=16 H={r['h']} "
+    def attn_row(fmt, dtype, w, t=1):
+        # the batch-4 decode (or verify) case of the paths that run this dtype
+        r = next(r for r in attn if (r["dtype"], r["b"], r["t"], r["w"], r["kv"])
+                 == (dtype, 4, t, w, fmt) and "ms" in r)
+        total, by_path = (launches("paged_attention", fmt, dtype) if t == 1 else
+                          launches("paged_attention_by_t", dtype=dtype,
+                                   key=VERIFY_T))
+        return {"kv": fmt, "dtype": dtype, "head_dim": r["hd"], "t": t,
+                "shape": f"B={r['b']} T={t} W={w} ps=16 H={r['h']} "
                          f"kv={r['kv_heads']} hd={r['hd']} {dtype}, {fmt} pages",
                 "launches": total, "launches_by_path": by_path,
                 "max_abs_err": max(x["max_abs_err"] for x in attn
@@ -978,10 +1508,22 @@ def main() -> int:
                 **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")}}
 
-    dec_vmm = next(r for r in vmm if (r["m"], r["k"], r["n"]) == (4, 4096, 12288))
-    dec_lut = next(r for r in lut if (r["m"], r["k"], r["n"]) == (4, 256, 8000))
+    def vmm_row(rows, m, k, n, x_bits, name):
+        r = next(r for r in rows if (r["m"], r["k"], r["n"], r["x_bits"])
+                 == (m, k, n, x_bits))
+        total, by_path = launches(f"{name}_by_bits", key=x_bits)
+        return {"x_bits": x_bits, "launches": total, "launches_by_path": by_path,
+                "shape": f"M={m} K={k} N={n} x_bits={x_bits}",
+                **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by", "library_ms")}}
+
+    dec_vmm = vmm_row(vmm, 4, 4096, 12288, 8, "bitplane_vmm")
+    dec_lut = vmm_row(lut, 4, 256, 8000, 8, "da_vmm")
     formats = ([attn_row(fmt, "bfloat16", 17) for fmt in ("fp", "int8", "int4")]
                + [attn_row(fmt, "float32", 9) for fmt in ("fp", "int8", "int4")])
+    # verify's read: pow2(gamma + 1) rows, the last a pad column
+    verify = [attn_row("fp", "bfloat16", 17, t=VERIFY_T),
+              attn_row("fp", "float32", 9, t=VERIFY_T)]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     bp_total, bp_paths = launches("bitplane_vmm")
     lut_total, lut_paths = launches("da_vmm")
@@ -992,9 +1534,9 @@ def main() -> int:
          "launches": bp_total, "launches_by_path": bp_paths,
          "cuda_launches": launches("bitplane_vmm_cuda_launches")[0],
          "max_abs_err": max(r["max_abs_err"] for r in vmm),
-         "ms": dec_vmm["ms"], "plain_ms": dec_vmm["plain_ms"],
-         "bound_ms": dec_vmm["bound_ms"], "bound_by": dec_vmm["bound_by"],
-         "library_ms": dec_vmm["library_ms"], "shape": "M=4 K=4096 N=12288 int8"},
+         **{k: dec_vmm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "shape")},
+         "variants": [vmm_row(vmm, 4, 4096, 12288, DRAFT_X_BITS, "bitplane_vmm")]},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:66",
@@ -1002,21 +1544,20 @@ def main() -> int:
          "cuda_launches": launches("paged_attention_cuda_launches")[0],
          "max_abs_err": max(r["max_abs_err"] for r in attn),
          **{k: formats[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                       "library_ms")},
-         "shape": "B=4 T=1 W=17 ps=16 H=32 kv=8 hd=128 bf16, fp pages",
-         "formats": formats},
+                                       "library_ms", "shape")},
+         "formats": formats, "variants": verify},
         {"name": "da_vmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/da_vmm.cu",
          "replaces": "src/repro/kernels/da_vmm.py:33",
          "launches": lut_total, "launches_by_path": lut_paths,
          "cuda_launches": launches("da_vmm_cuda_launches")[0],
          "max_abs_err": max(r["max_abs_err"] for r in lut),
-         "ms": dec_lut["ms"], "plain_ms": dec_lut["plain_ms"],
-         "bound_ms": dec_lut["bound_ms"], "bound_by": dec_lut["bound_by"],
-         "library_ms": dec_lut["library_ms"],
+         **{k: dec_lut[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
          "library_note": "torch._int_mm needs M > 16; at M = 64 see the "
                          "lut_vmm line",
-         "shape": "M=4 K=256 N=8000 x_bits=8 L=8 (LM head of the LUT path)"},
+         "shape": "M=4 K=256 N=8000 x_bits=8 L=8 (LM head of the LUT path)",
+         "variants": [vmm_row(lut, 4, 256, 8000, DRAFT_X_BITS, "da_vmm")]},
     ]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

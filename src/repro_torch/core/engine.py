@@ -20,7 +20,11 @@ name                 needs LUTs  execution
                                  (``kernels/csrc/da_vmm.cu``); its plain
                                  version on the CPU
 ``bitplane``         no          Σ_b 2^b · (xbit_b @ W), serial planes
-``bitplane_stacked`` no          planes stacked on a leading axis: one product
+                                 (plain torch on the CPU; the bit-plane
+                                 kernel on CUDA)
+``bitplane_stacked`` no          planes stacked on a leading axis: one
+                                 product (plain torch on the CPU; the
+                                 bit-plane kernel on CUDA)
 ``pallas_bitplane``  no          the hand-written bit-plane kernel on CUDA
                                  (``kernels/csrc/bitplane_vmm.cu``); its plain
                                  version on the CPU
@@ -29,7 +33,15 @@ name                 needs LUTs  execution
 ``"auto"`` resolves by device: ``pallas_bitplane`` on CUDA,
 ``bitplane_stacked`` on the CPU (the measured cost table arrives later).
 A LUT mode on weights packed without LUTs (or with tables of another group
-size) raises instead of computing wrong integers.
+size) raises instead of computing wrong integers.  On CUDA the three
+storage-free modes all run the bit-plane kernel, which is bit-exact, so an
+artifact frozen with ``bitplane`` or ``bitplane_stacked`` keeps its mode
+names and reads its codes once per call; on the CPU they keep their plain
+float64 forms.
+
+``x_bits_eff`` (or the :func:`x_bits_override` context, read at call time)
+evaluates only the top bit-planes of the activation codes against the same
+weights: the truncated-bitplane draft pass of speculative decoding.
 
 The paged-attention read has its own registry: ``gather`` (page-table gather
 + masked softmax in plain torch) and ``fused`` (the CUDA page-walk kernel,
@@ -38,6 +50,7 @@ version on the CPU).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import zlib
 from typing import Callable, Dict, Optional
@@ -52,6 +65,7 @@ from repro_torch.core.da import (
     da_vmm_lut,
     da_vmm_onehot,
     num_groups,
+    truncate_codes,
 )
 from repro_torch.core.quant import quantize_acts_signed, quantize_weights
 
@@ -197,7 +211,7 @@ def get_backend(mode: str) -> BackendSpec:
     if name in _NOT_YET:
         raise NotImplementedError(
             f"DA mode {mode!r} is not ported yet (the int8 baseline: ROADMAP "
-            "queue 1 item 2)")
+            "Queue 1, 'Engine remainder')")
     raise ValueError(f"unknown DA mode {mode!r}; registered backends: "
                      f"{', '.join(sorted(_REGISTRY))} (plus 'auto')")
 
@@ -255,12 +269,16 @@ def _kernel_lut_backend(xq, packed, cfg):
 @register_backend("bitplane",
                   description="storage-free serial DA: Σ_b 2^b · (xbit_b @ W)")
 def _bitplane_backend(xq, packed, cfg):
+    if xq.device.type == "cuda":
+        return _kernel_bitplane_backend(xq, packed, cfg)
     return da_vmm_bitplane(xq, packed.wq, cfg)
 
 
 @register_backend("bitplane_stacked",
                   description="bit-planes stacked on a leading axis: one product")
 def _stacked_backend(xq, packed, cfg):
+    if xq.device.type == "cuda":
+        return _kernel_bitplane_backend(xq, packed, cfg)
     return da_vmm_bitplane_stacked(xq, packed.wq, cfg)
 
 
@@ -277,30 +295,77 @@ def _kernel_bitplane_backend(xq, packed, cfg):
 # ---------------------------------------------------------------------------
 
 
+#: Process-wide draft precision (see :func:`x_bits_override`); None → full.
+_X_BITS_EFF: Optional[int] = None
+
+
+@contextlib.contextmanager
+def x_bits_override(x_bits_eff: Optional[int]):
+    """Partial-precision context (the DA-native draft pass): inside it every
+    :func:`da_vmm` / :func:`da_matmul` / :func:`da_qkv_matmul` call that
+    passes no ``x_bits_eff`` evaluates only the top ``x_bits_eff`` bit-planes
+    of its activations against the same packed weights.  Read at call time;
+    ``None`` restores full precision."""
+    global _X_BITS_EFF
+    prev = _X_BITS_EFF
+    _X_BITS_EFF = x_bits_eff
+    try:
+        yield
+    finally:
+        _X_BITS_EFF = prev
+
+
+def effective_x_bits(cfg: DAConfig, x_bits_eff: Optional[int]) -> int:
+    """Resolve a call-site ``x_bits_eff`` against the override context and
+    the packed config (capped at ``cfg.x_bits``; below 1 raises)."""
+    eff = x_bits_eff if x_bits_eff is not None else _X_BITS_EFF
+    if eff is None:
+        return cfg.x_bits
+    eff = min(int(eff), cfg.x_bits)
+    if eff < 1:
+        raise ValueError(f"x_bits_eff={eff} must be >= 1")
+    return eff
+
+
+def _truncated_acc(spec: BackendSpec, xq: torch.Tensor, packed: PackedWeights,
+                   cfg: DAConfig, eff: int) -> torch.Tensor:
+    """The backend on the top ``eff`` planes of ``xq``: the codes shifted
+    right by ``drop``, the accumulator scaled back by ``2^drop``."""
+    xs, rcfg, drop = truncate_codes(xq, cfg, eff)
+    acc = spec.fn(xs, packed, rcfg)
+    return acc * (1 << drop) if drop else acc
+
+
 def da_vmm(xq: torch.Tensor, packed: PackedWeights, mode: Optional[str] = None,
-           cfg: Optional[DAConfig] = None) -> torch.Tensor:
+           cfg: Optional[DAConfig] = None,
+           x_bits_eff: Optional[int] = None) -> torch.Tensor:
     """Integer-level entry: codes [.., K] → int32 [.., N] == xq @ wq.
     ``mode`` None → the artifact's default; ``cfg`` overrides the packed
-    config (e.g. to flip x_signed)."""
+    config (e.g. to flip x_signed); ``x_bits_eff`` (default: the
+    :func:`x_bits_override` context, else full) keeps only the top planes."""
     cfg = cfg if cfg is not None else packed.cfg
+    eff = effective_x_bits(cfg, x_bits_eff)
     spec = _resolve_spec(mode, packed, cfg, xq.device)
     lead = xq.shape[:-1]
-    acc = spec.fn(xq.reshape(-1, xq.shape[-1]).to(torch.int32), packed, cfg)
+    acc = _truncated_acc(spec, xq.reshape(-1, xq.shape[-1]).to(torch.int32),
+                         packed, cfg, eff)
     return acc.reshape(lead + (packed.n,))
 
 
 def da_matmul(x: torch.Tensor, weights: PackedWeights,
-              cfg: Optional[DAConfig] = None,
-              mode: Optional[str] = None) -> torch.Tensor:
+              cfg: Optional[DAConfig] = None, mode: Optional[str] = None,
+              x_bits_eff: Optional[int] = None) -> torch.Tensor:
     """Float-level entry: quantize (signed, per token, in float32) → DA
-    integer VMM → dequantize as ``acc.float() * x_scale * w_scale``."""
+    integer VMM (on the top ``x_bits_eff`` planes, see :func:`da_vmm`) →
+    dequantize as ``acc.float() * x_scale * w_scale``."""
     cfg = cfg if cfg is not None else weights.cfg
     scfg = dataclasses.replace(cfg, x_signed=True)
+    eff = effective_x_bits(scfg, x_bits_eff)
     spec = _resolve_spec(mode, weights, scfg, x.device)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
     xqt = quantize_acts_signed(x2, bits=scfg.x_bits)
-    acc = spec.fn(xqt.q, weights, scfg)
+    acc = _truncated_acc(spec, xqt.q, weights, scfg, eff)
     y = acc.to(torch.float32) * xqt.scale * weights.w_scale
     return y.reshape(lead + (weights.n,))
 
@@ -344,7 +409,8 @@ def _merged_codes(packs) -> torch.Tensor:
 
 
 def da_qkv_matmul(x: torch.Tensor, packs, cfg: Optional[DAConfig] = None,
-                  mode: Optional[str] = None):
+                  mode: Optional[str] = None,
+                  x_bits_eff: Optional[int] = None):
     """Fused multi-head projection: one DA pass over several PackedWeights.
 
     The activations are quantized once; when every matrix resolves to the
@@ -352,7 +418,8 @@ def da_qkv_matmul(x: torch.Tensor, packs, cfg: Optional[DAConfig] = None,
     codes (one kernel launch on CUDA), then split; a LUT backend reads each
     pack's own tables, one call per pack.  Each output column is an
     independent exact integer dot and dequantization is per column, so the
-    outputs are bit-identical to separate :func:`da_matmul` calls.
+    outputs are bit-identical to separate :func:`da_matmul` calls, at any
+    ``x_bits_eff`` (the shared codes are truncated once).
     """
     packs = tuple(packs)
     if not packs:
@@ -368,19 +435,22 @@ def da_qkv_matmul(x: torch.Tensor, packs, cfg: Optional[DAConfig] = None,
             raise ValueError(f"da_qkv_matmul: contraction dims differ ({p.k} "
                              f"vs {packs[0].k})")
     scfg = dataclasses.replace(base, x_signed=True)
+    eff = effective_x_bits(scfg, x_bits_eff)
     specs = [_resolve_spec(mode, p, scfg, x.device) for p in packs]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
     xqt = quantize_acts_signed(x2, bits=scfg.x_bits)
+    xs, rcfg, drop = truncate_codes(xqt.q, scfg, eff)
     if len({s.name for s in specs}) == 1 and not specs[0].needs_luts:
         merged = PackedWeights(wq=_merged_codes(packs), w_scale=packs[0].w_scale,
-                               luts=None, cfg=scfg, mode=specs[0].name)
-        accs = torch.split(specs[0].fn(xqt.q, merged, scfg),
+                               luts=None, cfg=rcfg, mode=specs[0].name)
+        accs = torch.split(specs[0].fn(xs, merged, rcfg),
                            [p.n for p in packs], dim=-1)
     else:
-        accs = [s.fn(xqt.q, p, scfg) for s, p in zip(specs, packs)]
+        accs = [s.fn(xs, p, rcfg) for s, p in zip(specs, packs)]
     return tuple(
-        (acc.to(torch.float32) * xqt.scale * p.w_scale).reshape(lead + (p.n,))
+        ((acc * (1 << drop) if drop else acc).to(torch.float32) * xqt.scale
+         * p.w_scale).reshape(lead + (p.n,))
         for acc, p in zip(accs, packs))
 
 

@@ -103,11 +103,14 @@ def bitplane_vmm_cuda(xq: torch.Tensor, wq: torch.Tensor,
     bitplane_vmm_cuda.cuda_launches += queued.value
     build.check(err, "bitplane_vmm_s8")
     bitplane_vmm_cuda.launches += 1
+    bitplane_vmm_cuda.launches_by_bits[cfg.x_bits] = (
+        bitplane_vmm_cuda.launches_by_bits.get(cfg.x_bits, 0) + 1)
     return y
 
 
-#: calls in this process, and the CUDA launches (the kernel, and the zeroing
-#: of the output when K is split) the entry point queued for them (reset by
-#: callers that count a run)
+#: calls in this process (in all and by x_bits), and the CUDA launches (the
+#: kernel, and the zeroing of the output when K is split) the entry point
+#: queued for them (reset by callers that count a run)
 bitplane_vmm_cuda.launches = 0
+bitplane_vmm_cuda.launches_by_bits = {}
 bitplane_vmm_cuda.cuda_launches = 0

@@ -103,11 +103,14 @@ def da_vmm_cuda(xq: torch.Tensor, luts: torch.Tensor,
     da_vmm_cuda.cuda_launches += queued.value
     build.check(err, "da_vmm_lut_s32")
     da_vmm_cuda.launches += 1
+    da_vmm_cuda.launches_by_bits[cfg.x_bits] = (
+        da_vmm_cuda.launches_by_bits.get(cfg.x_bits, 0) + 1)
     return y
 
 
-#: calls in this process, and the CUDA launches (the kernel, and the zeroing
-#: of the output when the groups are split) the entry point queued for them
-#: (reset by callers that count a run)
+#: calls in this process (in all and by x_bits), and the CUDA launches (the
+#: kernel, and the zeroing of the output when groups are split) the entry point
+#: queued for them (reset by callers that count a run)
 da_vmm_cuda.launches = 0
+da_vmm_cuda.launches_by_bits = {}
 da_vmm_cuda.cuda_launches = 0

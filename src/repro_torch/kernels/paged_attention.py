@@ -5,7 +5,10 @@ kernel walks each row's page table itself and skips the positions past the
 row's largest tpos (masked for all its queries).  One block walking all of a
 (KV head, row)'s positions would fill only B * KV SMs, so the positions are
 split into chunks of whole pages (:func:`split_plan`, picked here from the
-shapes and the SM count, never from tpos) and a read is two launches over a
+head shape, the table width and the SM count, never from tpos, the batch or
+the query rows: the chunk decides how a query's sums round, so a row reads
+the same bits in a decode, a verify and a prefill call of any batch) and a
+read is two launches over a
 grid of (KV head, row, chunk) blocks: scores of each chunk into a float32
 workspace with the chunk's max and exp-sum; the PV pass of each chunk after
 combining every chunk's (max, sum) in a fixed order, whose last block to
@@ -39,8 +42,10 @@ SMEM_LIMIT = 227 * 1024
 #: (``NWARPS`` and ``RC`` in the source): its PV partials take
 #: NWARPS * RC * hd floats of shared memory
 _NWARPS, _RC = 8, 8
-#: blocks per SM the split aims at (about two waves)
-_WAVES = 2
+#: blocks per SM the split aims at (about two waves), for _PLAN_ROWS batch
+#: rows (the serving width of every path the split was tuned on); the chunk
+#: is fixed from that width, whatever the batch of the call
+_WAVES, _PLAN_ROWS = 2, 4
 #: key positions a warp loads at once (``U`` in the source); a chunk holds at
 #: most _ROUNDS such loads per warp: past that its serial rounds cost more
 #: than another block's fixed start (H100: 18 pages beat 34 and 10 at W=300)
@@ -67,13 +72,15 @@ def _lib():
 
 
 @functools.lru_cache(maxsize=None)
-def split_plan(b: int, t: int, h: int, kv: int, hd: int, ps: int, w: int,
+def split_plan(t: int, h: int, kv: int, hd: int, ps: int, w: int,
                sms: int) -> SplitPlan:
-    """Chunks for ``b`` rows of ``w`` pages on a card of ``sms`` SMs: about
-    ``_WAVES`` blocks per SM over the (kv, b, chunk) grid, at least two
-    chunks when ``w > 1``, at most ``_ROUNDS`` loads of ``_U`` positions per
-    warp in a chunk, and a chunk's ``G*t x chunk*ps`` float scores within the
-    shared memory beside q (score launch) or the PV partials (PV launch)."""
+    """Chunks of a row's ``w`` pages on a card of ``sms`` SMs: about
+    ``_WAVES`` blocks per SM over the (kv, row, chunk) grid of ``_PLAN_ROWS``
+    rows, at least two chunks when ``w > 1``, at most ``_ROUNDS`` loads of
+    ``_U`` positions per warp in a chunk.  Only a chunk's ``G*t x chunk*ps``
+    float scores, which must fit the shared memory beside q (score launch)
+    or the PV partials (PV launch), can make it depend on ``t``; no served
+    shape comes near that cap."""
     gt = (h // kv) * t
     base = 4 * max(gt * hd + t, _NWARPS * _RC * hd + 2 * gt)
     per_page = 4 * (gt * ps + 1)
@@ -81,7 +88,7 @@ def split_plan(b: int, t: int, h: int, kv: int, hd: int, ps: int, w: int,
     if cap < 1:
         raise ValueError(f"paged_attention: {gt} query rows x head_dim {hd} "
                          f"with page size {ps} exceed the block's shared memory")
-    ns = min(w, max(2, -(-_WAVES * sms // (b * kv))))
+    ns = min(w, max(2, -(-_WAVES * sms // (_PLAN_ROWS * kv))))
     chunk = min(-(-w // ns), cap, max(1, _ROUNDS * _NWARPS * _U // ps))
     return SplitPlan(-(-w // chunk), chunk, base + per_page * chunk)
 
@@ -136,7 +143,7 @@ def paged_attention_cuda(q, k_pool, v_pool, page_table, tpos, *,
     if hd not in HEAD_DIMS:
         raise ValueError(f"paged_attention_cuda: head_dim {hd} is not one the "
                          f"kernel is built for {HEAD_DIMS}")
-    plan = split_plan(b, t, h, kv, hd, ps, w, build.sms(q.device.index))
+    plan = split_plan(t, h, kv, hd, ps, w, build.sms(q.device.index))
     # partials [B, KV, NS, G*T, hd], scores [B, KV, G*T, W*ps], chunk stats
     # [B, KV, NS, 2, G*T], int32 counters [B, KV], carved by the kernel in
     # that order
@@ -156,14 +163,16 @@ def paged_attention_cuda(q, k_pool, v_pool, page_table, tpos, *,
     build.check(err, "paged_attention_run")
     paged_attention_cuda.launches += 1
     paged_attention_cuda.launches_by_format[fmt] += 1
+    paged_attention_cuda.launches_by_t[t] = paged_attention_cuda.launches_by_t.get(t, 0) + 1
     return out
 
 
-#: reads in this process, in all and by page format, and the CUDA launches
-#: the kernel's entry point queued for them (reset by callers that count a
-#: run)
+#: reads in this process, in all, by page format and by query rows T, and
+#: the CUDA launches the kernel's entry point queued for them (reset by
+#: callers that count a run)
 paged_attention_cuda.launches = 0
 paged_attention_cuda.launches_by_format = dict.fromkeys(_KV_FORMATS, 0)
+paged_attention_cuda.launches_by_t = {}
 paged_attention_cuda.cuda_launches = 0
 
 

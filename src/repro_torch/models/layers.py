@@ -29,10 +29,19 @@ def init_norm(cfg: ModelConfig, dim: int, device) -> dict:
     return {"scale": torch.ones((dim,), dtype=cfg.pdtype(), device=device)}
 
 
+def _mean_square(xf: torch.Tensor) -> torch.Tensor:
+    """Float32 mean of squares over the last dim, summed in float64.  CUDA's
+    reduction splits a row among threads by how many rows the call holds,
+    so a float32 sum would round a row differently in a decode step and in
+    a verify or prefill step; the float64 sum rounds to the same float32 in
+    all but a vanishing share of rows, whatever the batch."""
+    return torch.mean(torch.square(xf.to(torch.float64)), dim=-1,
+                      keepdim=True).to(torch.float32)
+
+
 def apply_norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     xf = x.to(torch.float32)
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + cfg.norm_eps)
+    y = xf * torch.rsqrt(_mean_square(xf) + cfg.norm_eps)
     y = y * p["scale"].to(torch.float32)
     return y.to(x.dtype)
 
@@ -41,8 +50,7 @@ def rms_norm_headwise(x: torch.Tensor, scale: torch.Tensor,
                       eps: float) -> torch.Tensor:
     """Per-head RMS norm over head_dim (qwen3 qk-norm)."""
     xf = x.to(torch.float32)
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps) * scale.to(torch.float32)
+    y = xf * torch.rsqrt(_mean_square(xf) + eps) * scale.to(torch.float32)
     return y.to(x.dtype)
 
 

@@ -73,3 +73,11 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         h = h[rows, last_idx.long()][:, None]
     h = apply_norm(params["final_norm"], h, cfg)
     return apply_lm_head(params["lm_head"], h), caches
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Parameters of :func:`init_model`'s tree for ``cfg``, from the shapes."""
+    d, hd = cfg.d_model, cfg.head_dim_
+    attn = 2 * d * cfg.q_dim + 2 * d * cfg.kv_dim + (2 * hd if cfg.qk_norm else 0)
+    block = 2 * d + attn + 3 * d * cfg.d_ff
+    return cfg.n_layers * block + d + 2 * cfg.vocab * d

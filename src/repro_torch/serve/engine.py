@@ -28,6 +28,7 @@ from repro_torch.core.freeze import (
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.scheduler import PagedScheduler, Request  # noqa: F401
+from repro_torch.spec import SpecConfig
 
 
 def _to_device(tree, dev: torch.device):
@@ -42,15 +43,28 @@ class ServeEngine:
     """Freeze-once DA weights in front, the paged scheduler behind."""
 
     def __init__(self, cfg: ModelConfig, params: Any, batch_size: int,
-                 max_len: int, da_mode: Optional[str] = None,
-                 page_size: int = 16, n_pages: Optional[int] = None,
-                 paged_attn: Optional[str] = None,
-                 kv_dtype: Optional[str] = None, device="cuda"):
+                 max_len: int, greedy: bool = True,
+                 da_mode: Optional[str] = None, page_size: int = 16,
+                 n_pages: Optional[int] = None, prefill_chunk: int = 16,
+                 prefill_lanes: Optional[int] = None,
+                 token_budget: Optional[int] = None,
+                 admission: str = "reserve", spec=None,
+                 prefix_cache: bool = False, paged_attn: Optional[str] = None,
+                 kv_dtype: Optional[str] = None,
+                 kv_dtypes: Optional[Dict[str, str]] = None,
+                 obs=None, hw=None, analysis_debug: bool = False,
+                 device="cuda"):
         # da_mode: a registered DA backend every weight matrix is frozen
         # under (None / "float" keeps float weights).  paged_attn: "gather"
         # | "fused" | "auto" (fused on CUDA, gather on the CPU); None
         # inherits cfg.paged_attn.  kv_dtype: KV page precision ("fp16" |
-        # "int8" | "int4"); None inherits cfg.kv_dtype.
+        # "int8" | "int4"); None inherits cfg.kv_dtype; kv_dtypes overrides
+        # it per layer position.  spec: a SpecConfig, or a provider name
+        # ("bitplane" | "layerskip" | "artifact") with its defaults.
+        # prefix_cache: shared-prefix caching with copy-on-write pages.  The
+        # scheduler knobs (greedy, prefill_chunk, prefill_lanes,
+        # token_budget, admission, obs, hw, analysis_debug) pass through to
+        # PagedScheduler.
         self.device = resolve_device(device)
         # the KV precision is part of the frozen model (the artifact records
         # it); the attention read is a choice of this engine
@@ -67,15 +81,20 @@ class ServeEngine:
                                        da_cfg=da_cfg, model_cfg=cfg)
         else:
             params = _to_device(params, self.device)
-        if paged_attn is not None:
-            cfg = dataclasses.replace(cfg, paged_attn=paged_attn)
+        if isinstance(spec, str):
+            spec = SpecConfig(provider=spec)
         self.cfg = cfg
         self.params = params
         self.b = batch_size
         self.max_len = max_len
         self._rt = PagedScheduler(
-            self.cfg, params, batch_size=batch_size, max_len=max_len,
-            page_size=page_size, n_pages=n_pages, device=self.device)
+            cfg, params, batch_size=batch_size, max_len=max_len, greedy=greedy,
+            page_size=page_size, n_pages=n_pages, prefill_chunk=prefill_chunk,
+            prefill_lanes=prefill_lanes, token_budget=token_budget,
+            admission=admission, spec=spec, prefix_cache=prefix_cache,
+            paged_attn=paged_attn, kv_dtypes=kv_dtypes, obs=obs, hw=hw,
+            analysis_debug=analysis_debug, device=self.device)
+        self.cfg = self._rt.cfg
 
     # -- freeze-once, serve-many ---------------------------------------------
     @classmethod
@@ -83,7 +102,8 @@ class ServeEngine:
                       kv_dtype: Optional[str] = None, device="cuda",
                       **kw) -> "ServeEngine":
         """Boot the serving runtime from a persisted DA artifact: the packed
-        weights come straight off disk onto ``device``.
+        weights come straight off disk onto ``device``; ``kw`` are the
+        engine's runtime knobs (``prefix_cache``, ``spec``, ...).
 
         KV precision follows the artifact: the plan's wk entries record the
         page dtype of each layer position.  An explicit ``kv_dtype``
@@ -133,6 +153,10 @@ class ServeEngine:
     def done(self) -> Dict[int, Request]:
         return self._rt.done
 
+    @property
+    def caches(self):
+        return self._rt.caches
+
     def submit(self, req: Request) -> None:
         self._rt.submit(req)
 
@@ -141,6 +165,10 @@ class ServeEngine:
 
     def run(self, max_steps: int = 100_000) -> Dict[int, Request]:
         return self._rt.run(max_steps)
+
+    def warmup(self) -> int:
+        """Run every step shape of the runtime once."""
+        return self._rt.warmup()
 
     def metrics(self) -> Dict[str, Any]:
         return self._rt.metrics()

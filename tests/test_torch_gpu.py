@@ -39,6 +39,8 @@ def _queued(plan_splits: int) -> int:
 
 @pytest.mark.parametrize("m,k,n,x_bits,signed", [
     (4, 4096, 6144, 8, True), (64, 4096, 4096, 8, True), (3, 37, 20, 8, True),
+    # verify at batch 4: 4 lanes x pow2(gamma + 1) rows
+    (16, 4096, 6144, 8, True), (16, 12288, 4096, 8, True),
     (5, 300, 70, 4, True), (9, 129, 65, 8, False), (1, 45, 6, 8, True),
     (4, 45, 6, 8, True), (8, 45, 6, 8, False), (64, 45, 6, 8, True),
     (300, 45, 6, 8, True), (300, 1000, 200, 8, True)])
@@ -76,6 +78,7 @@ def test_bitplane_kernel_equals_plain(card, m, k, n, x_bits, signed):
 
 @pytest.mark.parametrize("m,k,n,x_bits,signed,group", [
     (4, 256, 8000, 8, True, 8), (64, 256, 768, 8, True, 8),
+    (16, 256, 8000, 8, True, 8), (16, 768, 256, 8, True, 8),  # verify
     (4, 768, 256, 8, True, 8), (4, 25, 6, 8, False, 8),
     (33, 100, 17, 4, True, 4), (5, 37, 20, 2, False, 4),
     (3, 40, 12, 8, True, 16),
@@ -146,9 +149,11 @@ def _paged_case(gen, dev, dtype, t, lens, hd=64, ps=4, n_pages=12, h=4, kv=2):
 
 
 #: (T, row lengths, page size, pages in the pool, all-masked row): a short
-#: table; a long one (W = 300, split into many chunks) at decode and at a
-#: prefill width; a row whose every query is masked (uniform over all S)
+#: table; verify's read (T = 4, its last column a pad query at the garbage
+#: position); a long one (W = 300, split into many chunks) at decode and at
+#: a prefill width; a row whose every query is masked (uniform over all S)
 PAGED_CASES = {"short": (3, [5, 11, 8], 4, 12, None),
+               "verify": (4, [40, 90, 17, 200], 16, 32, None),
                "long_t1": (1, [4780, 2000], 16, 430, None),
                "long_t16": (16, [4780, 2000], 16, 430, None),
                "all_masked": (3, [5, 11, 8], 4, 12, 1)}
@@ -160,6 +165,8 @@ def _paged_args(gen, dev, dtype, case):
                                        n_pages=n_pages)
     if masked is not None:
         tpos[masked] = -1
+    if case == "verify":
+        tpos[:, -1] = (table.shape[1] - 1) * ps
     return q, k, v, table, tpos
 
 
@@ -224,3 +231,180 @@ def test_entry_points_run_on_the_card(card):
     y = p(x)
     assert y.shape == (3, 128) and bitplane_vmm_cuda.launches == before + 1
     assert np.isfinite(y.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("mode", ["pallas_bitplane", "bitplane", "bitplane_stacked",
+                                  "pallas_lut"])
+@pytest.mark.parametrize("eff", [8, 4, 1])
+def test_truncated_bits_run_the_kernels(card, mode, eff):
+    """``x_bits_eff`` on CUDA is one kernel launch at x_bits = eff, EQUAL to
+    the plain version's truncated evaluation on the CPU; ``bitplane`` and
+    ``bitplane_stacked`` run the bit-plane kernel too."""
+    import dataclasses
+
+    from repro_torch.core.engine import da_vmm, pack_weights
+    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
+    from repro_torch.kernels.da_vmm import da_vmm_cuda
+
+    g = torch.Generator(device=card).manual_seed(eff)
+    w = torch.randn(300, 70, generator=g, device=card)
+    p = pack_weights(w, mode=mode)
+    xq = torch.randint(-128, 128, (5, 300), generator=g, device=card,
+                       dtype=torch.int32)
+    counter = da_vmm_cuda if mode == "pallas_lut" else bitplane_vmm_cuda
+    before = counter.launches, counter.launches_by_bits.get(eff, 0)
+    y = da_vmm(xq, p, x_bits_eff=eff)
+    assert (counter.launches, counter.launches_by_bits.get(eff, 0)) == (
+        before[0] + 1, before[1] + 1)
+    cpu = dataclasses.replace(p, wq=p.wq.cpu(), w_scale=p.w_scale.cpu(),
+                              luts=None if p.luts is None else p.luts.cpu())
+    assert torch.equal(y.cpu(), da_vmm(xq.cpu(), cpu, x_bits_eff=eff))
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp16", "int8"])
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 128), (torch.float32, 64)])
+def test_verify_rows_equal_decode_rows(card, dtype, hd, kv_dtype):
+    """A verify read (3 window rows and a pad column at the garbage
+    position) gives each query the bits of the T = 1 read of its row at its
+    position, at batch 4 and alone: spec tokens rest on it."""
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    gen = torch.Generator(device=card).manual_seed(7)
+    b, t, w, ps, kv, h = 4, 4, 17, 16, 2, 8
+    q = torch.randn(b, t, h, hd, generator=gen, device=card).to(dtype)
+    k = torch.randn(b * w + 1, ps, kv, hd, generator=gen, device=card).to(dtype)
+    v = torch.randn(b * w + 1, ps, kv, hd, generator=gen, device=card).to(dtype)
+    scales = {}
+    if kv_dtype == "int8":
+        (k, ks), (v, vs) = (kv_quant.quantize_kv(x, "int8") for x in (k, v))
+        scales = dict(k_scale=ks, v_scale=vs)
+    table = torch.cat([torch.arange(1, b * (w - 1) + 1, device=card).reshape(
+        b, w - 1), torch.zeros(b, 1, device=card, dtype=torch.long)], 1).int()
+    start = torch.tensor([0, 37, 100, 250], device=card)
+    tpos = (start[:, None] + torch.arange(t, device=card)[None]).int()
+    tpos[:, -1] = (w - 1) * ps
+
+    def read(qq, tp, tb=table):
+        return paged_attention_cuda(qq.contiguous(), k, v, tb.contiguous(),
+                                    tp.contiguous(), **scales)
+
+    full, three = read(q, tpos), read(q[:, :3], tpos[:, :3])
+    for j in range(t - 1):
+        one = read(q[:, j:j + 1], tpos[:, j:j + 1])
+        assert torch.equal(full[:, j], one[:, 0])
+        assert torch.equal(three[:, j], one[:, 0])
+        assert torch.equal(read(q[:1, j:j + 1], tpos[:1, j:j + 1], table[:1])[0, 0],
+                           one[0, 0])
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp16", "int8", "int4"])
+def test_copy_page_and_defrag_on_cuda_pools(card, kv_dtype):
+    """COW copies and defrag move codes and in-page scales on the card
+    exactly as on the CPU."""
+    from repro_torch.configs.registry import get, reduce_for_smoke
+    from repro_torch.serve import kvcache
+
+    cfg = reduce_for_smoke(get("qwen3-8b"))
+    caches = kvcache.init_paged_caches(cfg, 9, 4, torch.float32,
+                                       kv_dtypes=kv_dtype)
+    gen = torch.Generator(device=card).manual_seed(3)
+    for leaf in kvcache._leaves(caches):
+        leaf.copy_(torch.randint(-7, 8, leaf.shape, generator=gen,
+                                 device=card).to(leaf.dtype))
+    cpu = {k: type(c)(**{f: None if getattr(c, f) is None else getattr(c, f).cpu()
+                         for f in ("k", "v", "k_scale", "v_scale")})
+           for k, c in caches.items()}
+    for tree in (caches, cpu):
+        kvcache.copy_page(tree, 3, 7)
+    pools = []
+    for tree in (caches, cpu):
+        pool = kvcache.PagePool(9)
+        pages = pool.alloc(8)
+        pool.free([p for p in pages if p not in (5, 2, 7)])
+        tables = [[5, 2], [7]]
+        kvcache.defrag(tree, pool, tables)
+        pools.append((tables, list(pool._ref)))
+    assert pools[0] == pools[1]
+    for a, b in zip(kvcache._leaves(caches), kvcache._leaves(cpu)):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+def test_spec_and_prefix_serve_on_the_card(card):
+    """The CI smoke's model (hd 64, float32) frozen with bitplane_stacked:
+    spec and prefix-cache tokens on the card EQUAL its plain serve's, through
+    the bit-plane kernel at 4 bits and the attention kernel at T = 4."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get
+    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.models.model import init_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.spec import SpecConfig
+
+    cfg = dataclasses.replace(get("qwen3-8b"), name="qwen3-20m", n_layers=4,
+                              d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+                              d_ff=768, vocab=8000, param_dtype="float32",
+                              compute_dtype="float32")
+    params = ServeEngine(cfg, init_model(cfg, seed=0), batch_size=2, max_len=96,
+                         da_mode="bitplane_stacked").params
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab, 32)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, 6 + u)])
+               for u in range(4)]
+
+    def serve(**kw):
+        eng = ServeEngine(cfg, params, batch_size=2, max_len=96, **kw)
+        for u, p in enumerate(prompts):
+            eng.submit(Request(uid=u, prompt=p.astype(np.int32), max_new_tokens=12))
+        done = eng.run()
+        assert eng.metrics()["pool"]["used_pages"] == (
+            eng.metrics()["prefix_cache"]["trie_pages"] if kw.get("prefix_cache")
+            else 0)
+        return {u: done[u].generated for u in done}
+
+    plain = serve()
+    bits4, t4 = bitplane_vmm_cuda.launches_by_bits.get(4, 0), \
+        paged_attention_cuda.launches_by_t.get(4, 0)
+    assert serve(spec=SpecConfig("bitplane", gamma=2, draft_x_bits=4,
+                                 disable_below=0.0)) == plain
+    assert bitplane_vmm_cuda.launches_by_bits[4] > bits4
+    assert paged_attention_cuda.launches_by_t[4] > t4
+    assert serve(prefix_cache=True) == plain
+
+
+@pytest.mark.parametrize("dtype,hd,w", [(torch.bfloat16, 128, 17),
+                                        (torch.bfloat16, 128, 300),
+                                        (torch.float32, 64, 9)])
+def test_decode_rows_do_not_depend_on_the_batch(card, dtype, hd, w):
+    """A row's decode read gives the same bits at batch 1-4: the split's
+    chunk follows the table width, never the batch."""
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    gen = torch.Generator(device=card).manual_seed(11)
+    ps, kv, h = 16, 2, 8
+    k = torch.randn(4 * w + 1, ps, kv, hd, generator=gen, device=card).to(dtype)
+    v = torch.randn(4 * w + 1, ps, kv, hd, generator=gen, device=card).to(dtype)
+    table = torch.cat([torch.randperm(4 * w, generator=gen, device=card)[
+        :4 * (w - 1)].reshape(4, w - 1) + 1,
+        torch.zeros(4, 1, device=card, dtype=torch.long)], 1).int()
+    for _ in range(20):
+        q = torch.randn(4, 1, h, hd, generator=gen, device=card).to(dtype)
+        tpos = torch.randint(0, (w - 1) * ps, (4, 1), generator=gen,
+                             device=card).int()
+        alone = [paged_attention_cuda(q[r:r + 1], k, v, table[r:r + 1].contiguous(),
+                                      tpos[r:r + 1]) for r in range(4)]
+        for b in (2, 3, 4):
+            out = paged_attention_cuda(q[:b], k, v, table[:b].contiguous(),
+                                       tpos[:b].contiguous())
+            for r in range(b):
+                assert torch.equal(out[r], alone[r][0])
+
+
+def test_norm_rows_do_not_depend_on_the_row_count(card):
+    from repro_torch.models.layers import _mean_square
+
+    x = torch.randn(64, 4096, device=card)
+    full = _mean_square(x)
+    for r in (1, 2, 3, 4, 8, 16):
+        assert torch.equal(_mean_square(x[:r]), full[:r])

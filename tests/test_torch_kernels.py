@@ -376,8 +376,13 @@ def test_split_plan_fills_the_card_and_fits_shared_memory(b, t, w):
     """qwen3-8b heads (32 over 8 KV heads of 128), page 16, an H100's 132
     SMs: every page in one chunk of whole pages, at least two chunks unless
     W = 1, at least 132 blocks at decode, and a chunk's scores within a
-    block's shared memory."""
-    plan = split_plan(b, t, h=32, kv=8, hd=128, ps=16, w=w, sms=132)
+    block's shared memory.  The chunk does not depend on the batch (the
+    plan has no batch argument) nor, below the shared-memory cap, on T: a
+    row's sums round the same in a decode, a verify and a prefill call."""
+    plan = split_plan(t, h=32, kv=8, hd=128, ps=16, w=w, sms=132)
+    for other_t in (1, 3, 4, 16):
+        assert split_plan(other_t, h=32, kv=8, hd=128, ps=16, w=w,
+                          sms=132).chunk == plan.chunk
     assert plan.ns == -(-w // plan.chunk)
     assert plan.smem <= 227 * 1024 and 4 * 4 * t * plan.chunk * 16 < plan.smem
     if w == 1:

@@ -130,7 +130,7 @@ def test_attention_block_matches(setup, frozen):
     jy, jnew = jattn.attention_forward(jp, jnp.asarray(x), jcfg,
                                        jnp.asarray(pos), jc, True,
                                        page_table=jnp.asarray(table))
-    tc = tcaches(tcfg, 8, 4, torch.float32)["pos_0"].layer(0)
+    tc = tcaches(tcfg, 8, 4, torch.float32, device="cpu")["pos_0"].layer(0)
     ty = tattn.attention_forward(tp, _t(x), tcfg, _t(pos), tc, _t(table))
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=ATOL)
     np.testing.assert_allclose(tc.k.numpy(), np.asarray(jnew.k), atol=ATOL)
@@ -150,7 +150,7 @@ def test_forward_logits_match(setup, frozen, paged_attn):
                      page_table=jnp.asarray(table), last_idx=jnp.asarray(last))
     tl, _ = tforward(params_from_jax(_np(tree)), _t(tokens),
                      dataclasses.replace(tcfg, paged_attn=paged_attn), _t(pos),
-                     tcaches(tcfg, 8, 4, torch.float32), _t(table),
+                     tcaches(tcfg, 8, 4, torch.float32, device="cpu"), _t(table),
                      last_idx=_t(last))
     assert tl.shape == (2, 1, tcfg.vocab)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-4)
@@ -216,7 +216,7 @@ def test_forward_logits_match_quantized_pool(setup, kv_dtype):
                         dataclasses.replace(jcfg, paged_attn="fused"),
                         positions=jnp.asarray(pos), caches=jc, update_cache=True,
                         page_table=jnp.asarray(table), last_idx=jnp.asarray(last))
-    tc = tcaches(tcfg, 8, 4, torch.float32, kv_dtypes=kv_dtype)
+    tc = tcaches(tcfg, 8, 4, torch.float32, kv_dtypes=kv_dtype, device="cpu")
     tl, _ = tforward(params_from_jax(_np(fparams)), _t(tokens),
                      dataclasses.replace(tcfg, paged_attn="fused"), _t(pos), tc,
                      _t(table), last_idx=_t(last))

@@ -126,7 +126,8 @@ def test_kv_bytes_and_pools_match_reference(kv_dtype):
         jkv.kv_page_bytes(jcfg, 8, kv_dtype)
     assert tkv.resolve_kv_dtypes(tcfg, kv_dtype) == \
         jkv.resolve_kv_dtypes(jcfg, kv_dtype)
-    ours = tkv.init_paged_caches(tcfg, 6, 8, torch.float32, kv_dtypes=kv_dtype)
+    ours = tkv.init_paged_caches(tcfg, 6, 8, torch.float32, kv_dtypes=kv_dtype,
+                                 device="cpu")
     theirs = jkv.init_paged_caches(jcfg, 6, 8, jax.numpy.float32,
                                    kv_dtypes=kv_dtype)
     for name in ("k", "v", "k_scale", "v_scale"):
