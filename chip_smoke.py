@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phase ci_boot    # build, then one boot and serve
                                              # of the CI smoke's artifact
     python3 chip_smoke.py --phase serve      # build, then phase 6 alone
+    python3 chip_smoke.py --phase obs        # build, then phase 12 alone
     python3 chip_smoke.py --phase attention --src OTHER/src
     python3 chip_smoke.py --phase vmm --src OTHER/src
     python3 chip_smoke.py --phase ci_boot --src OTHER/src
@@ -80,7 +81,25 @@ Phases, one JSON line each:
    requests; 2 with ``--spec bitplane --spec-gamma 2``; 4 at batch 2 with
    ``--prefix-cache``; 2 at batch 2 with ``--paged-attn fused``; 2 at batch
    2 with ``--kv-dtype int8``; spec and prefix tokens EQUAL to their plain
-   runs'.  ``--phase ci_boot`` runs only its boot and first leg.
+   runs'; then CI's "Observability smoke" (4 requests at batch 2, traced:
+   the Chrome trace, Prometheus text and hw block written under $TMPDIR and
+   each accepted by ``repro_torch.obs.check``) and the nightly "Traced
+   serve" (8 requests at batch 4, spec bitplane gamma 2, trace and metrics
+   checked the same way).  The artifact's manifest carries its hardware-cost
+   table.  ``--phase ci_boot`` runs only its boot and first leg;
+12. observability (``serve_obs``, run after phase 9 while phase 6's weights
+   are on the card): phase 6's weights and requests served four times in
+   turns with the trace recorder off, on, on, off: tokens EQUAL across the
+   four and to phase 6's, registry series and the hw block equal across the
+   four; per run ITL / TTFT p50 and the host ms per width-4
+   decode step (the trace's host cost); with the trace on, spans balanced,
+   TTFT / ITL rebuilt from the trace equal to metrics()'s, the exports
+   accepted by ``repro_torch.obs.check``, and one ``torch.profiler`` window
+   over 4 traced decode steps in which every bit-plane and attention kernel
+   runs inside a ``paged_step[...]`` annotation.  The hw block's numbers
+   (pJ and model-ns per token, DA against bit slicing) are the paper's
+   circuits as ``core/hwmodel.py`` reckons them, never a measurement of the
+   card.
 
 ``--phase plans`` runs none of these after the build: it times each
 constant of the two VMM plans (kernels/bitplane_vmm.py, kernels/da_vmm.py)
@@ -89,7 +108,7 @@ plain version, and the attention split's rows constant
 (kernels/paged_attention.py) at decode and verify reads of batch 1-4, each
 within ATTN_ATOL of the plain read, in two passes of opposite order.
 
-Each path (6-11, and each leg of 10 and 11) sets the kernels' launch counts
+Each path (6-12, each leg of 10 and 11, each run of 12) sets the kernels' launch counts
 to 0 just before it runs and reads them just after.  Then the
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and last
 the ``{"ok": true, "device": ...}`` line.  Any failed check raises and the
@@ -104,6 +123,7 @@ import functools
 import gc
 import importlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -160,6 +180,7 @@ ATTN_MASKED = {"bfloat16": (4, 16, 17), "float32": (4, 1, 9)}
 #: the activation dtype each path hands the attention kernel
 PATH_DTYPE = {"serve": "bfloat16", "serve_int8kv": "bfloat16",
               "serve_prefix": "bfloat16", "serve_spec": "bfloat16",
+              "serve_obs": "bfloat16",
               "artifact_lut": "float32", "artifact_lut_spec": "float32",
               "artifact_ci": "float32"}
 #: logits tolerance of the 2-layer full-width step, kernels vs plain: the DA
@@ -1097,6 +1118,223 @@ def phase_serve_spec(params, plain_tokens):
     return counts
 
 
+def _series(snapshot) -> dict:
+    """A registry snapshot's counter and gauge series, and each histogram's
+    observation count (its sum and buckets are wall-clock)."""
+    return {k: (v["count"] if isinstance(v, dict) else v)
+            for k, v in snapshot.items()}
+
+
+def _trace_latency(tracer, uids) -> dict:
+    """TTFT and ITL p50 (ms) rebuilt from the trace's submit and token
+    instants of requests ``uids``."""
+    import numpy as np
+
+    submit, toks = {}, {}
+    for ev in tracer.events:
+        if ev.ph != "i" or not ev.track.startswith("req:"):
+            continue
+        uid = int(ev.track.split(":")[1])
+        if uid not in uids:
+            continue
+        if ev.name == "submit":
+            submit[uid] = ev.ts
+        elif ev.name == "token":
+            toks.setdefault(uid, []).append(ev.ts)
+    ttft = [toks[u][0] - submit[u] for u in sorted(toks)]
+    itl = [b - a for u in toks for a, b in zip(toks[u], toks[u][1:])]
+    return {"ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
+            "itl_p50_ms": float(np.percentile(itl, 50)) * 1e3}
+
+
+def _merge_counts(runs) -> dict:
+    """Launch counts of several runs added up, the by-format / by-bits / by-T
+    tables entry by entry."""
+    total: dict = {}
+    for counts in runs:
+        for k, v in counts.items():
+            if isinstance(v, dict):
+                into = total.setdefault(k, {})
+                for kk, vv in v.items():
+                    into[kk] = into.get(kk, 0) + vv
+            else:
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def _check_exports(eng, directory, hw=True) -> dict:
+    """Write the engine's Chrome trace, Prometheus text (and hw block) under
+    ``directory`` and run ``repro_torch.obs.check`` over them; an invalid
+    file or an unbalanced span raises."""
+    from repro_torch.obs import check
+
+    if eng.obs.tracer.span_balance():
+        raise AssertionError(f"unbalanced spans: {eng.obs.tracer.span_balance()}")
+    files = [eng.write_trace(os.path.join(directory, "trace.json")),
+             eng.write_metrics(os.path.join(directory, "metrics.prom"))]
+    if hw:
+        files.append(eng.write_hw_metrics(os.path.join(directory, "hw.json")))
+    rc = check.main(files)
+    if rc != 0:
+        raise AssertionError(f"repro_torch.obs.check rejected {files}: rc {rc}")
+    return {os.path.basename(f): os.path.getsize(f) for f in files}
+
+
+def _hw_reckoned(hw) -> dict:
+    """The ``hw`` block's headline numbers, labeled as what they are."""
+    return {"source": "the paper's ReRAM circuits as core/hwmodel.py reckons "
+                      "them; not measured on any device",
+            "pj_per_token": hw["pj_per_token"],
+            "model_ns_per_token": hw["ns_per_token"],
+            "bitslice_pj_per_token": hw["bitslice"]["pj_per_token"],
+            "bitslice_model_ns_per_token": hw["bitslice"]["ns_per_token"],
+            "ratios": hw["ratios"], "pj_per_out_token": hw["pj_per_out_token"],
+            "tokens": hw["tokens"], "live": hw["live"]}
+
+
+def _all_decoding(eng, vocab: int, uid0: int, new: int, seed: int) -> None:
+    """Submit four 16-token requests and step until all four lanes
+    decode."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(seed)
+    for u in range(4):
+        eng.submit(Request(uid=uid0 + u, prompt=rng.integers(0, vocab, 16).astype(
+            np.int32), max_new_tokens=new))
+    for _ in range(64):
+        if all(l is not None and l.remaining == 1 for l in eng._rt.lanes[:4]):
+            return
+        eng.step()
+    raise AssertionError("the window's lanes never all reached decode")
+
+
+def _host_step_ms(eng, vocab: int, steps: int = 8) -> float:
+    """Host wall per width-4 decode step (synchronised at both ends)."""
+    import torch
+
+    _all_decoding(eng, vocab, 100, 2 * steps, seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    eng.run()
+    return ms
+
+
+#: the serve's kernels, by a substring of their device names
+SPAN_KERNELS = {"bitplane_vmm": "bitplane_vmm_kernel",
+                "paged_attention": "paged_attn_"}
+
+
+def _span_window(eng, vocab: int, steps: int = 4) -> dict:
+    """One ``torch.profiler`` window over ``steps`` traced width-4 decode
+    steps: each kernel launched, by whether it ran inside a
+    ``paged_step[...]`` annotation.  A bit-plane or attention kernel outside
+    one raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs.trace import kernels_in_spans
+
+    _all_decoding(eng, vocab, 300, 2 * steps, seed=3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    eng.run()
+    annotations = sorted({e.name for e in prof.events()
+                          if e.name.startswith("paged_step[")})
+    by_name = kernels_in_spans(prof)
+    ours = {key: [sum(v[i] for k, v in by_name.items() if pat in k)
+                  for i in (0, 1)] for key, pat in SPAN_KERNELS.items()}
+    other = [sum(v[i] for k, v in by_name.items()
+                 if not any(p in k for p in SPAN_KERNELS.values()))
+             for i in (0, 1)]
+    line = {"steps": steps, "annotations": annotations,
+            "inside_outside": ours, "other_kernels_inside_outside": other,
+            "names": len(by_name)}
+    if any(out for _, out in ours.values()) or min(
+            inside for inside, _ in ours.values()) <= 0:
+        raise AssertionError(f"a serve kernel ran outside its paged_step "
+                             f"annotation (or none ran): {line}; names "
+                             f"{sorted(by_name)[:40]}")
+    return line
+
+
+def phase_serve_obs(params=None, plain_tokens=None):
+    """Observability on the qwen3-8b serve: ``serve``'s frozen weights (frozen
+    here when run alone) and requests, four serves in turns with the trace
+    off, on, on, off.  Tokens EQUAL across the four (and to ``serve``'s),
+    registry series equal across the four; per run ITL / TTFT p50 and the
+    host ms per width-4 decode step (the trace's host cost); with the trace
+    on: spans balanced, TTFT / ITL rebuilt from the trace equal metrics()'s,
+    the exported trace, Prometheus text and hw block pass
+    ``repro_torch.obs.check``, and (first traced run) one profiler window in
+    which every bit-plane and attention kernel runs inside a
+    ``paged_step[...]`` annotation."""
+    import torch
+
+    from repro_torch.configs.registry import get
+    from repro_torch.models.model import init_model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get("qwen3-8b")
+    if params is None:
+        params = ServeEngine(cfg, init_model(cfg, seed=0, device="cuda"),
+                             batch_size=4, max_len=256, da_mode="pallas_bitplane",
+                             device="cuda").params
+        gc.collect()
+        torch.cuda.empty_cache()
+    runs, counts, window = [], [], None
+    for trace in (False, True, True, False):
+        eng = ServeEngine(cfg, params, batch_size=4, max_len=256, page_size=16,
+                          paged_attn="fused", trace=trace, device="cuda")
+        reqs, done, c = _serve_requests(eng, cfg.vocab, 8)
+        counts.append(c)
+        m = eng.metrics()
+        run = {"trace": trace, "ttft_p50_ms": m["ttft_p50_ms"],
+               "itl_p50_ms": m["itl_p50_ms"], "tokens_per_s": m["tokens_per_s"],
+               "trace_events": len(eng.obs.tracer)}
+        seen = {"tokens": _tokens(done, reqs), "hw": m["hw"],
+                "series": _series(eng.metrics_snapshot())}
+        if trace:
+            rebuilt = _trace_latency(eng.obs.tracer, {r.uid for r in reqs})
+            if not all(math.isclose(rebuilt[k], m[k], rel_tol=0.0, abs_tol=1e-9)
+                       for k in rebuilt):
+                raise AssertionError(f"the trace's TTFT/ITL {rebuilt} differ "
+                                     f"from metrics()'s {m}")
+            run["trace_latency_ms"] = rebuilt
+        run["host_step_ms"] = _host_step_ms(eng, cfg.vocab)
+        if trace and window is None:
+            window = _span_window(eng, cfg.vocab)
+        if trace:
+            with tempfile.TemporaryDirectory() as tmp:
+                run["exports"] = _check_exports(eng, tmp)
+        runs.append((run, seen))
+        del eng
+        gc.collect()
+    first = runs[0][1]
+    equal = {k: all(seen[k] == first[k] for _, seen in runs)
+             for k in ("tokens", "series", "hw")}
+    if plain_tokens is not None:
+        equal["tokens_serve"] = first["tokens"] == plain_tokens
+    total = _merge_counts(counts)
+    emit({"phase": "serve_obs", "model": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "runs": [run for run, _ in runs],
+          "equal": equal, "span_window": window,
+          "hw_reckoned": _hw_reckoned(first["hw"]), "launches": total})
+    if not all(equal.values()):
+        raise AssertionError(f"tracing changed the serve: {equal}")
+    if min(total["bitplane_vmm"], total["paged_attention"]) <= 0:
+        raise AssertionError(f"the traced serve missed a kernel: {total}")
+    return total
+
+
 def _device_ms(fn, calls: int = 1):
     """Device ms per call of ``fn`` by kernel (``torch.profiler`` over
     ``calls`` calls), the memsets per call among them, and the host wall of
@@ -1137,22 +1375,10 @@ def spec_window(eng, vocab: int):
     (pow2(gamma + 1) rows at full precision), each traced once after one
     untraced call.  The draft rewrites x_t's KV row and verify rewrites it at
     full precision, as a round does, so the lanes then finish as usual."""
-    import numpy as np
-
-    from repro_torch.serve.engine import Request
     from repro_torch.serve.scheduler import pow2_bucket
 
     rt = eng._rt
-    rng = np.random.default_rng(2)
-    for u in range(4):
-        eng.submit(Request(uid=200 + u, prompt=rng.integers(0, vocab, 16).astype(
-            np.int32), max_new_tokens=48))
-    for _ in range(64):
-        if all(l is not None and l.remaining == 1 for l in rt.lanes[:4]):
-            break
-        eng.step()
-    else:
-        raise AssertionError("the spec window's lanes never all reached decode")
+    _all_decoding(eng, vocab, 200, 48, seed=2)
     g = rt.spec.gamma
     rows = [(r, i, l) for r, (i, l) in enumerate(
         (i, l) for i, l in enumerate(rt.lanes) if l is not None)]
@@ -1218,7 +1444,8 @@ def phase_artifact_lut():
     line = _serve_line("artifact_lut", eng, reqs, done, counts,
                        boot_s=t3 - t2, freeze_s=t1 - t0, save_s=t2 - t1,
                        lut_mb=lut_mb, artifact_mb=art_mb, forward_calls=forwards,
-                       da_vmm_per_forward=counts["da_vmm"] / max(forwards, 1))
+                       da_vmm_per_forward=counts["da_vmm"] / max(forwards, 1),
+                       hw_reckoned=_hw_reckoned(eng.metrics()["hw"]))
     # the plain boot shares the fused attention so that its tokens can be
     # held EQUAL to the kernel boot's; the attention phase holds that f32,
     # head-dim-64 instance against the plain read at this path's shapes
@@ -1327,9 +1554,11 @@ def phase_artifact_ci():
 
     from repro_torch.spec import SpecConfig
 
-    legs, total = {}, {}
+    legs = {}
     with tempfile.TemporaryDirectory() as tmp:
         directory = _ci_artifact(tmp)
+        with open(os.path.join(directory, "manifest.json")) as f:
+            hw_layers = len(json.load(f)["hwcost"]["layers"])
         _, plain2, legs["plain"] = _ci_leg(directory, 2, 4)
         _, spec2, legs["spec"] = _ci_leg(directory, 2, 4, spec=SpecConfig(
             provider="bitplane", gamma=GAMMA, draft_x_bits=DRAFT_X_BITS))
@@ -1343,18 +1572,24 @@ def phase_artifact_ci():
         eng, _, legs["kv_int8"] = _ci_leg(directory, 2, 2, kv_dtype="int8")
         if eng.cfg.kv_dtype != "int8":
             raise AssertionError("the int8 leg did not serve int8 pages")
+        # "Observability smoke": 4 requests at batch 2, traced; the trace,
+        # Prometheus text and hw block pass repro_torch.obs.check
+        eng, _, legs["obs_smoke"] = _ci_leg(directory, 4, 2, trace=True)
+        legs["obs_smoke"]["exports"] = _check_exports(eng, os.path.join(tmp, "obs"))
+        legs["obs_smoke"]["hw_reckoned"] = _hw_reckoned(eng.metrics()["hw"])
+        # the nightly "Traced serve": 8 requests at batch 4, spec bitplane
+        # gamma 2, trace and Prometheus text
+        eng, _, legs["traced_serve"] = _ci_leg(
+            directory, 8, 4, trace=True, spec=SpecConfig(
+                provider="bitplane", gamma=GAMMA, draft_x_bits=DRAFT_X_BITS))
+        legs["traced_serve"]["exports"] = _check_exports(
+            eng, os.path.join(tmp, "traced_serve"), hw=False)
     legs["spec"]["tokens_equal_plain"] = spec2 == plain2
     legs["prefix_cache"]["tokens_equal_plain"] = prefix4 == plain4
-    for leg in legs.values():
-        for k, v in leg["launches"].items():
-            if isinstance(v, dict):
-                into = total.setdefault(k, {})
-                for kk, vv in v.items():
-                    into[kk] = into.get(kk, 0) + vv
-            else:
-                total[k] = total.get(k, 0) + v
+    total = _merge_counts(leg["launches"] for leg in legs.values())
     emit({"phase": "artifact_ci", "model": lut_model_cfg().name,
-          "mode": "bitplane_stacked", "legs": legs, "launches": total})
+          "mode": "bitplane_stacked", "manifest_hwcost_layers": hw_layers,
+          "legs": legs, "launches": total})
     if not (legs["spec"]["tokens_equal_plain"]
             and legs["prefix_cache"]["tokens_equal_plain"]):
         raise AssertionError("a spec or prefix leg of the CI smoke disagrees "
@@ -1373,21 +1608,9 @@ def decode_window(eng, vocab: int, steps: int = 4):
     ``steps`` batch-4 decode ticks, then the same number of ticks under
     ``torch.profiler`` for the device time by kernel.  The busy share is
     device time over the untraced wall."""
-    import numpy as np
     import torch
 
-    from repro_torch.serve.engine import Request
-
-    rng = np.random.default_rng(1)
-    for u in range(4):
-        eng.submit(Request(uid=100 + u, prompt=rng.integers(0, vocab, 16).astype(
-            np.int32), max_new_tokens=4 * steps))
-    for _ in range(64):  # admit and prefill until all four lanes decode
-        if all(l is not None and l.remaining == 1 for l in eng._rt.lanes):
-            break
-        eng.step()
-    else:
-        raise AssertionError("the decode window's lanes never all reached decode")
+    _all_decoding(eng, vocab, 100, 4 * steps, seed=1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -1418,22 +1641,23 @@ def main() -> int:
         return 2
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase", choices=("all", "attention", "vmm", "plans",
-                                            "ci_boot", "serve"),
+                                            "ci_boot", "serve", "obs"),
                         default="all",
-                        help="'attention', 'vmm', 'plans', 'ci_boot' or "
-                             "'serve': build the kernels and run only the "
+                        help="'attention', 'vmm', 'plans', 'ci_boot', 'serve' "
+                             "or 'obs': build the kernels and run only the "
                              "attention phase, only the bit-plane and LUT "
                              "phases, only the plans' sweep, only the CI "
-                             "smoke artifact's boot and first leg, or only "
-                             "the qwen3-8b serve and its decode window (no "
-                             "result line)")
+                             "smoke artifact's boot and first leg, only "
+                             "the qwen3-8b serve and its decode window, or "
+                             "only the traced qwen3-8b serves (no result "
+                             "line)")
     parser.add_argument("--src", help="import the port from this directory "
                         "(another checkout's src/) instead of this one's; "
                         "only with --phase attention, vmm, ci_boot or serve")
     args = parser.parse_args()
     if args.src:
-        if args.phase in ("all", "plans"):
-            parser.error("--src needs --phase attention, vmm or ci_boot")
+        if args.phase in ("all", "plans", "obs"):
+            parser.error("--src needs --phase attention, vmm, ci_boot or serve")
         sys.path.insert(0, os.path.abspath(args.src))
     elif not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         print(f"chip_smoke: the port (src/repro_torch) is not beside {__file__}",
@@ -1445,11 +1669,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t_start = time.perf_counter()
     phase_device()
-    if args.phase in ("ci_boot", "serve"):
-        if args.phase == "ci_boot":
-            phase_ci_boot()
-        else:
-            phase_serve()
+    if args.phase in ("ci_boot", "serve", "obs"):
+        {"ci_boot": phase_ci_boot, "serve": phase_serve,
+         "obs": phase_serve_obs}[args.phase]()
         print(smi_line(), flush=True)
         return 0
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -1473,6 +1695,7 @@ def main() -> int:
     int8_counts = phase_serve_int8kv(params)
     prefix_counts = phase_serve_prefix(params)
     spec_counts = phase_serve_spec(params, plain_tokens)
+    obs_counts = phase_serve_obs(params, plain_tokens)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1480,7 +1703,7 @@ def main() -> int:
     ci_counts = phase_artifact_ci()
     paths = {"serve": fp_counts, "serve_int8kv": int8_counts,
              "serve_prefix": prefix_counts, "serve_spec": spec_counts,
-             "artifact_lut": lut_counts, "artifact_lut_spec": lut_spec_counts,
+             "serve_obs": obs_counts, "artifact_lut": lut_counts, "artifact_lut_spec": lut_spec_counts,
              "artifact_ci": ci_counts}
 
     def launches(name, fmt=None, dtype=None, key=None):

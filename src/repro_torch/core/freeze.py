@@ -3,8 +3,10 @@
 :func:`freeze_model` walks a params tree and packs every weight-matrix leaf
 (``DA_LEAF_NAMES``, outside ``SKIP_CONTEXT``) under the pinned mode, building
 LUTs for every leaf when that mode reads them; norms, biases and the
-embedding table stay float.  The per-layer planner (``mode="auto"``) and the
-hardware cost model arrive with later slices.
+embedding table stay float.  The per-layer planner (``mode="auto"``) arrives
+with a later slice.  :func:`da_memory_report` prices the packed layers
+(storage and the :mod:`repro_torch.obs.hwcost` table), keyed by the
+reference's leaf paths.
 
 The q/k/v codes of each attention layer are laid out side by side in one
 ``[K, Nq + Nk + Nv]`` buffer (each pack's ``wq`` is a column slice of it), so
@@ -41,6 +43,7 @@ from repro_torch.core.engine import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.hwcost import HardwareCostModel
 
 #: Artifact schema (the reference's): bumped on any layout/manifest change.
 ARTIFACT_VERSION = 1
@@ -116,13 +119,7 @@ def freeze_model(params, da_cfg: DAConfig = DAConfig(x_signed=True),
 
 def is_frozen(params) -> bool:
     """Does the tree carry PackedWeights leaves?"""
-    if isinstance(params, PackedWeights):
-        return True
-    if isinstance(params, dict):
-        return any(is_frozen(v) for v in params.values())
-    if isinstance(params, (list, tuple)):
-        return any(is_frozen(v) for v in params)
-    return False
+    return next(packed_leaves(params), None) is not None
 
 
 # ---------------------------------------------------------------------------
@@ -176,9 +173,10 @@ class DAArtifact:
     plan:      reference leaf path (``periods/pos_0/mixer/wq``) → LayerPlan.
     da_cfg:    base DAConfig the model was frozen under.
     model_cfg: the ModelConfig to rebuild the serving graph, or None.
-    hwcost:    the reference's hardware cost table, carried as raw JSON (its
-               port waits for the observability slice; the reference
-               rebuilds it from the packed leaves when it is absent).
+    hwcost:    :class:`~repro_torch.obs.hwcost.HardwareCostModel` pricing
+               every packed leaf on the paper's DA circuits (and the
+               bit-slicing counterfactual); carried in the manifest, rebuilt
+               from the packed leaves when a manifest predates it.
     analysis:  the reference's last static-analysis verdict, carried as is.
     """
 
@@ -187,16 +185,30 @@ class DAArtifact:
     da_cfg: DAConfig
     model_cfg: Any = None
     version: int = ARTIFACT_VERSION
-    hwcost: Optional[dict] = None
+    hwcost: Optional[HardwareCostModel] = None
     analysis: Optional[Dict[str, Any]] = None
 
 
 def _ref_key(path, period: int) -> str:
     """A port leaf path as the reference names it: block ``i`` of the layer
     list is position ``i % period`` of the stacked periods."""
-    if path[0] == "blocks":
+    if path[:1] == ("blocks",):
         path = ("periods", f"pos_{int(path[1]) % period}") + tuple(path[2:])
     return "/".join(path)
+
+
+def packed_leaves(params, period: int = 1, path=()):
+    """Every PackedWeights leaf of a port params tree with its path as the
+    reference names it (:func:`_ref_key`), as ``(ref_path, leaf)`` pairs in
+    the tree's order; the blocks of one layer position share a path."""
+    if isinstance(params, PackedWeights):
+        yield _ref_key(path, period), params
+    elif isinstance(params, dict):
+        for k, v in params.items():
+            yield from packed_leaves(v, period, path + (str(k),))
+    elif isinstance(params, (list, tuple)):
+        for i, v in enumerate(params):
+            yield from packed_leaves(v, period, path + (str(i),))
 
 
 def pinned_plan(params, model_cfg=None) -> Dict[str, LayerPlan]:
@@ -205,23 +217,11 @@ def pinned_plan(params, model_cfg=None) -> Dict[str, LayerPlan]:
     ``model_cfg.kv_dtype``."""
     period = model_cfg.period if model_cfg is not None else 1
     kv = model_cfg.kv_dtype if model_cfg is not None else None
-    plans: Dict[str, LayerPlan] = {}
-
-    def walk(path, node):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                walk(path + (str(k),), v)
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                walk(path + (str(i),), v)
-        elif isinstance(node, PackedWeights):
-            plans[_ref_key(path, period)] = LayerPlan(
-                mode=node.mode, group_size=node.cfg.group_size,
-                with_luts=node.has_luts, k=node.k, n=node.n, source="pinned",
-                kv_dtype=kv if path[-1] in ("wk", "wv") else None)
-
-    walk((), params)
-    return plans
+    return {key: LayerPlan(
+        mode=node.mode, group_size=node.cfg.group_size,
+        with_luts=node.has_luts, k=node.k, n=node.n, source="pinned",
+        kv_dtype=kv if key.endswith(("/wk", "/wv")) else None)
+        for key, node in packed_leaves(params, period)}
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +243,7 @@ def save_artifact(directory: str, artifact: DAArtifact) -> str:
         "registry": registry_fingerprint(),
     }
     if artifact.hwcost:
-        extra["hwcost"] = artifact.hwcost
+        extra["hwcost"] = artifact.hwcost.to_json()
     if artifact.analysis is not None:
         extra["analysis"] = artifact.analysis
     if cfg is not None:
@@ -293,8 +293,94 @@ def load_artifact(directory: str, device="cuda") -> DAArtifact:
                     if p.mode in stale else p) for k, p in plan.items()}
     model_cfg = (ModelConfig.from_manifest(manifest["model_cfg"])
                  if "model_cfg" in manifest else None)
+    if "hwcost" in manifest:
+        hwcost = HardwareCostModel.from_json(manifest["hwcost"])
+    else:  # a manifest older than the cost table: the leaves hold the geometry
+        hwcost = HardwareCostModel.from_frozen(
+            params, plan, period=model_cfg.period if model_cfg else 1)
     return DAArtifact(params=params, plan=plan,
                       da_cfg=DAConfig(**manifest["da_cfg"]), model_cfg=model_cfg,
                       version=manifest.get("artifact_version", 1),
-                      hwcost=manifest.get("hwcost"),
-                      analysis=manifest.get("analysis"))
+                      hwcost=hwcost, analysis=manifest.get("analysis"))
+
+
+# ---------------------------------------------------------------------------
+# Reporting: the Table-I trade-off, per layer
+# ---------------------------------------------------------------------------
+
+
+def da_memory_report(frozen_params: Any, model_cfg: Any = None,
+                     kv_dtypes: Any = None) -> dict:
+    """The paper's Table-I trade-off at model scale — aggregate AND per layer
+    (the reference's report, key for key).
+
+    ``"layers"`` lists every packed matrix under its reference leaf path
+    (the blocks of one layer position merged, as the reference stacks
+    them), with its mode, group size and storage split (int8 code bytes vs
+    int32 LUT bytes) and its :mod:`repro_torch.obs.hwcost` price per
+    token-pass; ``"hw"`` is the model-total
+    :meth:`~repro_torch.obs.hwcost.HardwareCostModel.summary`, the table
+    that ``metrics()["hw"]`` serves.  With ``model_cfg``, a ``"kv"``
+    section prices the paged KV cache beside the weights: per-position page
+    dtype, bytes per token per layer, model-total bytes per token and the
+    capacity multiplier against compute-dtype pages.
+    """
+    period = model_cfg.period if model_cfg is not None else 1
+    hwm = HardwareCostModel.from_frozen(frozen_params, period=period)
+    hw_rows = {r["path"]: r for r in hwm.layer_table()}
+    merged: Dict[tuple, dict] = {}
+    for key, node in packed_leaves(frozen_params, period):
+        row = merged.setdefault(tuple(key.split("/")), {
+            "layer": key, "mode": node.mode,
+            "group_size": node.cfg.group_size, "k": int(node.k),
+            "n": int(node.n), "with_luts": node.has_luts,
+            "cells": 0, "lut_cells": 0, "code_bytes": 0,
+            "scale_bytes": 0, "lut_bytes": 0})
+        row["cells"] += node.wq.numel()
+        row["code_bytes"] += node.wq.numel() * node.wq.element_size()
+        row["scale_bytes"] += node.w_scale.numel() * node.w_scale.element_size()
+        if node.luts is not None:
+            row["lut_cells"] += node.luts.numel()
+            row["lut_bytes"] += node.luts.numel() * node.luts.element_size()
+    layers = []
+    weights = luts = 0
+    for at in sorted(merged):  # the reference's flattening order
+        row = merged[at]
+        cells, lut_cells = row.pop("cells"), row.pop("lut_cells")
+        weights += cells
+        luts += lut_cells
+        hw_row = hw_rows.get(row["layer"], {})
+        layers.append({
+            **row,
+            "cell_blowup": (lut_cells / cells) if cells else 0.0,
+            "vmms_per_token": hw_row.get("vmms_per_token", 1),
+            "da_pj": hw_row.get("da_pj", 0.0),
+            "da_ns": hw_row.get("da_ns", 0.0),
+            "bs_pj": hw_row.get("bs_pj", 0.0),
+            "bs_ns": hw_row.get("bs_ns", 0.0),
+        })
+    report = {
+        "da_matrices": len(layers),
+        "weight_cells": weights,
+        "lut_cells": luts,
+        "cell_blowup": (luts / weights) if weights else 0.0,
+        "layers": layers,
+        "hw": hwm.summary() if hwm else None,
+    }
+    if model_cfg is not None:  # the port's family is attention throughout
+        from repro_torch.serve.kvcache import kv_token_bytes, resolve_kv_dtypes
+
+        resolved = resolve_kv_dtypes(model_cfg, kv_dtypes)
+        per_pos = {key: kv_token_bytes(model_cfg, dt)
+                   for key, dt in resolved.items()}
+        total = model_cfg.n_periods * sum(per_pos.values())
+        fp_total = model_cfg.n_periods * sum(
+            kv_token_bytes(model_cfg, "fp16") for _ in per_pos)
+        report["kv"] = {
+            "kv_dtypes": resolved,
+            "token_bytes_per_layer": per_pos,
+            "bytes_per_token": total,
+            "fp_bytes_per_token": fp_total,
+            "capacity_multiplier": fp_total / total if total else 0.0,
+        }
+    return report

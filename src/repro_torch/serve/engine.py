@@ -8,10 +8,18 @@ backend (params already frozen are never re-packed) and serves them through
 the paged scheduler; :meth:`ServeEngine.from_artifact` boots a DA artifact
 (the reference's or the port's) from disk with no float weights and no
 re-packing.  It runs on the card unless the caller passes ``device="cpu"``.
+
+Observability: every engine carries a metrics registry (always on) and a
+trace recorder (``trace=True``, off by default); ``obs=`` hands in a bundle
+instead.  ``write_trace`` / ``write_metrics`` / ``write_hw_metrics`` export a
+Chrome trace, Prometheus text and the stamped ``hw`` block, the files
+``python -m repro_torch.obs.check`` validates.  The ``hw`` block prices the
+executed work on the paper's DA circuits (reckoned, not measured).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -27,6 +35,9 @@ from repro_torch.core.freeze import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import Observability, write_chrome_trace, write_prometheus
+from repro_torch.obs.hwcost import HardwareCostModel
+from repro_torch.obs.metrics import METRICS_SCHEMA_VERSION
 from repro_torch.serve.scheduler import PagedScheduler, Request  # noqa: F401
 from repro_torch.spec import SpecConfig
 
@@ -52,8 +63,9 @@ class ServeEngine:
                  prefix_cache: bool = False, paged_attn: Optional[str] = None,
                  kv_dtype: Optional[str] = None,
                  kv_dtypes: Optional[Dict[str, str]] = None,
-                 obs=None, hw=None, analysis_debug: bool = False,
-                 device="cuda"):
+                 trace: bool = False, obs: Optional[Observability] = None,
+                 hw: Optional[HardwareCostModel] = None,
+                 analysis_debug: bool = False, device="cuda"):
         # da_mode: a registered DA backend every weight matrix is frozen
         # under (None / "float" keeps float weights).  paged_attn: "gather"
         # | "fused" | "auto" (fused on CUDA, gather on the CPU); None
@@ -61,9 +73,15 @@ class ServeEngine:
         # "int8" | "int4"); None inherits cfg.kv_dtype; kv_dtypes overrides
         # it per layer position.  spec: a SpecConfig, or a provider name
         # ("bitplane" | "layerskip" | "artifact") with its defaults.
-        # prefix_cache: shared-prefix caching with copy-on-write pages.  The
-        # scheduler knobs (greedy, prefill_chunk, prefill_lanes,
-        # token_budget, admission, obs, hw, analysis_debug) pass through to
+        # prefix_cache: shared-prefix caching with copy-on-write pages.
+        # trace: turn on the event recorder (export with write_trace()); the
+        # metrics registry is always on.  obs: a prebuilt Observability
+        # bundle instead (overrides trace=); each engine otherwise builds its
+        # own, so two engines never share series.  hw: a HardwareCostModel
+        # pricing the served work on the paper's DA circuits; None derives
+        # it from the artifact or the frozen params (float weights: none).
+        # The scheduler knobs (greedy, prefill_chunk, prefill_lanes,
+        # token_budget, admission, analysis_debug) pass through to
         # PagedScheduler.
         self.device = resolve_device(device)
         # the KV precision is part of the frozen model (the artifact records
@@ -76,11 +94,19 @@ class ServeEngine:
             da_cfg = DAConfig(x_signed=True)
             params = freeze_model(params, da_cfg, mode=da_mode,
                                   device=self.device)
-            self.artifact = DAArtifact(params=params,
-                                       plan=pinned_plan(params, cfg),
-                                       da_cfg=da_cfg, model_cfg=cfg)
+            self.artifact = DAArtifact(
+                params=params, plan=pinned_plan(params, cfg), da_cfg=da_cfg,
+                model_cfg=cfg,
+                hwcost=HardwareCostModel.from_frozen(params, period=cfg.period))
         else:
             params = _to_device(params, self.device)
+        if hw is None:
+            if self.artifact is not None:
+                hw = self.artifact.hwcost
+            elif is_frozen(params):
+                hw = HardwareCostModel.from_frozen(params, period=cfg.period)
+        self.hw = hw if hw else None
+        self.obs = obs if obs is not None else Observability.make(trace=trace)
         if isinstance(spec, str):
             spec = SpecConfig(provider=spec)
         self.cfg = cfg
@@ -92,8 +118,8 @@ class ServeEngine:
             page_size=page_size, n_pages=n_pages, prefill_chunk=prefill_chunk,
             prefill_lanes=prefill_lanes, token_budget=token_budget,
             admission=admission, spec=spec, prefix_cache=prefix_cache,
-            paged_attn=paged_attn, kv_dtypes=kv_dtypes, obs=obs, hw=hw,
-            analysis_debug=analysis_debug, device=self.device)
+            paged_attn=paged_attn, kv_dtypes=kv_dtypes, obs=self.obs,
+            hw=self.hw, analysis_debug=analysis_debug, device=self.device)
         self.cfg = self._rt.cfg
 
     # -- freeze-once, serve-many ---------------------------------------------
@@ -132,6 +158,7 @@ class ServeEngine:
                 "does not have")
         if kv_dtype is None and plan_kv:
             kv_dtype = next(iter(plan_kv.values()))
+        kw.setdefault("hw", art.hwcost)  # the manifest's cost table
         eng = cls(art.model_cfg, art.params, batch_size, max_len,
                   kv_dtype=kv_dtype, device=device, **kw)
         eng.artifact = art
@@ -172,3 +199,27 @@ class ServeEngine:
 
     def metrics(self) -> Dict[str, Any]:
         return self._rt.metrics()
+
+    # -- observability export ------------------------------------------------
+    def metrics_snapshot(self) -> Dict[str, Any]:
+        """Flat registry snapshot (every counter, gauge and histogram
+        series), the schema the Prometheus export shares."""
+        return self.obs.registry.snapshot()
+
+    def write_trace(self, path: str) -> str:
+        """Dump the recorded events as Chrome trace_event JSON (loadable in
+        Perfetto); empty unless the recorder is on (``trace=True``)."""
+        return write_chrome_trace(path, self.obs.tracer)
+
+    def write_metrics(self, path: str) -> str:
+        """Dump the registry in Prometheus text exposition format."""
+        return write_prometheus(path, self.obs.registry)
+
+    def write_hw_metrics(self, path: str) -> str:
+        """Dump ``metrics()["hw"]`` (the DA hardware-cost block, null without
+        a cost model) as schema-stamped JSON."""
+        payload = {"metrics_schema_version": METRICS_SCHEMA_VERSION,
+                   "hw": self.metrics().get("hw")}
+        with open(path, "w") as f:
+            json.dump(payload, f, indent=2, sort_keys=True)
+        return path

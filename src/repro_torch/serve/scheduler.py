@@ -25,20 +25,35 @@ the width ladder).  Host-side state:
   step over ``gamma + 1`` positions; greedy acceptance keeps the output
   token-identical, and page checkpoints roll rejected growth back.
 
-Counters are plain attributes, read through the reference's property and
-``metrics()`` key names.
+Counters, gauges and histograms live in a metrics registry under the
+reference's series names (``obs=`` hands in an
+:class:`~repro_torch.obs.Observability` bundle; each scheduler otherwise
+makes its own), read through the reference's property and ``metrics()``
+names.  An enabled trace recorder gets the reference's events (submit,
+running spans, tokens, preemptions, per-tick phases), stamped on the same
+``perf_counter`` clock as ``Request.token_times``, and every device call
+runs inside a ``torch.profiler`` annotation named for its shape
+(``paged_step[rows x T]``).  ``hw=`` (a
+:class:`~repro_torch.obs.hwcost.HardwareCostModel`) prices the executed
+token-passes on the paper's DA circuits: ``metrics()["hw"]``, reckoned from
+the circuit model, never measured on the device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import Observability
+from repro_torch.obs.hwcost import HardwareCostModel, draft_price
+from repro_torch.obs.metrics import ENERGY_BUCKETS
+from repro_torch.obs.trace import SCHED_TRACK, device_span, request_track
 from repro_torch.serve.kvcache import (
     GARBAGE_PAGE,
     PagePool,
@@ -80,6 +95,10 @@ class Request:
     first_token_t: Optional[float] = None
     finish_t: float = 0.0
     token_times: Optional[List[float]] = None
+    # estimated DA-hardware cost of this request's executed work (pJ /
+    # model-ns), accumulated when a HardwareCostModel is attached
+    hw_pj: float = 0.0
+    hw_ns: float = 0.0
 
     def __post_init__(self):
         if self.generated is None:
@@ -160,11 +179,45 @@ class _Lane:
         return len(self.ctx) - self.pos
 
 
-#: counters kept per scheduler, read through properties of the same names
-_COUNTERS = ("steps", "out_tokens", "ctx_tokens", "preemptions",
-             "prefix_lookups", "prefix_hits", "cow_copies", "draft_steps",
-             "verify_steps", "spec_rounds", "drafted_tokens",
-             "accepted_drafts", "bonus_tokens", "spec_disabled")
+#: the registry's counters: attribute, series name and help text (the
+#: reference's); each is read through a property named for its attribute
+_COUNTERS = (
+    ("steps", "sched_ticks", "scheduler ticks run"),
+    ("out_tokens", "sched_out_tokens", "tokens emitted"),
+    ("ctx_tokens", "sched_ctx_tokens", "context tokens written to the KV pool"),
+    ("preemptions", "sched_preemptions", "lanes evicted back to the queue"),
+    ("step_compiles", "sched_step_compiles", "unified-step shape compiles"),
+    ("prefix_lookups", "prefix_lookups",
+     "admissions that consulted the prefix trie"),
+    ("prefix_hits", "prefix_hits", "admissions that reused cached prefix pages"),
+    ("cow_copies", "kv_cow_copies", "copy-on-write page copies"),
+    ("draft_steps", "spec_draft_steps", "draft-model steps issued"),
+    ("verify_steps", "spec_verify_steps", "batched verify calls issued"),
+    ("spec_rounds", "spec_rounds", "speculative rounds completed"),
+    ("drafted_tokens", "spec_drafted_tokens",
+     "tokens proposed by the draft model"),
+    ("accepted_drafts", "spec_accepted_drafts",
+     "draft tokens accepted by verify"),
+    ("bonus_tokens", "spec_bonus_tokens",
+     "bonus tokens from fully-accepted windows"),
+    ("spec_disabled", "spec_disabled_requests",
+     "requests whose speculation auto-off'd"),
+    ("draft_compiles", "spec_draft_compiles", "draft-step shape compiles"),
+    ("verify_compiles", "spec_verify_compiles", "verify-step shape compiles"),
+)
+
+#: the compile counter each kind of device call counts its new shapes in
+#: (the reference jit-compiles one step function per kind, once per shape;
+#: the draft step and the own-cache draft ingest count in one counter)
+_COMPILES = {"step": "step_compiles", "draft": "draft_compiles",
+             "ingest": "draft_compiles", "verify": "verify_compiles"}
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _counter_view(attr: str):
+    return property(lambda self: int(self._c[attr].total))
 
 
 class PagedScheduler:
@@ -181,12 +234,9 @@ class PagedScheduler:
                  paged_attn: Optional[str] = None,
                  kv_dtype: Optional[str] = None,
                  kv_dtypes: Optional[Dict[str, str]] = None,
-                 obs=None, hw=None, analysis_debug: bool = False,
-                 device="cuda"):
-        if obs is not None or hw is not None:
-            raise NotImplementedError(
-                "obs= and hw= are not ported yet (ROADMAP Queue 1, "
-                "'Observability and cost model')")
+                 obs: Optional[Observability] = None,
+                 hw: Optional[HardwareCostModel] = None,
+                 analysis_debug: bool = False, device="cuda"):
         if analysis_debug:
             raise NotImplementedError(
                 "analysis_debug is not ported yet (ROADMAP Queue 1, "
@@ -231,11 +281,25 @@ class PagedScheduler:
         self.done: Dict[int, Request] = {}
         self._preempted: set = set()  # uids waiting on a full-ctx re-admit
         self.prefix = PrefixCache(page_size) if prefix_cache else None
-        self._count = dict.fromkeys(_COUNTERS, 0)
-        # distinct step shapes issued, by step kind (the reference's compile
-        # counters: one compile per shape bucket)
-        self._shapes: Dict[str, set] = {"step": set(), "draft": set(),
-                                        "verify": set()}
+        # counters, gauges and histograms live in the registry, so metrics(),
+        # the Prometheus export and snapshots read one source
+        self.obs = obs if obs is not None else Observability.make()
+        reg = self.obs.registry
+        self._tr = self.obs.tracer
+        self._c = {attr: reg.counter(name, doc) for attr, name, doc in _COUNTERS}
+        self._g_lanes = reg.gauge("sched_live_lanes", "occupied batch rows")
+        self._g_queue = reg.gauge(
+            "sched_queue_depth", "requests waiting for admission")
+        self._g_used_pages = reg.gauge("kv_used_pages", "pool pages in use")
+        self._h_ttft = reg.histogram(
+            "req_ttft_seconds", "submit to first token")
+        self._h_itl = reg.histogram("req_itl_seconds", "inter-token latency")
+        self._h_tick = reg.histogram(
+            "sched_tick_seconds", "wall time of one scheduler tick")
+        # distinct shapes issued, by kind of device call: the first call of
+        # a shape counts as its compile (the reference's jit compiles once
+        # per shape bucket)
+        self._shapes: Dict[str, set] = {k: set() for k in _COMPILES}
         self._start_t: Optional[float] = None
         self._step = make_paged_step(cfg)
 
@@ -256,24 +320,73 @@ class PagedScheduler:
             self._draft_ingest = self._provider.make_step()
             self._verify_step = make_verify_step(cfg)
 
-    # -- counter views -------------------------------------------------------
-    steps = property(lambda self: self._count["steps"])
-    out_tokens = property(lambda self: self._count["out_tokens"])
-    ctx_tokens = property(lambda self: self._count["ctx_tokens"])
-    preemptions = property(lambda self: self._count["preemptions"])
-    prefix_lookups = property(lambda self: self._count["prefix_lookups"])
-    prefix_hits = property(lambda self: self._count["prefix_hits"])
-    cow_copies = property(lambda self: self._count["cow_copies"])
-    draft_steps = property(lambda self: self._count["draft_steps"])
-    verify_steps = property(lambda self: self._count["verify_steps"])
-    spec_rounds = property(lambda self: self._count["spec_rounds"])
-    drafted_tokens = property(lambda self: self._count["drafted_tokens"])
-    accepted_drafts = property(lambda self: self._count["accepted_drafts"])
-    bonus_tokens = property(lambda self: self._count["bonus_tokens"])
-    spec_disabled = property(lambda self: self._count["spec_disabled"])
-    step_compiles = property(lambda self: len(self._shapes["step"]))
-    draft_compiles = property(lambda self: len(self._shapes["draft"]))
-    verify_compiles = property(lambda self: len(self._shapes["verify"]))
+        # -- hardware cost attribution (repro_torch.obs.hwcost) ---------------
+        # per-token-pass prices by phase, fixed here: prefill, decode and
+        # verify run the full-precision model; draft and draft-side ingest
+        # run at the provider's price (truncated bit-planes: proportionally
+        # fewer read cycles; an own-artifact draft: its own table; layer
+        # skip: scaled by cost_ratio)
+        self.hw = hw if hw else None  # an empty cost table: no attribution
+        self._hw_prices: Dict[str, Tuple[float, float]] = {}
+        self._hw_bs: Dict[str, Tuple[float, float]] = {}
+        self._hw_draft: Optional[Dict[str, Any]] = None
+        if self.hw is not None:
+            full = (self.hw.pj_per_token(), self.hw.ns_per_token())
+            bs_full = (self.hw.bitslice_pj_per_token(),
+                       self.hw.bitslice_ns_per_token())
+            for ph in ("prefill", "decode", "verify"):
+                self._hw_prices[ph] = full
+                self._hw_bs[ph] = bs_full
+            if self._provider is not None:
+                dp = draft_price(self.hw, self._provider, self.params)
+                self._hw_draft = dp
+                for ph in ("draft", "draft_ingest"):
+                    self._hw_prices[ph] = (dp["pj"], dp["ns"])
+                    self._hw_bs[ph] = (dp["bs_pj"], dp["bs_ns"])
+            self._c_hw_tokens = reg.counter(
+                "hw_tokens", "token-passes priced by the DA hardware model")
+            self._c_hw_pj = reg.counter(
+                "hw_est_pj", "estimated DA energy of executed work (pJ)")
+            self._c_hw_ns = reg.counter(
+                "hw_est_ns",
+                "estimated serialized DA latency of executed work (ns)")
+            self._h_req_pj = reg.histogram(
+                "req_hw_pj", "per-request estimated DA energy (pJ)",
+                buckets=ENERGY_BUCKETS)
+
+    # -- registry-backed counter views ---------------------------------------
+    steps = _counter_view("steps")
+    out_tokens = _counter_view("out_tokens")
+    ctx_tokens = _counter_view("ctx_tokens")
+    preemptions = _counter_view("preemptions")
+    prefix_lookups = _counter_view("prefix_lookups")
+    prefix_hits = _counter_view("prefix_hits")
+    cow_copies = _counter_view("cow_copies")
+    draft_steps = _counter_view("draft_steps")
+    verify_steps = _counter_view("verify_steps")
+    spec_rounds = _counter_view("spec_rounds")
+    drafted_tokens = _counter_view("drafted_tokens")
+    accepted_drafts = _counter_view("accepted_drafts")
+    bonus_tokens = _counter_view("bonus_tokens")
+    spec_disabled = _counter_view("spec_disabled")
+    step_compiles = _counter_view("step_compiles")
+    draft_compiles = _counter_view("draft_compiles")
+    verify_compiles = _counter_view("verify_compiles")
+
+    def _issue(self, kind: str, width: int, t_step: int):
+        """Note a device call of ``kind`` at ``[width, t_step]`` (its first
+        call counts as a compile) and return the context it runs in: a
+        ``torch.profiler`` annotation named for it while the recorder is on,
+        else a shared no-op."""
+        shapes = self._shapes[kind]
+        if (width, t_step) not in shapes:
+            shapes.add((width, t_step))
+            self._c[_COMPILES[kind]].inc()
+        if not self._tr.enabled:
+            return _NO_SPAN
+        name = "paged_step" if kind == "step" else f"spec_{kind}"
+        return device_span(f"{name}[{width}x{t_step}]",
+                           cuda=self.device.type == "cuda")
 
     # -- admission -----------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -289,6 +402,10 @@ class PagedScheduler:
                              f"{self.pool.n_pages - 1}")
         req.submit_t = time.perf_counter()
         self.queue.append(req)
+        if self._tr.enabled:
+            self._tr.instant("submit", request_track(req.uid),
+                             ts=req.submit_t, prompt_tokens=t0,
+                             max_new_tokens=req.max_new_tokens)
 
     def _worst_pages(self, ctx_len: int, rem_new: int) -> int:
         return pages_for(min(ctx_len + max(rem_new, 0), self.max_len),
@@ -342,15 +459,22 @@ class PagedScheduler:
             self.queue.pop(0)
             pages: List[int] = []
             if self.prefix is not None:
-                self._count["prefix_lookups"] += 1
+                self._c["prefix_lookups"].inc()
                 # the hit rate's denominator: prompt tokens only
                 self.prefix.lookup_tokens += len(req.prompt)
                 if hit_nodes:
                     pages = self.prefix.claim(hit_nodes, self.pool)
-                    self._count["prefix_hits"] += 1
+                    self._c["prefix_hits"].inc()
                     self.prefix.cached_tokens += hit
-            self.lanes[i] = _Lane(req=req, pages=pages, ctx=ctx, pos=hit,
-                                  admitted_t=time.perf_counter())
+            lane = _Lane(req=req, pages=pages, ctx=ctx, pos=hit,
+                         admitted_t=time.perf_counter())
+            self.lanes[i] = lane
+            if self._tr.enabled:
+                # one "running" span per residency: begun here, ended by
+                # _preempt or at the finish
+                self._tr.begin("running", request_track(req.uid),
+                               ts=lane.admitted_t, lane=i, ctx_tokens=len(ctx),
+                               prefix_hit_tokens=hit)
 
     # -- preemption / eviction -----------------------------------------------
     def _preempt(self, i: int) -> None:
@@ -361,7 +485,12 @@ class PagedScheduler:
         self.queue.insert(0, lane.req)
         self._preempted.add(lane.req.uid)
         self.lanes[i] = None
-        self._count["preemptions"] += 1
+        self._c["preemptions"].inc()
+        if self._tr.enabled:
+            track = request_track(lane.req.uid)
+            self._tr.instant("preempt", track,
+                             generated=len(lane.req.generated))
+            self._tr.end("running", track)
 
     def _youngest_other(self, i: int) -> Optional[int]:
         cands = [(j, l) for j, l in enumerate(self.lanes)
@@ -407,7 +536,7 @@ class PagedScheduler:
                   if self.draft_caches is not None else self.caches, src, dst)
         lane.pages[idx] = dst
         self.pool.free([src])  # drop the lane's reference on the shared page
-        self._count["cow_copies"] += 1
+        self._c["cow_copies"].inc()
         return True
 
     def _maybe_cache_prefix(self, lane: _Lane) -> None:
@@ -450,7 +579,10 @@ class PagedScheduler:
             return 0
         if self._start_t is None:
             self._start_t = time.perf_counter()
-        self._count["steps"] += 1
+        self._c["steps"].inc()
+        t_tick = time.perf_counter()
+        allocs0, cow0 = self.pool._allocs, self._c["cow_copies"].total
+        evict0 = self.prefix.evictions if self.prefix is not None else 0
         progressed: set = set()
         decode_count = sum(1 for _, l in active if l.remaining == 1)
         prefill = [(i, l) for i, l in active if l.remaining > 1]
@@ -480,7 +612,23 @@ class PagedScheduler:
                 l.stalled_steps += 1
                 if l.stalled_steps > self.stall_patience:
                     self._preempt(i)  # stalled: hand its pages to the rest
-        return sum(l is not None for l in self.lanes)
+        live = sum(l is not None for l in self.lanes)
+        now = time.perf_counter()
+        self._h_tick.observe(now - t_tick)
+        self._g_lanes.set(live)
+        self._g_queue.set(len(self.queue))
+        self._g_used_pages.set(self.pool.used_pages)
+        if self._tr.enabled:
+            evict1 = self.prefix.evictions if self.prefix is not None else 0
+            self._tr.complete(
+                "tick", SCHED_TRACK, t_tick, now - t_tick,
+                lanes=live, decode_lanes=decode_count,
+                prefill_lanes=len(prefill), queue=len(self.queue),
+                pages_allocated=self.pool._allocs - allocs0,
+                cow_copies=int(self._c["cow_copies"].total - cow0),
+                prefix_evictions=evict1 - evict0,
+                used_pages=self.pool.used_pages)
+        return live
 
     def _pack_rows(self, rows, toks, poss, n_rows: int, t_step: int):
         """One fixed-shape batch from per-lane token and position lists, as
@@ -509,11 +657,28 @@ class PagedScheduler:
         poss = {i: range(l.pos, l.pos + plan[i]) for _, i, l in rows}
         tokens, positions, table, last_idx = self._pack_rows(
             rows, toks, poss, n_rows, t_step)
-        self._shapes["step"].add((n_rows, t_step))
-        with torch.inference_mode():
+        with self._issue("step", n_rows, t_step), torch.inference_mode():
             logits, self.caches = self._step(self.params, self.caches, tokens,
                                              positions, table, last_idx)
-        return logits.float().cpu().numpy()
+            logits = logits.float()
+        return logits.cpu().numpy()  # the host waits here, outside the span
+
+    def _hw_charge(self, req: Request, phase: str, n: int) -> float:
+        """Price ``n`` executed token-passes of ``phase`` work on the DA
+        hardware model: registry counters (labeled by phase) plus the
+        request's own running total.  Returns the pJ charged (0.0 with no
+        cost model).  Host-side float math only, so the accounting is the
+        same with tracing on or off."""
+        if self.hw is None or n <= 0:
+            return 0.0
+        pj_tok, ns_tok = self._hw_prices[phase]
+        pj, ns = pj_tok * n, ns_tok * n
+        self._c_hw_tokens.inc(n, phase=phase)
+        self._c_hw_pj.inc(pj, phase=phase)
+        self._c_hw_ns.inc(ns, phase=phase)
+        req.hw_pj += pj
+        req.hw_ns += ns
+        return pj
 
     def _prefill_phase(self, prefill, decode_count: int) -> set:
         """Up to ``prefill_lanes`` ingesting lanes advance one chunk each in
@@ -535,11 +700,22 @@ class PagedScheduler:
         # capped at prefill_chunk, so a non-pow2 chunk keeps warmup's shape
         t_step = min(pow2_bucket(max(plan[i] for _, i, _ in rows)),
                      self.prefill_chunk)
+        t0 = time.perf_counter()
         logits = self._run_batch(rows, plan, self.prefill_lanes, t_step)
         now = time.perf_counter()
+        if self._tr.enabled:
+            for r, i, l in rows:
+                extra = ({"est_pj": self._hw_prices["prefill"][0] * plan[i]}
+                         if self.hw is not None else {})
+                self._tr.complete("prefill_chunk", request_track(l.req.uid),
+                                  t0, now - t0, tokens=plan[i], pos=l.pos,
+                                  **extra)
+            self._tr.complete("prefill", SCHED_TRACK, t0, now - t0,
+                              lanes=len(rows), t_step=t_step)
         for r, i, l in rows:
             l.pos += plan[i]
-            self._count["ctx_tokens"] += plan[i]
+            self._hw_charge(l.req, "prefill", plan[i])
+            self._c["ctx_tokens"].inc(plan[i])
             self._maybe_cache_prefix(l)  # before _sample can free the pages
             if l.remaining == 0:  # chunk covered the last unseen token
                 self._sample(i, l, logits[r], now)
@@ -566,11 +742,18 @@ class PagedScheduler:
             return set()
         width = width_bucket(len(live), self.b)
         rows = [(r, i, l) for r, (i, l) in enumerate(live)]
+        t0 = time.perf_counter()
         logits = self._run_batch(rows, {i: 1 for i, _ in live}, width, 1)
         now = time.perf_counter()
+        if self._tr.enabled:
+            extra = ({"est_pj": self._hw_prices["decode"][0] * len(live)}
+                     if self.hw is not None else {})
+            self._tr.complete("decode", SCHED_TRACK, t0, now - t0,
+                              lanes=len(live), width=width, **extra)
         for r, i, l in rows:
             l.pos += 1
-            self._count["ctx_tokens"] += 1
+            self._hw_charge(l.req, "decode", 1)
+            self._c["ctx_tokens"].inc()
             self._maybe_cache_prefix(l)  # before _sample can free the pages
             self._sample(i, l, logits[r], now)
         return {i for i, _ in live}
@@ -619,9 +802,8 @@ class PagedScheduler:
                    t_step: int) -> np.ndarray:
         """One fused draft call → all gamma proposals [width, gamma]."""
         batch = self._pack_rows(rows, toks, poss, width, t_step)
-        self._shapes["draft"].add((width, t_step))
         shared = self._provider.shared_cache
-        with torch.inference_mode():
+        with self._issue("draft", width, t_step), torch.inference_mode():
             drafts, new = self._draft_step(
                 self._provider.params,
                 self.caches if shared else self.draft_caches, *batch)
@@ -629,13 +811,11 @@ class PagedScheduler:
             self.caches = new
         else:
             self.draft_caches = new
-        self._count["draft_steps"] += self.spec.gamma
         return drafts.cpu().numpy()
 
     def _run_ingest(self, rows, toks, poss, width: int, t_step: int) -> None:
         batch = self._pack_rows(rows, toks, poss, width, t_step)
-        self._shapes["draft"].add((width, t_step))
-        with torch.inference_mode():
+        with self._issue("ingest", width, t_step), torch.inference_mode():
             _, self.draft_caches = self._draft_ingest(
                 self._provider.params, self.draft_caches, *batch)
 
@@ -659,6 +839,7 @@ class PagedScheduler:
             self._run_ingest(sub, toks, poss, width_bucket(len(pend), self.b), t)
             for i, l in pend:
                 l.draft_pos += len(toks[i])
+                self._hw_charge(l.req, "draft_ingest", len(toks[i]))
 
     def _run_verify(self, rows, toks, poss, width: int,
                     t_step: int) -> np.ndarray:
@@ -666,12 +847,10 @@ class PagedScheduler:
         greedy token at every position, [width, t_step], on the host."""
         tokens, positions, table, _ = self._pack_rows(rows, toks, poss, width,
                                                       t_step)
-        self._shapes["verify"].add((width, t_step))
-        with torch.inference_mode():
+        with self._issue("verify", width, t_step), torch.inference_mode():
             logits, self.caches = self._verify_step(
                 self.params, self.caches, tokens, positions, table)
             best = torch.argmax(logits, dim=-1)
-        self._count["verify_steps"] += 1
         return best.cpu().numpy()
 
     def _spec_phase(self, staged) -> set:
@@ -687,6 +866,7 @@ class PagedScheduler:
         toks: Dict[int, List[int]] = {}
         poss: Dict[int, List[int]] = {}
         start_pos: Dict[int, int] = {}
+        t0 = time.perf_counter()
         if not shared:
             self._draft_catch_up(rows)
         for _, i, l in rows:
@@ -696,7 +876,11 @@ class PagedScheduler:
             poss[i] = list(range(s, l.pos + 1))
         t1 = min(pow2_bucket(max(len(t) for t in toks.values())),
                  max(self.prefill_chunk, 1))
+        # the fused call feeds len(toks[i]) tokens (catch-up and x_t, giving
+        # the first proposal), then gamma - 1 single-token steps
+        feed = {i: len(toks[i]) for _, i, _ in rows}
         dmat = self._run_draft(rows, toks, poss, width, t1)
+        self._c["draft_steps"].inc(g)
         drafts = {i: [int(t) for t in dmat[r]] for r, i, _ in rows}
         # verify [x_t, d_1..d_g] at full precision: logits at every position,
         # and exact KV over the draft's rows
@@ -704,20 +888,31 @@ class PagedScheduler:
             toks[i] = [l.ctx[start_pos[i]]] + drafts[i]
             poss[i] = list(range(start_pos[i], start_pos[i] + g + 1))
         vtok = self._run_verify(rows, toks, poss, width, pow2_bucket(g + 1))
+        self._c["verify_steps"].inc()
         now = time.perf_counter()
         out = set()
         for r, i, l in rows:
             verify = [int(t) for t in vtok[r, : g + 1]]
             m = greedy_accept(drafts[i], verify)
+            # the round's work is charged before its tokens: a request that
+            # finishes in this round observes req_hw_pj with the round in it
+            round_pj = (self._hw_charge(l.req, "draft", feed[i] + g - 1)
+                        + self._hw_charge(l.req, "verify", g + 1))
             emitted = self._accept_tokens(i, l, verify[:m], now)
             l.pos = start_pos[i] + emitted
             # own-cache draft KV is valid for the matched prefix only
             l.draft_pos = min(start_pos[i] + g, l.pos)
-            self._count["ctx_tokens"] += emitted
-            self._count["spec_rounds"] += 1
-            self._count["drafted_tokens"] += g
-            self._count["accepted_drafts"] += m - 1
-            self._count["bonus_tokens"] += m == g + 1
+            self._c["ctx_tokens"].inc(emitted)
+            self._c["spec_rounds"].inc()
+            self._c["drafted_tokens"].inc(g)
+            self._c["accepted_drafts"].inc(m - 1)
+            if m == g + 1:
+                self._c["bonus_tokens"].inc()
+            if self._tr.enabled:
+                extra = {"est_pj": round_pj} if self.hw is not None else {}
+                self._tr.complete("spec_round", request_track(l.req.uid),
+                                  t0, now - t0, drafted=g, accepted=m - 1,
+                                  emitted=emitted, **extra)
             self._update_spec_state(l.req.uid, (m - 1) / g)
             if self.lanes[i] is l:  # still running: release rejected pages
                 kv_rollback(self.pool, l.pages, ckpts[i],
@@ -746,7 +941,7 @@ class PagedScheduler:
         if (st["on"] and st["rounds"] >= self.spec.warmup_rounds
                 and st["ema"] < self._spec_floor):
             st["on"] = False
-            self._count["spec_disabled"] += 1
+            self._c["spec_disabled"].inc()
 
     def _sample(self, i: int, lane: _Lane, row: np.ndarray, now: float) -> None:
         req = lane.req
@@ -762,14 +957,23 @@ class PagedScheduler:
     def _emit(self, i: int, lane: _Lane, tok: int, now: float) -> bool:
         """Append one token to the lane's request (stream callback, timing);
         finish the request and free its pages when it is done.  Returns
-        whether it finished."""
+        whether it finished.  ``now`` is read after the logits reached the
+        host, so on the card it follows the device's work."""
         req = lane.req
         if not req.generated:
             req.first_token_t = now
+            self._h_ttft.observe(now - req.submit_t)
+        elif req.token_times:
+            self._h_itl.observe(now - req.token_times[-1])
         req.token_times.append(now)
         req.generated.append(tok)
         lane.ctx.append(tok)
-        self._count["out_tokens"] += 1
+        self._c["out_tokens"].inc()
+        if self._tr.enabled:
+            # the value token_times holds: the trace rebuilds TTFT and ITL
+            # exactly
+            self._tr.instant("token", request_track(req.uid), ts=now,
+                             n=len(req.generated))
         if req.on_token is not None:
             req.on_token(req.uid, tok)
         if (tok == req.eos_id or len(req.generated) >= req.max_new_tokens
@@ -778,6 +982,13 @@ class PagedScheduler:
             self.pool.free(lane.pages)
             self.done[req.uid] = req
             self.lanes[i] = None
+            if self.hw is not None:
+                self._h_req_pj.observe(req.hw_pj)
+            if self._tr.enabled:
+                track = request_track(req.uid)
+                self._tr.instant("finish", track, ts=now,
+                                 tokens=len(req.generated))
+                self._tr.end("running", track, ts=now)
             return True
         return False
 
@@ -859,6 +1070,39 @@ class PagedScheduler:
                 "trie_pages": pc.n_pages,
                 "cow_copies": self.cow_copies,
             }
+        # the run's estimated cost on the paper's DA hardware: the static
+        # per-token table plus live totals (executed token-passes per phase ×
+        # the phase's price), the bit-slicing counterfactual priced over the
+        # same work
+        hw = None
+        if self.hw is not None:
+            hw = self.hw.summary()
+            phases = sorted(self._hw_prices)
+            tokens = {p: self._c_hw_tokens.value(phase=p) for p in phases}
+            est_pj = {p: self._c_hw_pj.value(phase=p) for p in phases}
+            est_ns = {p: self._c_hw_ns.value(phase=p) for p in phases}
+            total_pj = sum(est_pj.values())
+            total_ns = sum(est_ns.values())
+            bs_pj = sum(self._hw_bs[p][0] * tokens[p] for p in phases)
+            bs_ns = sum(self._hw_bs[p][1] * tokens[p] for p in phases)
+            out_toks = self.out_tokens
+            hw.update({
+                "tokens": tokens,
+                "est_pj": {**est_pj, "total": total_pj},
+                "est_ns": {**est_ns, "total": total_ns},
+                "pj_per_out_token": (total_pj / out_toks
+                                     if out_toks else 0.0),
+                "live": {
+                    "da_pj": total_pj,
+                    "bitslice_pj": bs_pj,
+                    "energy_ratio": bs_pj / total_pj if total_pj else 0.0,
+                    "da_ns": total_ns,
+                    "bitslice_ns": bs_ns,
+                    "latency_ratio": bs_ns / total_ns if total_ns else 0.0,
+                },
+            })
+            if self._hw_draft is not None:
+                hw["draft"] = dict(self._hw_draft)
         bpt = sum(kv_token_bytes(self.cfg, dt)
                   for dt in self.kv_dtypes.values()) * self.cfg.n_periods
         fp_bpt = (kv_token_bytes(self.cfg, "fp16") * len(self.kv_dtypes)
@@ -884,7 +1128,7 @@ class PagedScheduler:
             "tokens_per_s": self.out_tokens / wall if wall > 0 else 0.0,
             "pool": pool_stats,
             "kv": kv,
-            "hw": None,
+            "hw": hw,
             "spec": spec,
             "prefix_cache": prefix,
         }

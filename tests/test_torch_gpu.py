@@ -408,3 +408,81 @@ def test_norm_rows_do_not_depend_on_the_row_count(card):
     full = _mean_square(x)
     for r in (1, 2, 3, 4, 8, 16):
         assert torch.equal(_mean_square(x[:r]), full[:r])
+
+
+def _tiny_frozen_engine_params():
+    """The CI smoke's model (hd 64, float32: a head shape the attention
+    kernel has an instance for), frozen for the bit-plane kernel."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get
+    from repro_torch.core.freeze import freeze_model
+    from repro_torch.models.model import init_model
+
+    cfg = dataclasses.replace(get("qwen3-8b"), name="qwen3-20m", n_layers=4,
+                              d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+                              d_ff=768, vocab=8000, param_dtype="float32",
+                              compute_dtype="float32")
+    return cfg, freeze_model(init_model(cfg, seed=0), mode="pallas_bitplane")
+
+
+def _traced_serve(cfg, params, trace, **kw):
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, batch_size=2, max_len=32, page_size=8,
+                      paged_attn="fused", trace=trace, **kw)
+    rng = np.random.default_rng(7)
+    for u in range(4):
+        eng.submit(Request(uid=u, prompt=rng.integers(0, cfg.vocab, 3 + u)
+                           .astype(np.int32), max_new_tokens=4))
+    done = eng.run()
+    return eng, {u: done[u].generated for u in done}
+
+
+def test_traced_serve_on_the_card_changes_nothing(card):
+    """The recorder on the card: tokens, every counter and observation
+    count and the hw block equal the untraced serve's; spans balance and the
+    exported trace validates."""
+    from repro_torch.obs import chrome_trace, validate_chrome_trace
+    from repro_torch.spec import SpecConfig
+
+    cfg, params = _tiny_frozen_engine_params()
+    spec = SpecConfig("bitplane", gamma=2, draft_x_bits=4, disable_below=0.0)
+
+    def view(eng):
+        return {k: (v["count"] if isinstance(v, dict) else v)
+                for k, v in eng.metrics_snapshot().items()}
+
+    off, toks_off = _traced_serve(cfg, params, False, spec=spec)
+    on, toks_on = _traced_serve(cfg, params, True, spec=spec)
+    assert toks_on == toks_off
+    assert view(on) == view(off)
+    assert on.metrics()["hw"] == off.metrics()["hw"]
+    assert on.obs.tracer.span_balance() == {}
+    assert validate_chrome_trace(chrome_trace(on.obs.tracer)) == []
+
+
+@pytest.mark.parametrize("trace", [True, False])
+def test_device_span_brackets_the_serve_kernels(card, trace):
+    """With the recorder on, every bit-plane and attention kernel of a
+    decode step runs inside its ``paged_step[...]`` annotation on the
+    profiler's timeline; off, there is no annotation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import kernels_in_spans
+
+    cfg, params = _tiny_frozen_engine_params()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _traced_serve(cfg, params, trace)
+        torch.cuda.synchronize()
+    by_name = kernels_in_spans(prof)
+    ours = {k: v for k, v in by_name.items()
+            if "bitplane_vmm_kernel" in k or "paged_attn_" in k}
+    assert any("bitplane_vmm_kernel" in k for k in ours)
+    assert any("paged_attn_" in k for k in ours)
+    inside = sum(v[0] for v in ours.values())
+    outside = sum(v[1] for v in ours.values())
+    if trace:
+        assert inside > 0 and outside == 0
+    else:
+        assert inside == 0 and outside > 0
