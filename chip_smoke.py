@@ -9,6 +9,7 @@
                                              # of the CI smoke's artifact
     python3 chip_smoke.py --phase serve      # build, then phase 6 alone
     python3 chip_smoke.py --phase obs        # build, then phase 12 alone
+    python3 chip_smoke.py --phase auto       # build, then phase 13 alone
     python3 chip_smoke.py --phase attention --src OTHER/src
     python3 chip_smoke.py --phase vmm --src OTHER/src
     python3 chip_smoke.py --phase ci_boot --src OTHER/src
@@ -26,7 +27,10 @@ Phases, one JSON line each:
    at M = 4 with 4-bit codes (the truncated draft's): int32 results must be
    EQUAL (the plain version
    forms each plane product in float64, exact since every partial is an
-   integer far below 2^53);
+   integer far below 2^53); and the engine's ``int8`` baseline (not a DA
+   kernel: ``torch._int_mm`` on operands zero-padded to its shape rule, the
+   weights laid out column-major once per pack) at the same shapes, EQUAL to
+   the exact product;
 3. the LUT-readout DA VMM kernel against its plain version (the LUT gather)
    at every LUT shape of the LUT-serving model, M in {4, 16, 64} and M = 4
    at x_bits 4, and at the
@@ -99,7 +103,21 @@ Phases, one JSON line each:
    runs inside a ``paged_step[...]`` annotation.  The hw block's numbers
    (pJ and model-ns per token, DA against bit slicing) are the paper's
    circuits as ``core/hwmodel.py`` reckons them, never a measurement of the
-   card.
+   card;
+13. the repo's default freeze (``artifact_auto``): the LUT-serving model
+   frozen on the card by ``ServeEngine(da_mode="auto")`` with no cost table:
+   the analytic plan must be the reference's (the LUT readout for the 7
+   matrices of every block, stacked bit-planes for the LM head, whose LUTs
+   would exceed the budget), saved, booted with ``from_artifact`` and
+   served: both VMM kernels launch.  The same artifact served again with
+   both VMM kernels swapped for their plain versions (inside this script
+   only) launches none and gives EQUAL tokens.  Then every eligible backend,
+   ``int8`` too, is timed at the engine's 9 bucket shapes, one name per
+   kernel (``engine.timeable_backends``: ``lut`` for the LUT-readout
+   kernel, ``bitplane_stacked`` for the bit-plane kernel); the table is
+   written under the git-ignored ``build/`` stamped for this card, installed, and the
+   LUT-serving model and qwen3-8b (from phase 6's float params' shapes) are
+   planned on it (plans only, no serve).
 
 ``--phase plans`` runs none of these after the build: it times each
 constant of the two VMM plans (kernels/bitplane_vmm.py, kernels/da_vmm.py)
@@ -108,7 +126,7 @@ plain version, and the attention split's rows constant
 (kernels/paged_attention.py) at decode and verify reads of batch 1-4, each
 within ATTN_ATOL of the plain read, in two passes of opposite order.
 
-Each path (6-12, each leg of 10 and 11, each run of 12) sets the kernels' launch counts
+Each path (6-13, each leg of 10 and 11, each run of 12) sets the kernels' launch counts
 to 0 just before it runs and reads them just after.  Then the
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and last
 the ``{"ok": true, "device": ...}`` line.  Any failed check raises and the
@@ -118,6 +136,7 @@ it (``src/repro_torch``) it exits 3, before printing a result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -182,7 +201,7 @@ PATH_DTYPE = {"serve": "bfloat16", "serve_int8kv": "bfloat16",
               "serve_prefix": "bfloat16", "serve_spec": "bfloat16",
               "serve_obs": "bfloat16",
               "artifact_lut": "float32", "artifact_lut_spec": "float32",
-              "artifact_ci": "float32"}
+              "artifact_ci": "float32", "artifact_auto": "float32"}
 #: logits tolerance of the 2-layer full-width step, kernels vs plain: the DA
 #: layers are exact, so the gap is attention rounding carried through
 #: activation quantization and two layers; see PERF.md
@@ -299,7 +318,8 @@ def phase_device():
 def lut_model_cfg():
     """The repo's LUT-serving model (``examples/serve_da.py::build_cfg``):
     qwen3 family, 4 layers, d 256, 4 heads over 2 KV heads of 64, d_ff 768,
-    vocab 8000, float32.  Every matrix fits the default LUT budget."""
+    vocab 8000, float32.  Every block matrix fits the default LUT budget;
+    the LM head's tables (65.5M cells) do not."""
     from repro_torch.configs.registry import get
 
     return dataclasses.replace(
@@ -318,6 +338,24 @@ def _bitplane_fields(mod, m, k, n) -> dict:
     plan = mod.bitplane_plan(m, k, n, _vmm_module("build").sms(0))
     return {"tokens_per_block": plan.tokens, "k_splits": plan.splits,
             "blocks_per_launch": plan.blocks}
+
+
+#: what the VMM rows' library_ms times
+LIBRARY = ("torch._int_mm on the int8 codes, zero-padded to its shape rule "
+           "(M > 16, K and N multiples of 8) and the weights column-major, "
+           "laid out outside the timing")
+
+
+def _library_ms(xq, wq, flush) -> float:
+    """ms of one ``torch._int_mm`` computing ``xq @ wq`` (signed int8 codes)
+    on operands laid out once (``engine.int_mm_weights`` / ``int_mm_acts``)."""
+    import torch
+
+    from repro_torch.core.engine import int_mm_acts, int_mm_weights
+
+    w8 = int_mm_weights(wq)
+    x8 = int_mm_acts(xq, w8.shape[0])
+    return time_cuda(lambda: torch._int_mm(x8, w8), 20, flush)
 
 
 def phase_bitplane(flush):
@@ -352,10 +390,7 @@ def phase_bitplane(flush):
                    **_bitplane_fields(mod, m, k, n),
                    **call_times(lambda: kernel(xq, wq, cfg), flush, BITPLANE_KERNELS)}
             row["plain_ms"] = time_cuda(lambda: bitplane_vmm_ref(xq, wq, cfg), 3, flush, 1)
-            lib_ms = None
-            if m > 16 and k % 8 == 0 and n % 8 == 0:  # torch._int_mm's shape rule
-                x8 = xq.to(torch.int8)
-                lib_ms = time_cuda(lambda: torch._int_mm(x8, wq), 20, flush)
+            lib_ms = _library_ms(xq, wq, flush)
             nbytes = k * n + 4 * m * k + 4 * m * n
             ops = 2 * m * k * n * cfg.x_bits
             bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -367,7 +402,58 @@ def phase_bitplane(flush):
         del wq
         torch.cuda.empty_cache()
     emit({"phase": "bitplane_vmm", "plain": "float64 plane products (exact)",
-          "shapes": rows})
+          "library": LIBRARY, "shapes": rows})
+    return rows
+
+
+def phase_int8(flush):
+    """The engine's int8 baseline (``xq.int8 @ wq.int8 → int32``, not a DA
+    kernel: ``torch._int_mm`` on operands zero-padded to M > 16 and K, N
+    multiples of 8, the weights laid out column-major by the pack's first
+    call and kept, the result sliced back) at every VMM_SHAPES x VMM_ROWS
+    shape, EQUAL to the exact product (float64 on the card: every partial is
+    an integer far below 2^53)."""
+    import torch
+
+    from repro_torch.core.da import DAConfig
+    from repro_torch.core.engine import PackedWeights, get_backend
+
+    fn = get_backend("int8").fn
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = []
+    for k, n in VMM_SHAPES:
+        wq = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        packed = PackedWeights(wq=wq, w_scale=torch.ones(1, n, device="cuda"),
+                               luts=None, cfg=DAConfig(x_signed=True), mode="int8")
+        for m, x_bits in VMM_ROWS:
+            cfg = DAConfig(x_bits=x_bits, x_signed=True)
+            half = 1 << (x_bits - 1)
+            xq = torch.randint(-half, half, (m, k), generator=gen, device="cuda",
+                               dtype=torch.int32)
+            y = fn(xq, packed, cfg)
+            ref = (xq.double() @ wq.double()).long()
+            torch.cuda.synchronize()
+            if not (y.dtype == torch.int32 and torch.equal(y.long(), ref)):
+                raise AssertionError(f"int8 baseline != exact product at M={m} "
+                                     f"K={k} N={n}")
+            nbytes = k * n + m * k + 4 * m * n
+            bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "operations": 2 * m * k * n / INT8_OPS_PER_S * 1e3}
+            by = max(bound, key=bound.get)
+            rows.append({"m": m, "k": k, "n": n, "x_bits": x_bits, "equal": True,
+                         "padded_m": max(m, 17),
+                         "ms": time_cuda(lambda: fn(xq, packed, cfg), 20, flush),
+                         "ms_no_spin": time_cuda(lambda: fn(xq, packed, cfg), 20,
+                                                 flush, spin=False),
+                         "library_ms": _library_ms(xq, wq, flush),
+                         "bound_ms": bound[by], "bound_by": by})
+            del xq, y, ref
+        del wq, packed
+        torch.cuda.empty_cache()
+    emit({"phase": "int8_vmm", "backend": "int8: the codes' padding, "
+          "torch._int_mm on the pack's kept weight operand and the slice per "
+          "call (ms); torch._int_mm alone (library_ms)", "plain": "exact product (float64)", "shapes": rows})
     return rows
 
 
@@ -439,10 +525,7 @@ def phase_lut_vmm(flush):
                    **_lut_fields(mod, m, n, luts),
                    **call_times(lambda: kernel(xq, luts, cfg), flush, LUT_KERNELS)}
             row["plain_ms"] = time_cuda(lambda: da_vmm_ref(xq, luts, cfg), 5, flush, 1)
-            lib_ms = None
-            if m > 16:  # torch._int_mm's shape rule; signed int8 codes
-                x8 = xq.to(torch.int8)
-                lib_ms = time_cuda(lambda: torch._int_mm(x8, wq), 20, flush)
+            lib_ms = _library_ms(xq, wq, flush)
             bound, by, rows = _lut_bound(xq, luts, cfg)
             row.update(bound_ms=bound, bound_by=by, rows_read=rows,
                        table_mb=luts.numel() * 4 / 1e6, library_ms=lib_ms)
@@ -466,8 +549,7 @@ def phase_lut_vmm(flush):
     case(300, 100, 17, 8, True, 16)
     checked += 3
     emit({"phase": "lut_vmm", "plain": "LUT gather (int32)",
-          "library": "torch._int_mm on the int8 codes where M > 16; none at "
-                     "M = 4 (it needs M > 16)",
+          "library": LIBRARY,
           "shapes": timed, "cases_checked": checked + len(timed)})
     return timed
 
@@ -823,31 +905,33 @@ def _attention_times(kernel, q, kc, vc, table, tpos, scales, fmt, flush):
     return row
 
 
-def _with_mode(tree, mode):
-    import dataclasses
+@contextlib.contextmanager
+def plain_vmm():
+    """Both VMM kernels swapped for their plain versions (``kernels/ref.py``)
+    inside this script only: every DA backend that would launch the
+    bit-plane or the LUT-readout kernel on the card runs the plain version
+    there instead, so a serve under it is the kernels' plain side."""
+    from repro_torch.kernels import ops, ref
 
-    from repro_torch.core.engine import PackedWeights
-
-    if isinstance(tree, PackedWeights):
-        return dataclasses.replace(tree, mode=mode)
-    if isinstance(tree, dict):
-        return {k: _with_mode(v, mode) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_with_mode(v, mode) for v in tree]
-    return tree
+    saved = ops.da_vmm, ops.bitplane_vmm
+    ops.da_vmm, ops.bitplane_vmm = ref.da_vmm_ref, ref.bitplane_vmm_ref
+    try:
+        yield
+    finally:
+        ops.da_vmm, ops.bitplane_vmm = saved
 
 
 def phase_logits():
     import torch
 
     from repro_torch.configs.registry import get
-    from repro_torch.core.freeze import freeze_model
+    from repro_torch.core.freeze import freeze_model_da
     from repro_torch.models.model import forward, init_model
     from repro_torch.serve.kvcache import init_paged_caches, pad_position, table_width
 
     cfg = dataclasses.replace(get("qwen3-8b"), n_layers=2)
-    frozen = freeze_model(init_model(cfg, seed=0, device="cuda"),
-                          mode="pallas_bitplane", device="cuda")
+    frozen = freeze_model_da(init_model(cfg, seed=0, device="cuda"),
+                             mode="pallas_bitplane", device="cuda")
     b, t, ps, max_len = 4, 16, 16, 256
     w = table_width(max_len, ps)
     lens = [16, 9, 13, 4]  # ragged chunk: short rows pad to the garbage page
@@ -863,12 +947,11 @@ def phase_logits():
     for kv_dtype in ("fp16", "int8"):
         kcfg = dataclasses.replace(cfg, kv_dtype=kv_dtype)
         out = {}
-        for name, params, attn in (("kernels", frozen, "fused"),
-                                   ("plain", _with_mode(frozen, "bitplane_stacked"),
-                                    "gather")):
+        for name, attn, vmm in (("kernels", "fused", contextlib.nullcontext),
+                                ("plain", "gather", plain_vmm)):
             caches = init_paged_caches(kcfg, b + 1, ps, cfg.dtype(), device="cuda")
-            with torch.inference_mode():
-                logits, _ = forward(params, tokens, dataclasses.replace(
+            with torch.inference_mode(), vmm():
+                logits, _ = forward(frozen, tokens, dataclasses.replace(
                     kcfg, paged_attn=attn), pos, caches, table, last_idx=last)
             out[name] = logits.float()
         if not torch.isfinite(out["kernels"]).all():
@@ -975,6 +1058,7 @@ def phase_serve():
     params = init_model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    shapes = _shapes_of(params)
     eng = ServeEngine(cfg, params, batch_size=4, max_len=256, page_size=16,
                       da_mode="pallas_bitplane", paged_attn="fused", device="cuda")
     del params
@@ -989,7 +1073,21 @@ def phase_serve():
     emit(_serve_line("serve", eng, reqs, done, counts,
                      init_s=t1 - t0, freeze_s=t2 - t1))
     emit(decode_window(eng, cfg.vocab))
-    return eng.params, counts, _tokens(done, reqs)
+    return eng.params, counts, _tokens(done, reqs), shapes
+
+
+def _shapes_of(tree):
+    """``tree`` with every tensor replaced by an empty one of its shape and
+    dtype on the meta device: what the planner reads, none of the bytes."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _shapes_of(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_shapes_of(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+    return tree
 
 
 def _serve_line(phase, eng, reqs, done, counts, **extra):
@@ -1406,7 +1504,8 @@ def spec_window(eng, vocab: int):
 def phase_artifact_lut():
     """The LUT path: freeze the LUT-serving model with pallas_lut on the card,
     save the artifact, boot it with from_artifact and serve; the same
-    artifact booted with the plain lut gather must give the same tokens."""
+    artifact served with both VMM kernels swapped for their plain versions
+    (the LUT gather) must give the same tokens."""
     import torch
 
     from repro_torch.core.freeze import load_artifact
@@ -1446,11 +1545,12 @@ def phase_artifact_lut():
                        lut_mb=lut_mb, artifact_mb=art_mb, forward_calls=forwards,
                        da_vmm_per_forward=counts["da_vmm"] / max(forwards, 1),
                        hw_reckoned=_hw_reckoned(eng.metrics()["hw"]))
-    # the plain boot shares the fused attention so that its tokens can be
+    # the plain side shares the fused attention so that its tokens can be
     # held EQUAL to the kernel boot's; the attention phase holds that f32,
     # head-dim-64 instance against the plain read at this path's shapes
-    plain = ServeEngine(art.model_cfg, _with_mode(art.params, "lut"), **kw)
-    _, plain_done, plain_counts = _serve_requests(plain, cfg.vocab, 4, seed=5)
+    plain = ServeEngine(art.model_cfg, art.params, **kw)
+    with plain_vmm():
+        _, plain_done, plain_counts = _serve_requests(plain, cfg.vocab, 4, seed=5)
     same = all(plain_done[r.uid].generated == done[r.uid].generated for r in reqs)
     line.update(plain_tokens_identical=same, plain_launches=plain_counts,
                 plain_tokens_per_s=plain.metrics()["tokens_per_s"])
@@ -1469,9 +1569,9 @@ def phase_artifact_lut():
                                                   "draft_steps", "verify_steps")}}
     emit(line)
     if not same:
-        raise AssertionError("LUT kernel boot and plain lut boot disagree on tokens")
-    if plain_counts["da_vmm"] != 0:
-        raise AssertionError(f"the plain lut boot launched the LUT kernel: {plain_counts}")
+        raise AssertionError("LUT kernel boot and its plain side disagree on tokens")
+    if plain_counts["da_vmm"] or plain_counts["bitplane_vmm"]:
+        raise AssertionError(f"the plain side launched a VMM kernel: {plain_counts}")
     if not spec_same:
         raise AssertionError("the LUT spec serve and the LUT serve disagree on tokens")
     if spec_counts["da_vmm_by_bits"].get(DRAFT_X_BITS, 0) <= 0:
@@ -1603,6 +1703,165 @@ def phase_artifact_ci():
     return total
 
 
+#: the reference planner's plan of the LUT-serving model at m_hint 4 with no
+#: cost table: the PMAs for the 7 matrices of every block, stacked
+#: bit-planes for the LM head, whose LUTs (65.5M cells) exceed the budget
+AUTO_PLAN = {**{f"periods/pos_0/{m}": "lut" for m in (
+    "mixer/wq", "mixer/wk", "mixer/wv", "mixer/wo", "ffn/w_up", "ffn/w_gate",
+    "ffn/w_down")}, "lm_head/w": "bitplane_stacked"}
+#: where the measured cost table is written: git-ignored, never artifacts/
+AUTOTUNE_OUT = os.path.join(ROOT, "build", "repro_torch", "engine_autotune.json")
+
+
+def _plan_rows(plan) -> dict:
+    return {k: {"mode": p.mode, "group_size": p.group_size, "luts": p.with_luts,
+                "source": p.source, "est_cost": p.est_cost}
+            for k, p in sorted(plan.items())}
+
+
+def _autotune_table(flush) -> dict:
+    """Device µs of every eligible backend (the int8 baseline too; one name
+    per kernel, as ``timeable_backends`` yields them on CUDA) at the
+    engine's 9 bucket shapes, x_bits 8, group size 8, LUTs where they fit
+    the freeze's budget: what ``benchmarks/engine_autotune.py`` times for
+    the reference, each call EQUAL to the exact product."""
+    import torch
+
+    from repro_torch.core.da import DAConfig
+    from repro_torch.core.engine import (BUCKET_SHAPES, DEFAULT_LUT_LIMIT,
+                                         lut_cells, pack_quantized, shape_bucket,
+                                         timeable_backends)
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cfg = DAConfig(group_size=8, x_bits=8, x_signed=True)
+    table = {}
+    for m, k, n in BUCKET_SHAPES.values():
+        wq = torch.randint(-128, 128, (k, n), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        xq = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        packed = pack_quantized(wq, cfg=cfg, with_luts=lut_cells(
+            k, n, cfg.group_size) <= DEFAULT_LUT_LIMIT)
+        ref = (xq.double() @ wq.double()).long()
+        costs = {}
+        for spec in timeable_backends(cfg, packed.has_luts, include_baselines=True):
+            if not torch.equal(spec.fn(xq, packed, cfg).long(), ref):
+                raise AssertionError(f"backend {spec.name} != exact product at "
+                                     f"M={m} K={k} N={n}")
+            costs[spec.name] = time_cuda(lambda: spec.fn(xq, packed, cfg), 10,
+                                         flush) * 1e3
+        table[shape_bucket(m, k, n, cfg.x_bits)] = costs
+        del wq, xq, packed, ref
+    torch.cuda.empty_cache()
+    return table
+
+
+def phase_artifact_auto(serve_shapes=None):
+    """The repo's default freeze on the card: ``ServeEngine(da_mode="auto")``
+    on the LUT-serving model with no cost table (the analytic plan, held
+    to AUTO_PLAN), saved, booted with ``from_artifact`` and served (4
+    requests at batch 4): the LUT and bit-plane kernels both launch.  The
+    same artifact served again with both VMM kernels swapped for their
+    plain versions launches none and gives EQUAL tokens.  Then a measured
+    table, stamped for this card, is written under build/, installed,
+    and the LUT-serving model and qwen3-8b (``serve_shapes``: phase 6's float
+    params as shapes) are planned on it."""
+    import torch
+
+    from repro_torch.configs.registry import get
+    from repro_torch.core import engine
+    from repro_torch.core.freeze import packed_leaves, plan_model
+    from repro_torch.models.model import init_model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = lut_model_cfg()
+    kw = dict(batch_size=4, max_len=128, page_size=16, paged_attn="fused",
+              device="cuda")
+    engine.set_cost_table({})  # no port cost table: the analytic plan
+    try:
+        t0 = time.perf_counter()
+        frozen = ServeEngine(cfg, init_model(cfg, seed=0, device="cuda"),
+                             da_mode="auto", **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        engine.set_cost_table(None)
+    plan = frozen.artifact.plan
+    got = {k: p.mode for k, p in plan.items()}
+    lut_mb = sum(p.luts.numel() * p.luts.element_size()
+                 for _, p in packed_leaves(frozen.params) if p.has_luts) / 1e6
+    with tempfile.TemporaryDirectory() as tmp:
+        directory = frozen.save_artifact(os.path.join(tmp, "qwen3_20m_auto"))
+        art_mb = sum(os.path.getsize(os.path.join(directory, f))
+                     for f in os.listdir(directory)) / 1e6
+        del frozen
+        gc.collect()
+        t2 = time.perf_counter()
+        eng = ServeEngine.from_artifact(directory, **kw)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        plain = ServeEngine.from_artifact(directory, **kw)
+    reqs, done, counts = _serve_requests(eng, cfg.vocab, 4, seed=5)
+    forwards = counts["paged_attention"] // cfg.n_layers
+    # metrics() closes the serve's wall clock: read it before the plain side
+    line = _serve_line("artifact_auto", eng, reqs, done, counts,
+                       boot_s=t3 - t2, freeze_s=t1 - t0, save_s=t2 - t1,
+                       plan=_plan_rows(plan), lut_mb=lut_mb, artifact_mb=art_mb,
+                       forward_calls=forwards,
+                       da_vmm_per_forward=counts["da_vmm"] / max(forwards, 1),
+                       bitplane_vmm_per_forward=counts["bitplane_vmm"] / max(forwards, 1))
+    with plain_vmm():
+        _, plain_done, plain_counts = _serve_requests(plain, cfg.vocab, 4, seed=5)
+    same = _tokens(plain_done, reqs) == _tokens(done, reqs)
+    line.update(plain_tokens_identical=same, plain_launches=plain_counts,
+                plain_tokens_per_s=plain.metrics()["tokens_per_s"])
+    del eng, plain
+    gc.collect()
+    # a measured plan: every eligible backend timed on this card
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    table = _autotune_table(flush)
+    del flush
+    os.makedirs(os.path.dirname(AUTOTUNE_OUT), exist_ok=True)
+    with open(AUTOTUNE_OUT, "w") as f:
+        json.dump({"version": 1, "device": engine.device_stamp(),
+                   "registry": engine.registry_fingerprint(), "group_size": 8,
+                   "unit": "us (CUDA events, L2 flushed)", "table": table},
+                  f, indent=1, sort_keys=True)
+    loaded = engine.load_cost_table(AUTOTUNE_OUT)  # the stamp is checked
+    if loaded != table:
+        raise AssertionError("the measured table did not load back under its stamp")
+    if serve_shapes is None:
+        serve_shapes = _shapes_of(init_model(get("qwen3-8b"), seed=0, device="cuda"))
+        gc.collect()
+        torch.cuda.empty_cache()
+    engine.set_cost_table(loaded)
+    try:
+        measured = {"lut_model": plan_model(_shapes_of(init_model(
+                        cfg, seed=0, device="cuda")), m_hint=4),
+                    "qwen3-8b": plan_model(serve_shapes, m_hint=4)}
+    finally:
+        engine.set_cost_table(None)
+    line["measured"] = {"table": os.path.relpath(AUTOTUNE_OUT, ROOT),
+                        "device": engine.device_stamp(), "buckets_us": table,
+                        **{name: _plan_rows(p) for name, p in measured.items()}}
+    emit(line)
+    if got != AUTO_PLAN or {p.source for p in plan.values()} != {"analytic"}:
+        raise AssertionError(f"the analytic plan is not the reference's: {got}")
+    if min(counts["da_vmm"], counts["bitplane_vmm"], counts["paged_attention"]) <= 0:
+        raise AssertionError(f"the planned serve missed a kernel: {counts}")
+    if plain_counts["da_vmm"] or plain_counts["bitplane_vmm"]:
+        raise AssertionError(f"the plain side launched a VMM kernel: {plain_counts}")
+    if not same:
+        raise AssertionError("the planned serve and its plain side disagree on tokens")
+    for name, p in measured.items():
+        if {q.source for q in p.values()} != {"measured"}:
+            raise AssertionError(f"the {name} plan is not measured: {_plan_rows(p)}")
+        if not all(engine.get_backend(q.mode).is_da for q in p.values()):
+            raise AssertionError(f"the {name} plan picked a baseline: {_plan_rows(p)}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def decode_window(eng, vocab: int, steps: int = 4):
     """Where a full-width decode step spends its time: host wall of
     ``steps`` batch-4 decode ticks, then the same number of ticks under
@@ -1641,22 +1900,22 @@ def main() -> int:
         return 2
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase", choices=("all", "attention", "vmm", "plans",
-                                            "ci_boot", "serve", "obs"),
+                                            "ci_boot", "serve", "obs", "auto"),
                         default="all",
-                        help="'attention', 'vmm', 'plans', 'ci_boot', 'serve' "
-                             "or 'obs': build the kernels and run only the "
-                             "attention phase, only the bit-plane and LUT "
-                             "phases, only the plans' sweep, only the CI "
-                             "smoke artifact's boot and first leg, only "
-                             "the qwen3-8b serve and its decode window, or "
-                             "only the traced qwen3-8b serves (no result "
-                             "line)")
+                        help="'attention', 'vmm', 'plans', 'ci_boot', 'serve', "
+                             "'obs' or 'auto': build the kernels and run only "
+                             "the attention phase, only the bit-plane, int8 "
+                             "and LUT phases, only the plans' sweep, only the "
+                             "CI smoke artifact's boot and first leg, only "
+                             "the qwen3-8b serve and its decode window, only "
+                             "the traced qwen3-8b serves, or only the planned "
+                             "freeze and serve (no result line)")
     parser.add_argument("--src", help="import the port from this directory "
                         "(another checkout's src/) instead of this one's; "
                         "only with --phase attention, vmm, ci_boot or serve")
     args = parser.parse_args()
     if args.src:
-        if args.phase in ("all", "plans", "obs"):
+        if args.phase in ("all", "plans", "obs", "auto"):
             parser.error("--src needs --phase attention, vmm, ci_boot or serve")
         sys.path.insert(0, os.path.abspath(args.src))
     elif not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
@@ -1669,9 +1928,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t_start = time.perf_counter()
     phase_device()
-    if args.phase in ("ci_boot", "serve", "obs"):
+    if args.phase in ("ci_boot", "serve", "obs", "auto"):
         {"ci_boot": phase_ci_boot, "serve": phase_serve,
-         "obs": phase_serve_obs}[args.phase]()
+         "obs": phase_serve_obs, "auto": phase_artifact_auto}[args.phase]()
         print(smi_line(), flush=True)
         return 0
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -1679,6 +1938,7 @@ def main() -> int:
         phase_attention(flush)
     if args.phase == "vmm":
         phase_bitplane(flush)
+        phase_int8(flush)
         phase_lut_vmm(flush)
     if args.phase == "plans":
         phase_plans(flush)
@@ -1686,12 +1946,13 @@ def main() -> int:
         print(smi_line(), flush=True)
         return 0
     vmm = phase_bitplane(flush)
+    phase_int8(flush)
     lut = phase_lut_vmm(flush)
     attn = phase_attention(flush)
     del flush
     torch.cuda.empty_cache()
     phase_logits()
-    params, fp_counts, plain_tokens = phase_serve()
+    params, fp_counts, plain_tokens, serve_shapes = phase_serve()
     int8_counts = phase_serve_int8kv(params)
     prefix_counts = phase_serve_prefix(params)
     spec_counts = phase_serve_spec(params, plain_tokens)
@@ -1701,10 +1962,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     lut_counts, lut_spec_counts = phase_artifact_lut()
     ci_counts = phase_artifact_ci()
+    auto_counts = phase_artifact_auto(serve_shapes)
     paths = {"serve": fp_counts, "serve_int8kv": int8_counts,
              "serve_prefix": prefix_counts, "serve_spec": spec_counts,
              "serve_obs": obs_counts, "artifact_lut": lut_counts, "artifact_lut_spec": lut_spec_counts,
-             "artifact_ci": ci_counts}
+             "artifact_ci": ci_counts, "artifact_auto": auto_counts}
 
     def launches(name, fmt=None, dtype=None, key=None):
         """Launches over the paths (that run ``dtype``): of ``name``, of its
@@ -1777,8 +2039,7 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in lut),
          **{k: dec_lut[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")},
-         "library_note": "torch._int_mm needs M > 16; at M = 64 see the "
-                         "lut_vmm line",
+         "library_note": LIBRARY,
          "shape": "M=4 K=256 N=8000 x_bits=8 L=8 (LM head of the LUT path)",
          "variants": [vmm_row(lut, 4, 256, 8000, DRAFT_X_BITS, "da_vmm")]},
     ]})

@@ -23,6 +23,9 @@ import dataclasses
 import numpy as np
 import torch
 
+#: the largest group size any backend addresses (16-bit PMA addresses)
+MAX_GROUP_SIZE = 16
+
 
 @dataclasses.dataclass(frozen=True)
 class DAConfig:

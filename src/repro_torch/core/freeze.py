@@ -1,23 +1,32 @@
-"""Model-level DA freeze with one pinned backend mode, and DA artifacts on disk.
+"""Model-level DA freeze: plan → pack → serialize, and DA artifacts on disk.
 
-:func:`freeze_model` walks a params tree and packs every weight-matrix leaf
-(``DA_LEAF_NAMES``, outside ``SKIP_CONTEXT``) under the pinned mode, building
-LUTs for every leaf when that mode reads them; norms, biases and the
-embedding table stay float.  The per-layer planner (``mode="auto"``) arrives
-with a later slice.  :func:`da_memory_report` prices the packed layers
-(storage and the :mod:`repro_torch.obs.hwcost` table), keyed by the
-reference's leaf paths.
+1. **Plan** (:func:`plan_model`): for every weight-matrix leaf
+   (``DA_LEAF_NAMES``, outside ``SKIP_CONTEXT``) choose a backend mode, a
+   group size and lut-or-not from the layer's (K, N) shape and the expected
+   decode batch ``m_hint``: measured cost-table timings
+   (:func:`repro_torch.core.engine.load_cost_table`, the port's own table)
+   rank the eligible backends when the bucket was timed on this device,
+   else the analytic hardware model (:func:`analytic_costs`) ranks them.
+   Plans are keyed by the reference's leaf paths (``periods/pos_0/mixer/wq``);
+   the blocks of one layer position share one plan, as the reference's
+   period-stacked leaf does.
+2. **Pack** (:func:`freeze_model`): quantize every planned leaf, write its
+   LUTs when the plan says so, and return a :class:`DAArtifact` (packed
+   params, the plan, the DA config, the model config and the hardware-cost
+   table).  A concrete ``mode`` pins every layer to it instead.  Norms,
+   biases and the embedding table stay float.
+3. **Serialize** (:func:`save_artifact` / :func:`load_artifact`): the
+   reference's artifact (``arrays.npz`` + ``manifest.json``).  Its layout
+   stacks each layer position over periods, which the port splits into
+   ``blocks`` when reading and stacks back when writing, so the two
+   packages boot each other's artifacts.
 
 The q/k/v codes of each attention layer are laid out side by side in one
 ``[K, Nq + Nk + Nv]`` buffer (each pack's ``wq`` is a column slice of it), so
 the fused projection reads the three matrices in one kernel pass without
 concatenating them every step; each pack keeps its own LUTs.
-
-:func:`save_artifact` / :func:`load_artifact` read and write the reference's
-artifact (``arrays.npz`` + ``manifest.json``): its layout stacks each layer
-position over periods (``periods/pos_j/...``), which the port splits into
-``blocks`` when reading and stacks back when writing, so the two packages
-boot each other's artifacts.
+:func:`da_memory_report` prices the packed layers (storage and the
+:mod:`repro_torch.obs.hwcost` table), keyed by the reference's leaf paths.
 """
 from __future__ import annotations
 
@@ -26,7 +35,7 @@ import json
 import math
 import os
 import warnings
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,16 +43,22 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.convert import params_from_jax, params_to_ref
 from repro_torch.core.da import DAConfig
 from repro_torch.core.engine import (
+    DEFAULT_LUT_LIMIT,
     PackedWeights,
     canonical_mode,
     get_backend,
+    load_cost_table,
+    lut_cells,
     pack_weights,
     registered_backends,
     registry_fingerprint,
+    shape_bucket,
 )
+from repro_torch.core.hwmodel import T_ADD_STAGE, T_READ_PIPE
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.obs.hwcost import HardwareCostModel
+from repro_torch.models.kv_quant import KV_DTYPES
+from repro_torch.obs.hwcost import HardwareCostModel, da_design
 
 #: Artifact schema (the reference's): bumped on any layout/manifest change.
 ARTIFACT_VERSION = 1
@@ -88,38 +103,6 @@ def _map_dicts(tree, fn):
         for v in tree:
             _map_dicts(v, fn)
     return tree
-
-
-def freeze_model(params, da_cfg: DAConfig = DAConfig(x_signed=True),
-                 mode: str = "pallas_bitplane", device="cuda"):
-    """Pack every weight-matrix leaf of ``params`` on ``device`` under the
-    registered backend ``mode`` (with LUTs when ``mode`` reads them); returns
-    the packed tree (other leaves are moved to ``device`` unchanged)."""
-    dev = resolve_device(device)
-    mode = canonical_mode(mode)
-    if mode == "auto":
-        raise NotImplementedError(
-            "freeze_model(mode='auto') needs the per-layer planner, which is "
-            "not ported yet; pin a backend (e.g. 'pallas_bitplane')")
-    get_backend(mode)
-
-    def walk(path, node):
-        if isinstance(node, dict):
-            return {k: walk(path + (str(k),), v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [walk(path + (str(i),), v) for i, v in enumerate(node)]
-        if isinstance(node, PackedWeights):
-            return node  # already frozen: never re-packed
-        if _is_da_leaf(path, node):
-            return pack_weights(node.to(dev), da_cfg, mode=mode)
-        return node.to(dev) if isinstance(node, torch.Tensor) else node
-
-    return _map_dicts(walk((), params), _colocate_qkv)
-
-
-def is_frozen(params) -> bool:
-    """Does the tree carry PackedWeights leaves?"""
-    return next(packed_leaves(params), None) is not None
 
 
 # ---------------------------------------------------------------------------
@@ -211,17 +194,214 @@ def packed_leaves(params, period: int = 1, path=()):
             yield from packed_leaves(v, period, path + (str(i),))
 
 
-def pinned_plan(params, model_cfg=None) -> Dict[str, LayerPlan]:
-    """The plan a pinned freeze of ``params`` amounts to, read off its
-    PackedWeights leaves; with ``model_cfg`` the wk/wv entries record
-    ``model_cfg.kv_dtype``."""
+def is_frozen(params) -> bool:
+    """Does the tree carry PackedWeights leaves?"""
+    return next(packed_leaves(params), None) is not None
+
+
+# ---------------------------------------------------------------------------
+# The planner: measured costs with the analytic hardware model as fallback
+# ---------------------------------------------------------------------------
+
+
+def analytic_costs(m: int, k: int, n: int, cfg: DAConfig,
+                   has_luts: bool) -> Dict[str, float]:
+    """Analytic per-backend latency proxies (model-ns) from the hardware
+    model, the reference's: the PMA readout streams ``x_bits`` read cycles
+    per input row (``DADesign.latency_ns``), the one-hot decode touches the
+    whole 2^L/L-blown-up table per readout, and the storage-free forms pay a
+    K·N adder sweep per bit plane plus a weight-array read, once per plane
+    for ``bitplane`` and once in all for ``bitplane_stacked``.  Only the
+    ranking matters; these are the paper's circuits, not the card."""
+    costs: Dict[str, float] = {}
+    x_bits = cfg.x_bits
+    mac_sweep = float(m) * k * n * T_ADD_STAGE
+    w_read = float(k) * n * T_READ_PIPE
+    if has_luts:
+        d = da_design(k, n, x_bits=x_bits, group_size=cfg.group_size)
+        readout = m * d.latency_ns()
+        costs["lut"] = readout
+        costs["pallas_lut"] = readout
+        costs["onehot"] = readout * ((1 << cfg.group_size) / cfg.group_size)
+    costs["bitplane"] = x_bits * (mac_sweep + w_read)
+    costs["pallas_bitplane"] = costs["bitplane"]
+    costs["bitplane_stacked"] = x_bits * mac_sweep + w_read
+    return costs
+
+
+def plan_layer(k: int, n: int, da_cfg: DAConfig, m_hint: int = 4,
+               lut_cell_limit: int = DEFAULT_LUT_LIMIT,
+               cost_table: Optional[Dict[str, Dict[str, float]]] = None,
+               group_size_candidates: Optional[Sequence[int]] = None
+               ) -> LayerPlan:
+    """Choose (mode, group_size, lut-or-not) for one K×N weight matrix.
+
+    For each candidate group size: LUTs when they fit ``lut_cell_limit``;
+    the eligible DA backends ranked by the ``m_hint`` bucket's timings in
+    ``cost_table`` (default: the process table), else by
+    :func:`analytic_costs`.  The cheapest candidate wins, ties to the first;
+    measured candidates rank before analytic ones (never compared), and
+    only the base group size may claim ``measured`` (tables are timed at
+    that one group size)."""
+    table = cost_table if cost_table is not None else load_cost_table()
+    candidates = tuple(group_size_candidates or (da_cfg.group_size,))
+    best: Optional[Tuple[int, float, LayerPlan]] = None  # (rank, cost, plan)
+    for gs in candidates:
+        cfg = dataclasses.replace(da_cfg, group_size=gs)
+        with_luts = lut_cells(k, n, gs) <= lut_cell_limit
+        eligible = [s for s in registered_backends().values()
+                    if s.is_da and s.supports(cfg, with_luts)]
+        if not eligible:
+            continue
+        measured = (table.get(shape_bucket(m_hint, k, n, cfg.x_bits), {})
+                    if gs == da_cfg.group_size else {})
+        timed = {s.name: measured[s.name] for s in eligible
+                 if s.name in measured}
+        if timed:
+            mode = min(timed, key=timed.get)
+            rank, source, cost = 0, "measured", timed[mode]
+        else:
+            analytic = analytic_costs(m_hint, k, n, cfg, with_luts)
+            scored = {s.name: analytic[s.name] for s in eligible
+                      if s.name in analytic}
+            if not scored:  # a backend the model does not price
+                scored = {min(eligible, key=lambda s: s.name).name: 0.0}
+            mode = min(scored, key=scored.get)
+            rank, source, cost = 1, "analytic", scored[mode]
+        plan = LayerPlan(mode=mode, group_size=gs, with_luts=with_luts,
+                         k=k, n=n, source=source, est_cost=cost)
+        if best is None or (rank, cost) < best[:2]:
+            best = (rank, cost, plan)
+    if best is None:  # unreachable with the built-in backends
+        raise ValueError(f"no DA backend eligible for K={k} N={n} "
+                         f"candidates={candidates}")
+    return best[2]
+
+
+def _da_leaves(tree, period: int, path=()):
+    """``(reference path, leaf)`` of every weight-matrix leaf still float."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _da_leaves(v, period, path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _da_leaves(v, period, path + (str(i),))
+    elif _is_da_leaf(path, tree):
+        yield _ref_key(path, period), tree
+
+
+def plan_model(params, da_cfg: DAConfig = DAConfig(x_signed=True),
+               m_hint: int = 4, lut_cell_limit: int = DEFAULT_LUT_LIMIT,
+               cost_table: Optional[Dict[str, Dict[str, float]]] = None,
+               group_size_candidates: Optional[Sequence[int]] = None,
+               period: int = 1) -> Dict[str, LayerPlan]:
+    """Per-layer plans for every weight-matrix leaf of ``params`` (no
+    packing), keyed by the reference's paths: the blocks of one layer
+    position (``i % period``) share a plan.  Only shapes are read."""
+    plans: Dict[str, LayerPlan] = {}
+    for key, leaf in _da_leaves(params, period):
+        if key not in plans:
+            plans[key] = plan_layer(
+                int(leaf.shape[-2]), int(leaf.shape[-1]), da_cfg,
+                m_hint=m_hint, lut_cell_limit=lut_cell_limit,
+                cost_table=cost_table,
+                group_size_candidates=group_size_candidates)
+    return plans
+
+
+# ---------------------------------------------------------------------------
+# Freeze: pack every planned leaf
+# ---------------------------------------------------------------------------
+
+
+def freeze_model(params, da_cfg: DAConfig = DAConfig(x_signed=True),
+                 mode: str = "auto", m_hint: int = 4,
+                 lut_cell_limit: int = DEFAULT_LUT_LIMIT, model_cfg=None,
+                 cost_table: Optional[Dict[str, Dict[str, float]]] = None,
+                 group_size_candidates: Optional[Sequence[int]] = None,
+                 pin_modes: bool = True,
+                 kv_dtype_overrides: Optional[Dict[str, str]] = None,
+                 device="cuda") -> DAArtifact:
+    """Pack every weight-matrix leaf of ``params`` on ``device`` under its
+    per-layer plan; returns the :class:`DAArtifact`.
+
+    ``mode="auto"`` runs the planner (:func:`plan_layer`); a registered
+    backend (legacy ``da_*`` spellings accepted) pins every layer to it.
+    ``pin_modes=True`` bakes each planned backend into its PackedWeights
+    and writes LUTs only where that backend reads them; ``pin_modes=False``
+    keeps ``mode="auto"`` (runtime shape dispatch) and every feasible LUT.
+    With ``model_cfg`` the plan's wk/wv entries record the KV-page
+    precision their cache serves at: ``model_cfg.kv_dtype``, overridden per
+    layer position by ``kv_dtype_overrides`` (``{"pos_i": dtype}``).  Leaves
+    already packed are never re-packed; other leaves move to ``device``."""
+    dev = resolve_device(device)
+    mode = canonical_mode(mode)
+    planned = mode == "auto"
+    if not planned:
+        get_backend(mode)
     period = model_cfg.period if model_cfg is not None else 1
-    kv = model_cfg.kv_dtype if model_cfg is not None else None
-    return {key: LayerPlan(
-        mode=node.mode, group_size=node.cfg.group_size,
-        with_luts=node.has_luts, k=node.k, n=node.n, source="pinned",
-        kv_dtype=kv if key.endswith(("/wk", "/wv")) else None)
-        for key, node in packed_leaves(params, period)}
+    base_kv = getattr(model_cfg, "kv_dtype", None) if model_cfg else None
+    for key, dt in (kv_dtype_overrides or {}).items():
+        if dt not in KV_DTYPES:
+            raise ValueError(f"kv_dtype_overrides[{key!r}]={dt!r}; expected "
+                             f"one of {KV_DTYPES}")
+    plans: Dict[str, LayerPlan] = {}
+
+    def plan_for(key: str, k: int, n: int) -> LayerPlan:
+        if planned:
+            plan = plan_layer(k, n, da_cfg, m_hint=m_hint,
+                              lut_cell_limit=lut_cell_limit,
+                              cost_table=cost_table,
+                              group_size_candidates=group_size_candidates)
+            if pin_modes and not get_backend(plan.mode).needs_luts:
+                # the pinned backend never reads PMAs: writing them would
+                # store up to 2^L/L x dead cells
+                plan = dataclasses.replace(plan, with_luts=False)
+        else:
+            plan = LayerPlan(mode=mode, group_size=da_cfg.group_size,
+                             with_luts=get_backend(mode).needs_luts, k=k, n=n,
+                             source="pinned")
+        names = key.split("/")
+        if base_kv is not None and names[-1] in ("wk", "wv"):
+            pos = next((s for s in names if s.startswith("pos_")), None)
+            plan = dataclasses.replace(
+                plan, kv_dtype=(kv_dtype_overrides or {}).get(pos, base_kv))
+        return plan
+
+    def walk(path, node):
+        if isinstance(node, dict):
+            return {k: walk(path + (str(k),), v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(path + (str(i),), v) for i, v in enumerate(node)]
+        if isinstance(node, PackedWeights):
+            return node  # already frozen: never re-packed
+        if _is_da_leaf(path, node):
+            key = _ref_key(path, period)
+            if key not in plans:
+                plans[key] = plan_for(key, int(node.shape[-2]),
+                                      int(node.shape[-1]))
+            plan = plans[key]
+            return pack_weights(
+                node.to(dev), dataclasses.replace(da_cfg,
+                                                  group_size=plan.group_size),
+                mode=plan.mode if (pin_modes or not planned) else "auto",
+                with_luts=plan.with_luts)
+        return node.to(dev) if isinstance(node, torch.Tensor) else node
+
+    packed = _map_dicts(walk((), params), _colocate_qkv)
+    return DAArtifact(params=packed, plan=plans, da_cfg=da_cfg,
+                      model_cfg=model_cfg,
+                      hwcost=HardwareCostModel.from_frozen(packed, plans,
+                                                           period=period))
+
+
+def freeze_model_da(params, da_cfg: DAConfig = DAConfig(x_signed=True),
+                    mode: str = "auto", lut_cell_limit: int = DEFAULT_LUT_LIMIT,
+                    device="cuda"):
+    """Freeze and return only the packed params tree (the reference's
+    legacy surface)."""
+    return freeze_model(params, da_cfg, mode=mode,
+                        lut_cell_limit=lut_cell_limit, device=device).params
 
 
 # ---------------------------------------------------------------------------

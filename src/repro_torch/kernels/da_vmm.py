@@ -17,11 +17,11 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.da import DAConfig
+from repro_torch.core.da import MAX_GROUP_SIZE, DAConfig
 from repro_torch.kernels import build
 
-#: the kernel's largest group size (16-bit PMA addresses) and code width
-MAX_GROUP_SIZE, MAX_X_BITS = 16, 8
+#: the kernel's widest code
+MAX_X_BITS = 8
 #: most warps a block, most groups a block, and tokens a block at decode
 #: (M <= 8) and above (the kernel takes 1 or 2)
 _WARPS, _GPB, _DECODE_BM, _PREFILL_BM = 4, 8, 1, 2

@@ -3,9 +3,11 @@ weight matrix frozen into DA form (the paper's inference setting: weights
 constant, the DA precondition).
 
 ``ServeEngine`` freezes float params through
-:func:`repro_torch.core.freeze.freeze_model` when ``da_mode`` names a
-backend (params already frozen are never re-packed) and serves them through
-the paged scheduler; :meth:`ServeEngine.from_artifact` boots a DA artifact
+:func:`repro_torch.core.freeze.freeze_model` when ``da_mode`` is given:
+``"auto"`` (the default of the repo's serving surfaces) plans a backend,
+group size and lut-or-not per layer at ``m_hint=batch_size``, a registered
+backend pins every layer (params already frozen are never re-packed); it
+serves them through the paged scheduler; :meth:`ServeEngine.from_artifact` boots a DA artifact
 (the reference's or the port's) from disk with no float weights and no
 re-packing.  It runs on the card unless the caller passes ``device="cpu"``.
 
@@ -30,7 +32,6 @@ from repro_torch.core.freeze import (
     freeze_model,
     is_frozen,
     load_artifact,
-    pinned_plan,
     save_artifact,
 )
 from repro_torch.device import resolve_device
@@ -55,7 +56,8 @@ class ServeEngine:
 
     def __init__(self, cfg: ModelConfig, params: Any, batch_size: int,
                  max_len: int, greedy: bool = True,
-                 da_mode: Optional[str] = None, page_size: int = 16,
+                 da_mode: Optional[str] = None, da_pin_modes: bool = True,
+                 page_size: int = 16,
                  n_pages: Optional[int] = None, prefill_chunk: int = 16,
                  prefill_lanes: Optional[int] = None,
                  token_budget: Optional[int] = None,
@@ -66,8 +68,13 @@ class ServeEngine:
                  trace: bool = False, obs: Optional[Observability] = None,
                  hw: Optional[HardwareCostModel] = None,
                  analysis_debug: bool = False, device="cuda"):
-        # da_mode: a registered DA backend every weight matrix is frozen
-        # under (None / "float" keeps float weights).  paged_attn: "gather"
+        # da_mode: freeze float params through the planner ("auto": a
+        # backend per layer from measured + analytic costs at m_hint =
+        # batch_size) or pin every layer to a registered backend; None /
+        # "float" keeps float weights.  da_pin_modes=False keeps runtime
+        # shape dispatch on the frozen artifact (prefill and decode may then
+        # run different backends) instead of baking in the decode plan.
+        # paged_attn: "gather"
         # | "fused" | "auto" (fused on CUDA, gather on the CPU); None
         # inherits cfg.paged_attn.  kv_dtype: KV page precision ("fp16" |
         # "int8" | "int4"); None inherits cfg.kv_dtype; kv_dtypes overrides
@@ -91,13 +98,11 @@ class ServeEngine:
         #: the DAArtifact this engine froze or booted from, else None
         self.artifact: Optional[DAArtifact] = None
         if da_mode not in (None, "float") and not is_frozen(params):
-            da_cfg = DAConfig(x_signed=True)
-            params = freeze_model(params, da_cfg, mode=da_mode,
-                                  device=self.device)
-            self.artifact = DAArtifact(
-                params=params, plan=pinned_plan(params, cfg), da_cfg=da_cfg,
-                model_cfg=cfg,
-                hwcost=HardwareCostModel.from_frozen(params, period=cfg.period))
+            self.artifact = freeze_model(
+                params, DAConfig(x_signed=True), mode=da_mode,
+                m_hint=batch_size, model_cfg=cfg, pin_modes=da_pin_modes,
+                kv_dtype_overrides=kv_dtypes, device=self.device)
+            params = self.artifact.params
         else:
             params = _to_device(params, self.device)
         if hw is None:

@@ -174,7 +174,7 @@ def test_da_matmul_matches_reference(mode):
 def test_da_qkv_matmul_matches_reference_and_separate_calls():
     """The fused pass equals JAX's fused pass and three separate calls, for
     separate code buffers and for freeze's shared q|k|v buffer."""
-    from repro_torch.core.freeze import freeze_model
+    from repro_torch.core.freeze import freeze_model_da
 
     rng = np.random.default_rng(5)
     ws = [rng.normal(size=(32, n)).astype(np.float32) / 6 for n in (16, 8, 8)]
@@ -182,10 +182,10 @@ def test_da_qkv_matmul_matches_reference_and_separate_calls():
     jps = [jeng.pack_weights(jnp.asarray(w), mode="pallas_bitplane") for w in ws]
     ref = jeng.da_qkv_matmul(jnp.asarray(x), jps)
     separate = [teng.pack_weights(_t(w), mode="pallas_bitplane") for w in ws]
-    shared = freeze_model({"wq": _t(ws[0]), "wk": _t(ws[1]), "wv": _t(ws[2])},
-                          mode="pallas_bitplane", device="cpu")
-    lut = freeze_model({"wq": _t(ws[0]), "wk": _t(ws[1]), "wv": _t(ws[2])},
-                       mode="pallas_lut", device="cpu")
+    shared = freeze_model_da({"wq": _t(ws[0]), "wk": _t(ws[1]), "wv": _t(ws[2])},
+                             mode="pallas_bitplane", device="cpu")
+    lut = freeze_model_da({"wq": _t(ws[0]), "wk": _t(ws[1]), "wv": _t(ws[2])},
+                          mode="pallas_lut", device="cpu")
     lut = [lut[n] for n in ("wq", "wk", "wv")]
     # the LUT freeze co-locates the codes and gives each pack its own tables
     assert lut[1].wq.untyped_storage().data_ptr() == \
@@ -210,9 +210,21 @@ def test_registry_names_resolve_and_auto_by_device():
     assert {"bitplane", "bitplane_stacked", "pallas_bitplane"} <= set(
         teng.registered_backends())
     cpu = torch.device("cpu")
-    assert teng.resolve_backend("auto", cpu).name == "bitplane_stacked"
-    assert teng.resolve_backend("auto", torch.device("cuda")).name == "pallas_bitplane"
-    assert teng.resolve_backend("stacked", cpu).name == "bitplane_stacked"
+    # "auto" is the reference's shape policy, on any device: without timings
+    # the PMAs at decode-like M <= 8 when LUTs exist, else stacked planes
+    cfg = tda.DAConfig(x_signed=True)
+    teng.set_cost_table({})
+    jeng.set_cost_table({})
+    try:
+        for m, luts, want in ((4, True, "lut"), (16, True, "bitplane_stacked"),
+                              (4, False, "bitplane_stacked")):
+            assert teng.select_backend(m, 64, 128, cfg, luts) == want
+            assert jeng.select_backend(m, 64, 128, jda.DAConfig(x_signed=True),
+                                       luts) == want
+    finally:
+        teng.set_cost_table(None)
+        jeng.set_cost_table(None)
+    assert teng.get_backend("stacked").name == "bitplane_stacked"
     assert teng.select_attn_backend("auto", cpu) == "gather"
     assert teng.select_attn_backend(None, torch.device("cuda")) == "fused"
     for name in ("lut", "onehot", "pallas_lut"):
@@ -228,8 +240,10 @@ def test_registry_names_resolve_and_auto_by_device():
     with pytest.raises(ValueError, match="rows per PMA"):
         teng.da_vmm(torch.ones(2, 16, dtype=torch.int32), packed,
                     cfg=tda.DAConfig(group_size=4))
-    with pytest.raises(NotImplementedError, match="int8"):
-        teng.get_backend("int8")
+    # the int8 baseline is registered with the reference's capabilities
+    int8, ref8 = teng.get_backend("int8"), jeng.get_backend("int8")
+    assert (int8.is_da, int8.signed_only) == (ref8.is_da, ref8.signed_only) \
+        == (False, True)
     with pytest.raises(ValueError, match="unknown DA mode"):
         teng.get_backend("nope")
 

@@ -219,11 +219,12 @@ def test_entry_points_run_on_the_card(card):
     """Without device=, init_model / freeze_model land on CUDA and the
     frozen DA linear runs through the kernel."""
     from repro_torch.configs.registry import get, reduce_for_smoke
-    from repro_torch.core.freeze import freeze_model
+    from repro_torch.core.freeze import freeze_model_da
     from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
     from repro_torch.models.model import init_model
 
-    params = freeze_model(init_model(reduce_for_smoke(get("qwen3-8b"))))
+    params = freeze_model_da(init_model(reduce_for_smoke(get("qwen3-8b"))),
+                             mode="pallas_bitplane")
     p = params["blocks"][0]["ffn"]["w_up"]
     assert p.wq.device.type == "cuda" and p.mode == "pallas_bitplane"
     before = bitplane_vmm_cuda.launches
@@ -416,14 +417,14 @@ def _tiny_frozen_engine_params():
     import dataclasses
 
     from repro_torch.configs.registry import get
-    from repro_torch.core.freeze import freeze_model
+    from repro_torch.core.freeze import freeze_model_da
     from repro_torch.models.model import init_model
 
     cfg = dataclasses.replace(get("qwen3-8b"), name="qwen3-20m", n_layers=4,
                               d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
                               d_ff=768, vocab=8000, param_dtype="float32",
                               compute_dtype="float32")
-    return cfg, freeze_model(init_model(cfg, seed=0), mode="pallas_bitplane")
+    return cfg, freeze_model_da(init_model(cfg, seed=0), mode="pallas_bitplane")
 
 
 def _traced_serve(cfg, params, trace, **kw):
@@ -486,3 +487,98 @@ def test_device_span_brackets_the_serve_kernels(card, trace):
         assert inside > 0 and outside == 0
     else:
         assert inside == 0 and outside > 0
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 64])
+@pytest.mark.parametrize("k,n", [(37, 20), (64, 24), (64, 128), (300, 70),
+                                 (4096, 6144)])
+def test_int8_baseline_on_the_card(card, m, k, n):
+    """The int8 baseline on CUDA: ``torch._int_mm`` on zero-padded operands
+    (M > 16, K and N multiples of 8; the weights column-major, laid out
+    once per pack) sliced back,
+    EQUAL to the exact int64 product, at M <= 16 and ragged K, N too."""
+    from repro_torch.core.engine import da_vmm, pack_weights
+
+    g = torch.Generator(device=card).manual_seed(m * 7 + k)
+    p = pack_weights(torch.randn(k, n, generator=g, device=card), mode="int8")
+    xq = torch.randint(-128, 128, (m, k), generator=g, device=card,
+                       dtype=torch.int32)
+    y = da_vmm(xq, p)
+    assert y.dtype == torch.int32 and y.device.type == "cuda"
+    want = (xq.cpu().long() @ p.wq.cpu().long()).to(torch.int32)
+    assert torch.equal(y.cpu(), want)
+    # the weight operand is laid out once per pack and kept
+    w8 = p.int8_operand
+    assert w8 is not None and w8.shape[0] % 8 == 0 and w8.shape[1] % 8 == 0
+    assert torch.equal(da_vmm(xq, p), y) and p.int8_operand is w8
+
+
+@pytest.mark.parametrize("mode", ["lut", "onehot"])
+@pytest.mark.parametrize("m", [1, 4, 16, 64])
+def test_lut_modes_launch_the_lut_kernel(card, mode, m):
+    """``lut`` and ``onehot`` on a CUDA tensor run the LUT-readout kernel
+    (one call each) and EQUAL their plain forms on the same codes."""
+    from repro_torch.core import da as core_da
+    from repro_torch.core.engine import da_vmm, pack_weights
+    from repro_torch.kernels.da_vmm import da_vmm_cuda
+
+    g = torch.Generator(device=card).manual_seed(m)
+    p = pack_weights(torch.randn(300, 70, generator=g, device=card), mode=mode)
+    xq = torch.randint(-128, 128, (m, 300), generator=g, device=card,
+                       dtype=torch.int32)
+    before = da_vmm_cuda.launches
+    y = da_vmm(xq, p)
+    assert da_vmm_cuda.launches == before + 1
+    plain = {"lut": core_da.da_vmm_lut, "onehot": core_da.da_vmm_onehot}[mode]
+    assert torch.equal(y, plain(xq, p.luts, p.cfg))
+
+
+def test_planned_serve_on_the_card(card, monkeypatch):
+    """``ServeEngine(da_mode="auto")`` on the CI smoke's model plans the PMAs
+    for every block matrix and stacked bit-planes for the LM head; its serve
+    launches both VMM kernels, and its tokens EQUAL a serve of the same
+    weights with both kernels swapped for their plain versions."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
+    from repro_torch.kernels.da_vmm import da_vmm_cuda
+    from repro_torch.models.model import init_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(get("qwen3-8b"), name="qwen3-20m", n_layers=4,
+                              d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+                              d_ff=768, vocab=8000, param_dtype="float32",
+                              compute_dtype="float32")
+    monkeypatch.setenv(engine.AUTOTUNE_ENV, "/nonexistent/engine_autotune.json")
+    engine.set_cost_table(None)
+    try:
+        eng = ServeEngine(cfg, init_model(cfg, seed=0), batch_size=4, max_len=64,
+                          da_mode="auto", paged_attn="fused")
+    finally:
+        engine.set_cost_table(None)
+    plan = eng.artifact.plan
+    assert {k: p.mode for k, p in plan.items()} == {
+        k: ("bitplane_stacked" if k == "lm_head/w" else "lut") for k in plan}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, 5 + 3 * u).astype(np.int32)
+               for u in range(4)]
+
+    def serve(params):
+        e = ServeEngine(cfg, params, batch_size=4, max_len=64, paged_attn="fused")
+        for u, pr in enumerate(prompts):
+            e.submit(Request(uid=u, prompt=pr, max_new_tokens=8))
+        before = bitplane_vmm_cuda.launches, da_vmm_cuda.launches
+        done = e.run()
+        return ({u: done[u].generated for u in done},
+                (bitplane_vmm_cuda.launches - before[0],
+                 da_vmm_cuda.launches - before[1]))
+
+    kernels, launched = serve(eng.params)
+    assert min(launched) > 0
+    monkeypatch.setattr(ops, "da_vmm", ref.da_vmm_ref)
+    monkeypatch.setattr(ops, "bitplane_vmm", ref.bitplane_vmm_ref)
+    plain, none = serve(eng.params)
+    assert none == (0, 0) and plain == kernels

@@ -28,7 +28,7 @@ from repro.serve.kvcache import init_paged_caches as jcaches
 from repro_torch.configs import registry as treg
 from repro_torch.convert import params_from_jax
 from repro_torch.core.engine import PackedWeights
-from repro_torch.core.freeze import freeze_model
+from repro_torch.core.freeze import freeze_model, freeze_model_da
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models.model import forward as tforward
@@ -160,8 +160,8 @@ def test_port_freeze_matches_reference_freeze(setup):
     """Freezing in the port gives the reference's codes and scales, with the
     LM head packed too and the embedding left float."""
     _, tcfg, params, fparams = setup
-    ours = freeze_model(params_from_jax(_np(params)), mode="pallas_bitplane",
-                        device="cpu")
+    ours = freeze_model_da(params_from_jax(_np(params)), mode="pallas_bitplane",
+                           device="cpu")
     theirs = params_from_jax(_np(fparams))
     for name in ("wq", "wk", "wv", "wo"):
         a, b = ours["blocks"][1]["mixer"][name], theirs["blocks"][1]["mixer"][name]
@@ -170,8 +170,12 @@ def test_port_freeze_matches_reference_freeze(setup):
     assert torch.equal(ours["lm_head"]["w"].wq, theirs["lm_head"]["w"].wq)
     assert not isinstance(ours["embed"]["table"], PackedWeights)
     assert not isinstance(ours["blocks"][0]["mixer"]["q_norm"], PackedWeights)
-    with pytest.raises(NotImplementedError, match="planner"):
-        freeze_model(params_from_jax(_np(params)), mode="auto", device="cpu")
+    # mode="auto" plans per layer, as the reference's planner does
+    planned = freeze_model(params_from_jax(_np(params)), mode="auto",
+                           cost_table={}, device="cpu")
+    ref = jfreeze(params, JDA(x_signed=True), mode="auto", cost_table={}).plan
+    assert {k: p.to_json() for k, p in planned.plan.items()} == \
+        {k: p.to_json() for k, p in ref.items()}
 
 
 def test_init_model_shapes_match_reference(setup):

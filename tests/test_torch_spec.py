@@ -158,13 +158,13 @@ def test_da_matmul_x_bits_eff_and_override_match_reference(mode):
 def test_da_qkv_matmul_x_bits_eff_equals_separate_calls(mode):
     """The fused pass truncates the shared codes once: equal to three
     truncated da_matmul calls and to the reference's fused pass."""
-    from repro_torch.core.freeze import freeze_model
+    from repro_torch.core.freeze import freeze_model_da
 
     rng = np.random.default_rng(5)
     ws = [rng.normal(size=(32, n)).astype(np.float32) / 6 for n in (16, 8, 8)]
     x = rng.normal(size=(2, 3, 32)).astype(np.float32)
-    packs = freeze_model({"wq": _t(ws[0]), "wk": _t(ws[1]), "wv": _t(ws[2])},
-                         mode=mode, device="cpu")
+    packs = freeze_model_da({"wq": _t(ws[0]), "wk": _t(ws[1]), "wv": _t(ws[2])},
+                            mode=mode, device="cpu")
     packs = [packs[n] for n in ("wq", "wk", "wv")]
     jps = [jeng.pack_weights(jnp.asarray(w), mode="bitplane") for w in ws]
     ref = jeng.da_qkv_matmul(jnp.asarray(x), jps, x_bits_eff=5)
