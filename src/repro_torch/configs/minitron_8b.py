@@ -1,0 +1,20 @@
+"""minitron-8b [arXiv:2407.14679; hf] — width-pruned Nemotron-4.
+
+32L d_model=4096 32H (GQA kv=8) d_ff=16384 vocab=256000. Nemotron family:
+squared-ReLU MLP (non-gated), LayerNorm.
+"""
+from repro_torch.configs.registry import register
+from repro_torch.models.config import ModelConfig
+
+CONFIG = register(ModelConfig(
+    name="minitron-8b",
+    family="dense",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=16384,
+    vocab=256000,
+    mlp_act="relu2",
+    norm_type="layernorm",
+))

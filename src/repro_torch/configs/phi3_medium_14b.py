@@ -1,0 +1,17 @@
+"""phi3-medium-14b [arXiv:2404.14219; unverified] — RoPE SwiGLU GQA.
+
+40L d_model=5120 40H (GQA kv=10) d_ff=17920 vocab=100352, head_dim 128.
+"""
+from repro_torch.configs.registry import register
+from repro_torch.models.config import ModelConfig
+
+CONFIG = register(ModelConfig(
+    name="phi3-medium-14b",
+    family="dense",
+    n_layers=40,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=10,
+    d_ff=17920,
+    vocab=100352,
+))

@@ -12,14 +12,17 @@ ARCHS: Dict[str, ModelConfig] = {}
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config for CPU tests: 2 layers, d_model 64, 4
-    heads over 2 KV heads of 16, d_ff 128, vocab 97, float32 — the
-    reference's reduction of a dense attention model."""
+    heads over 2 KV heads of 16 (32 under M-RoPE, sections (4, 6, 6)), d_ff
+    128, vocab 97, float32 — the reference's reduction of a dense attention
+    model."""
     changes: dict = dict(n_layers=2, d_model=64, vocab=97,
                          param_dtype="float32", compute_dtype="float32")
     if cfg.n_heads:
         changes.update(n_heads=4,
                        n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads else 4,
-                       head_dim=16)
+                       head_dim=32 if cfg.mrope_sections else 16)
+    if cfg.mrope_sections:
+        changes["mrope_sections"] = (4, 6, 6)  # sums to head_dim/2 = 16
     if cfg.d_ff:
         changes["d_ff"] = 128
     return dataclasses.replace(cfg, **changes)
@@ -35,7 +38,14 @@ def get(name: str) -> ModelConfig:
 
 
 def _load_all() -> None:
-    from repro_torch.configs import qwen3_8b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        minitron_8b,
+        mistral_nemo_12b,
+        musicgen_large,
+        phi3_medium_14b,
+        qwen2_vl_72b,
+        qwen3_8b,
+    )
 
 
 _load_all()

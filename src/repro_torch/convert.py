@@ -10,7 +10,9 @@ function.  The reference stacks each layer position over periods
 N]``); the port keeps one dict per layer, so that axis is split here (the
 port's ``dense`` would read a 3-D ``wq`` as stacked experts).
 :func:`params_to_ref` stacks the layers back, so the reference can read what
-the port writes.
+the port writes.  Both walk whatever leaves the tree holds, so every dense
+variant crosses as is: q/k/v biases, LayerNorm biases, MLPs without
+``w_gate`` and trees without an ``embed`` table (embedding-input models).
 """
 from __future__ import annotations
 

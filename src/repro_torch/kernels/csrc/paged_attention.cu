@@ -6,13 +6,19 @@
 //
 // Computes, for every batch row b and KV head kv, the grouped-GQA attention
 // of its G = H / KV query heads over the pages its page table names:
-// scores[g, t, s] = (q[b, t, kv*G+g] . k[page(s), s % ps, kv]) rounded to the
-// input dtype, divided by sqrt(hd) (itself rounded to the input dtype) and
+// scores[g, t, s] = (q[b, t, kv*G+g] . k[page(s), s % ps, kv]) summed in
+// float64 and rounded to the input dtype, divided by sqrt(hd) (itself rounded to the input dtype) and
 // rounded again, masked to -1e30 where s > tpos[b, t] (where- or additive
-// form), then softmax in float32 as exp(x - max) / sum, probabilities rounded
-// to the input dtype, and the PV sum rounded to the input dtype.  Every
-// rounding is the one the gather read (models/attention.paged_gather_read)
-// performs.
+// form), then softmax in float32 as exp(x - max) / sum (the sum in float64,
+// rounded to float32), probabilities rounded to the input dtype, and the PV
+// sum in float64 rounded to the input dtype.  Every rounding is the one the
+// gather read (models/attention.paged_gather_read) performs, and it sums in
+// float64 too: a sum of products of bfloat16 values is exact in float64 and
+// one of float32 values is within 2^-53 of exact, so both reads round the
+// same value whatever their summation order, and agree bit for bit.  With the bfloat16 score pipeline (softmax_dtype="bfloat16") the
+// scores are rounded to bfloat16 before the mask, and x - max, exp, the row
+// sum and the divide are each rounded to bfloat16, as the plain read's
+// bfloat16 ops round them.
 //
 // Quantized pages hold int8 codes [.., hd], or two int4 codes per byte
 // [.., hd/2] (element 2i in the low nibble, sign-extended), beside one
@@ -26,7 +32,8 @@
 // 4*H*S*hd flops against 2*S*kv*hd*2 bytes of K and V per row: G = 4 flops
 // per byte, so the K/V page stream bounds it (3.35 TB/s); at T = 16 it is
 // 64 flops per byte, still below the tensor cores' ridge, but this kernel
-// scores and sums with scalar FMAs (67 TFLOP/s), so there the FMAs bound it.
+// scores and sums with scalar float64 FMAs (34 TFLOP/s), so there the FMAs
+// bound it.
 // Each live K row is read from device memory once (score launch) and each
 // live V row once (PV launch; its re-reads for every 8 query rows hit L2),
 // pages the table does not name are never touched, and no gathered
@@ -45,23 +52,22 @@
 //       scores the chunk's live positions into shared memory (warps take U
 //       key positions at a time and load all U K rows before any arithmetic,
 //       each lane one vector of hd/32 elements; for 8 query rows at a time a
-//       transposing butterfly reduces the 8 lane-partial dots in 9 shuffles),
-//       then writes them to the float32 workspace [B, KV, G*T, S] and, per
-//       query row, the chunk's max m_s and l_s = sum exp(x - m_s);
-//   (b) PV: a block combines every live chunk's (m_s, l_s) in a fixed order
-//       (a warp butterfly over the chunks), m = max m_s and L = sum l_s *
-//       exp(m_s - m), forms p = rnd_T(exp(x - m) / L) from the workspace
-//       scores as the plain read does, and runs the PV pass over its chunk's
-//       V rows (each lane accumulates its hd/32 output
-//       elements for 8 query rows over U rows loaded at once; the 8 warp
-//       partials are summed in a fixed order through shared memory) into a
-//       float32 partial [B, KV, NS, G*T, hd].  The last block of a (KV head,
-//       row) to finish, found by a counter that the score launch zeroes, sums
-//       the live partials in chunk order and rounds to T; a row with one live
+//       transposing butterfly reduces the 8 lane-partial float64 dots in 9
+//       shuffles), then writes them to the float32 workspace [B, KV, G*T, S]
+//       and, per query row, the chunk's max m_s;
+//   (b) PV: a block takes m = max m_s over the live chunks, sums exp(x - m)
+//       over all of the row's live scores in the workspace in float64 (L,
+//       rounded to float32), forms p = rnd_T(exp(x - m) / L) for its chunk as
+//       the plain read does, and runs the PV pass over its chunk's V rows
+//       (each lane accumulates its hd/32 output elements for 8 query rows
+//       over U rows loaded at once, in float64; the 8 warp partials are
+//       summed in a fixed order through shared memory) into a float64
+//       partial [B, KV, NS, G*T, hd].  The last block of a (KV head, row) to
+//       finish, found by a counter that the score launch zeroes, sums the
+//       live partials in chunk order and rounds to T; a row with one live
 //       chunk rounds its block's sum directly.  The counter only elects that
 //       block, so the result does not depend on the order blocks run.
-// The result differs from the plain read by float32 summation order and by
-// the roundings of exp(m_s - m) inside L (a few float32 ulps).  Positions
+// Positions
 // past the largest tpos of the row are masked for all its queries: their
 // probabilities are exactly 0, so no launch touches them, and a chunk wholly
 // past that end is skipped by both launches (each computes the same live end
@@ -102,6 +108,17 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // round a float to the input dtype and back
 template <typename T> __device__ __forceinline__ float rnd(float v) {
   return to_f<T>(from_f<T>(v));
+}
+
+// round a float to bfloat16 and back (the bfloat16 score pipeline)
+__device__ __forceinline__ float rnd_bf(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// exp(x - max) of a masked score as the plain read forms it: in float32, or
+// with x - max and the exp each rounded to bfloat16
+__device__ __forceinline__ float softmax_exp(float x, float m, int bf16sm) {
+  return bf16sm ? rnd_bf(expf(rnd_bf(x - m))) : expf(x - m);
 }
 
 // N consecutive elements at p (aligned to their size when it is a power of
@@ -208,29 +225,17 @@ __device__ __forceinline__ void lds_f(const float* p, float (&o)[N]) {
   }
 }
 
-template <int N>
-__device__ __forceinline__ void sts_f(float* p, const float (&v)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int c = 0; c < N / 4; ++c)
-      reinterpret_cast<float4*>(p)[c] =
-          make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < N; ++j) p[j] = v[j];
-  }
-}
-
-// Sum each of v[0..7] over the 32 lanes of the warp.  A transposing
+// Sum each of v[0..7] (float or double) over the 32 lanes of the warp.  A transposing
 // butterfly: every exchange halves the rows a lane carries, so 9 shuffles
 // replace 40.  Lane l ends with the total of row lane_row(l).
-__device__ __forceinline__ float reduce8(float (&v)[RC], int lane) {
+template <typename A>
+__device__ __forceinline__ A reduce8(A (&v)[RC], int lane) {
   {
     const bool up = lane & 16;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float send = up ? v[i] : v[i + 4];
-      const float keep = up ? v[i + 4] : v[i];
+      const A send = up ? v[i] : v[i + 4];
+      const A keep = up ? v[i + 4] : v[i];
       v[i] = keep + __shfl_xor_sync(FULL, send, 16);
     }
   }
@@ -238,15 +243,15 @@ __device__ __forceinline__ float reduce8(float (&v)[RC], int lane) {
     const bool up = lane & 8;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float send = up ? v[i] : v[i + 2];
-      const float keep = up ? v[i + 2] : v[i];
+      const A send = up ? v[i] : v[i + 2];
+      const A keep = up ? v[i + 2] : v[i];
       v[i] = keep + __shfl_xor_sync(FULL, send, 8);
     }
   }
   {
     const bool up = lane & 4;
-    const float send = up ? v[0] : v[1];
-    const float keep = up ? v[1] : v[0];
+    const A send = up ? v[0] : v[1];
+    const A keep = up ? v[1] : v[0];
     v[0] = keep + __shfl_xor_sync(FULL, send, 4);
   }
   v[0] += __shfl_xor_sync(FULL, v[0], 2);
@@ -270,9 +275,9 @@ __device__ __forceinline__ int live_end(const int32_t* __restrict__ tp, int Tq, 
 // (a) Scores of one chunk.  EPL: head_dim / 32 elements per lane; KF: page
 // format (KV_FP pools hold T, quantized pools int8 codes with float16 scales).
 // Writes the rounded, masked scores of the chunk's live positions to
-// scores [B, KV, G*Tq, S] and the chunk's (m_s, l_s) per query row to
-// stats [B, KV, NS, 2, G*Tq]; the first chunk's block zeroes the (KV head,
-// row)'s counter [B, KV] of finished PV blocks.
+// scores [B, KV, G*Tq, S] and the chunk's max per query row to stats [B, KV,
+// NS, G*Tq]; the first chunk's block zeroes the (KV head, row)'s counter
+// [B, KV] of finished PV blocks.
 template <typename T, int EPL, int KF>
 __global__ void __launch_bounds__(THREADS)
 paged_attn_score_kernel(const T* __restrict__ q, const void* __restrict__ kpool,
@@ -280,7 +285,7 @@ paged_attn_score_kernel(const T* __restrict__ q, const void* __restrict__ kpool,
                         const int32_t* __restrict__ table, const int32_t* __restrict__ tpos,
                         float* __restrict__ scores, float* __restrict__ stats,
                         int* __restrict__ done, int Tq, int H, int KV, int PS, int W,
-                        int CW, int NS, float div, int additive) {
+                        int CW, int NS, float div, int additive, int bf16sm) {
   constexpr int HD = 32 * EPL;
   extern __shared__ __align__(16) float smem[];
   const int kvh = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
@@ -292,6 +297,8 @@ paged_attn_score_kernel(const T* __restrict__ q, const void* __restrict__ kpool,
   if (c0 >= s_end) return;
   const int c1 = min(c0 + CP, s_end), n = c1 - c0;
   const int warp = tid >> 5, lane = tid & 31;
+  // the masked score, in bfloat16 under the bfloat16 pipeline
+  const float neg = bf16sm ? rnd_bf(NEG_INF) : NEG_INF;
 
   float* q_s = smem;                                    // [GT][HD]
   float* sc_s = q_s + GT * HD;                          // [GT][CP] this chunk
@@ -337,22 +344,27 @@ paged_attn_score_kernel(const T* __restrict__ q, const void* __restrict__ kpool,
       const int r = r0 + lane_row(lane);
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        float part[RC];
+        // rows past G*Tq hold zeros; skipping their FMAs behind a uniform
+        // branch made every read slower on the H100 (it cost the unrolling)
+        double part[RC];
 #pragma unroll
         for (int i = 0; i < RC; ++i) {
-          part[i] = 0.f;
+          part[i] = 0.0;
 #pragma unroll
-          for (int j = 0; j < EPL; ++j) part[i] = fmaf(qr[i][j], kr[u][j], part[i]);
+          for (int j = 0; j < EPL; ++j)
+            part[i] = fma((double)qr[i][j], (double)kr[u][j], part[i]);
         }
-        const float dot = reduce8(part, lane);
+        const double dot = reduce8(part, lane);
         const int s = s0 + u;
         if ((lane & 3) == 0 && r < GT && s < c1) {
-          float v = rnd<T>(rnd<T>(dot) / div);
+          float v = rnd<T>(rnd<T>((float)dot) / div);
+          if (bf16sm) v = rnd_bf(v);
           const bool valid = s <= tp_s[r % Tq];
           if (additive)
-            v = v + (valid ? 0.f : NEG_INF);
+            v = v + (valid ? 0.f : neg);
           else
-            v = valid ? v : NEG_INF;
+            v = valid ? v : neg;
+          if (bf16sm) v = rnd_bf(v);
           sc_s[r * CP + (s - c0)] = v;
         }
       }
@@ -360,20 +372,15 @@ paged_attn_score_kernel(const T* __restrict__ q, const void* __restrict__ kpool,
   }
   __syncthreads();
 
-  // the chunk's max and sum of exp(x - max), per query row
-  float* st = stats + (((size_t)b * KV + kvh) * NS + sp) * 2 * GT;
+  // the chunk's max per query row, starting at the masked value (which a
+  // bfloat16 mask rounds below NEG_INF)
+  float* st = stats + (((size_t)b * KV + kvh) * NS + sp) * GT;
   for (int r = warp; r < GT; r += NWARPS) {
     const float* row = sc_s + r * CP;
-    float m = NEG_INF;
+    float m = neg;
     for (int i = lane; i < n; i += 32) m = fmaxf(m, row[i]);
     for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
-    float l = 0.f;
-    for (int i = lane; i < n; i += 32) l += expf(row[i] - m);
-    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(FULL, l, o);
-    if (lane == 0) {
-      st[r] = m;
-      st[GT + r] = l;
-    }
+    if (lane == 0) st[r] = m;
   }
   float* sc_g = scores + ((size_t)b * KV + kvh) * GT * S;
   for (int i = tid; i < GT * n; i += THREADS) {
@@ -382,10 +389,10 @@ paged_attn_score_kernel(const T* __restrict__ q, const void* __restrict__ kpool,
   }
 }
 
-// (b) PV of one chunk: combines the live chunks' (m_s, l_s) in a fixed
-// order, forms the rounded probabilities of its positions exactly as the
-// plain read does, and writes its float32 partial to part [B, KV, NS, G*Tq,
-// HD].  The last of the row's live blocks to finish sums the partials in
+// (b) PV of one chunk: takes the row's max over the live chunks and its
+// exp-sum over all its live scores (float64), forms the rounded
+// probabilities of its positions exactly as the plain read does, and writes
+// its float64 partial to part [B, KV, NS, G*Tq, HD].  The last of the row's live blocks to finish sums the partials in
 // chunk order into out, rounded to T; with one live chunk its block rounds
 // its own sum.
 template <typename T, int EPL, int KF>
@@ -393,8 +400,8 @@ __global__ void __launch_bounds__(THREADS)
 paged_attn_pv_kernel(const void* __restrict__ vpool, const __half* __restrict__ vscale,
                      const int32_t* __restrict__ table, const int32_t* __restrict__ tpos,
                      const float* __restrict__ scores, const float* __restrict__ stats,
-                     float* __restrict__ part, int* __restrict__ done, T* __restrict__ out,
-                     int Tq, int H, int KV, int PS, int W, int CW, int NS) {
+                     double* __restrict__ part, int* __restrict__ done, T* __restrict__ out,
+                     int Tq, int H, int KV, int PS, int W, int CW, int NS, int bf16sm) {
   constexpr int HD = 32 * EPL;
   extern __shared__ __align__(16) float smem[];
   const int kvh = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
@@ -406,36 +413,43 @@ paged_attn_pv_kernel(const void* __restrict__ vpool, const __half* __restrict__ 
   const int nlive = (s_end + CP - 1) / CP;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
+  const float neg = bf16sm ? rnd_bf(NEG_INF) : NEG_INF;  // the masked score
 
-  float* red = smem;                                    // [NWARPS][RC][HD]
-  float* ml_s = red + NWARPS * RC * HD;                 // [2][GT] row max, sum
+  double* red = reinterpret_cast<double*>(smem);       // [NWARPS][RC][HD]
+  float* ml_s = reinterpret_cast<float*>(red + NWARPS * RC * HD);  // [2][GT] max, sum
   float* p_s = ml_s + 2 * GT;                           // [GT][CP] this chunk
   int* pg_s = reinterpret_cast<int*>(p_s + GT * CP);    // [CW] this chunk's pages
 
   // a warp per query row, its lanes over the live chunks: the loads go out
   // together, and the butterflies sum in a fixed order
-  const float* st = stats + ((size_t)b * KV + kvh) * NS * 2 * GT;
+  const float* st = stats + ((size_t)b * KV + kvh) * NS * GT;
+  const float* sc_g = scores + ((size_t)b * KV + kvh) * GT * S;
   for (int r = warp; r < GT; r += NWARPS) {
-    float m = NEG_INF;
-    for (int j = lane; j < nlive; j += 32) m = fmaxf(m, st[(size_t)j * 2 * GT + r]);
+    float m = neg;
+    for (int j = lane; j < nlive; j += 32) m = fmaxf(m, st[(size_t)j * GT + r]);
     for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
-    float L = 0.f;
-    for (int j = lane; j < nlive; j += 32)
-      L += st[(size_t)j * 2 * GT + GT + r] * expf(st[(size_t)j * 2 * GT + r] - m);
+    // every exp(x - max) of the row's live positions, read back from the
+    // workspace and summed in float64, then rounded once as the plain sum is
+    double L = 0.0;
+    for (int s = lane; s < s_end; s += 32)
+      L += (double)softmax_exp(sc_g[(size_t)r * S + s], m, bf16sm);
     for (int o = 16; o > 0; o >>= 1) L += __shfl_xor_sync(FULL, L, o);
+    float Lf = (float)L;
+    if (bf16sm) Lf = rnd_bf(Lf);
     if (lane == 0) {
       ml_s[r] = m;
-      ml_s[GT + r] = L;
+      ml_s[GT + r] = Lf;
     }
   }
   for (int i = tid; i < CW && sp * CW + i < W; i += THREADS)
     pg_s[i] = table[(size_t)b * W + sp * CW + i];
   __syncthreads();
-  const float* sc_g = scores + ((size_t)b * KV + kvh) * GT * S;
 #pragma unroll 4
   for (int i = tid; i < GT * n; i += THREADS) {
     const int r = i / n, s = i % n;
-    p_s[r * CP + s] = rnd<T>(expf(sc_g[(size_t)r * S + c0 + s] - ml_s[r]) / ml_s[GT + r]);
+    const float e = softmax_exp(sc_g[(size_t)r * S + c0 + s], ml_s[r], bf16sm);
+    p_s[r * CP + s] =
+        bf16sm ? rnd<T>(rnd_bf(e / ml_s[GT + r])) : rnd<T>(e / ml_s[GT + r]);
   }
   __syncthreads();
   // V row of position s (page slot, this KV head); c0 is page-aligned
@@ -447,17 +461,17 @@ paged_attn_pv_kernel(const void* __restrict__ vpool, const __half* __restrict__ 
   auto out_at = [&](int r, int d) -> T& {
     return out[(((size_t)b * Tq + r % Tq) * H + kvh * G + r / Tq) * HD + d];
   };
-  float* const p0 = part + ((size_t)b * KV + kvh) * NS * GT * HD;
-  float* const pt = p0 + (size_t)sp * GT * HD;
+  double* const p0 = part + ((size_t)b * KV + kvh) * NS * GT * HD;
+  double* const pt = p0 + (size_t)sp * GT * HD;
 
   // RC query rows at a time: per-warp partials over its positions, then a
   // fixed-order sum of the warps through shared memory
   for (int r0 = 0; r0 < GT; r0 += RC) {
-    float acc[RC][EPL];
+    double acc[RC][EPL];
 #pragma unroll
     for (int i = 0; i < RC; ++i)
 #pragma unroll
-      for (int j = 0; j < EPL; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < EPL; ++j) acc[i][j] = 0.0;
     for (int s0 = c0 + warp * U; s0 < c1; s0 += NWARPS * U) {
       float vr[U][EPL];
 #pragma unroll
@@ -468,23 +482,25 @@ paged_attn_pv_kernel(const void* __restrict__ vpool, const __half* __restrict__ 
         if (s0 + u >= c1) break;
 #pragma unroll
         for (int i = 0; i < RC; ++i) {
-          const float p = r0 + i < GT ? p_s[(r0 + i) * CP + s0 + u - c0] : 0.f;
+          const double p = r0 + i < GT ? p_s[(r0 + i) * CP + s0 + u - c0] : 0.f;
 #pragma unroll
-          for (int j = 0; j < EPL; ++j) acc[i][j] = fmaf(p, vr[u][j], acc[i][j]);
+          for (int j = 0; j < EPL; ++j) acc[i][j] = fma(p, (double)vr[u][j], acc[i][j]);
         }
       }
     }
 #pragma unroll
-    for (int i = 0; i < RC; ++i) sts_f<EPL>(red + (warp * RC + i) * HD + lane * EPL, acc[i]);
+    for (int i = 0; i < RC; ++i)
+#pragma unroll
+      for (int j = 0; j < EPL; ++j) red[(warp * RC + i) * HD + lane * EPL + j] = acc[i][j];
     __syncthreads();
     for (int idx = tid; idx < RC * HD; idx += THREADS) {
       const int i = idx / HD, d = idx % HD;
       if (r0 + i < GT) {
-        float o = 0.f;
+        double o = 0.0;
 #pragma unroll
         for (int w = 0; w < NWARPS; ++w) o += red[(w * RC + i) * HD + d];
         if (nlive == 1)
-          out_at(r0 + i, d) = from_f<T>(o);
+          out_at(r0 + i, d) = from_f<T>((float)o);
         else
           pt[(size_t)(r0 + i) * HD + d] = o;
       }
@@ -504,40 +520,38 @@ paged_attn_pv_kernel(const void* __restrict__ vpool, const __half* __restrict__ 
   __syncthreads();
   if (!*last) return;
   __threadfence();
-  // four elements per thread (HD % 4 == 0, so one query row), eight chunks'
-  // loads in flight: one block reads nlive * G*Tq * HD floats here
-  const float4* p4 = reinterpret_cast<const float4*>(p0);
-  const size_t stride4 = (size_t)GT * HD / 4;
-  for (int i = tid; i < GT * HD / 4; i += THREADS) {
-    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+  // two elements per thread (HD % 2 == 0, so one query row), eight chunks'
+  // loads in flight: one block reads nlive * G*Tq * HD doubles here
+  const double2* p2 = reinterpret_cast<const double2*>(p0);
+  const size_t stride2 = (size_t)GT * HD / 2;
+  for (int i = tid; i < GT * HD / 2; i += THREADS) {
+    double2 o = make_double2(0.0, 0.0);
 #pragma unroll 8
     for (int j = 0; j < nlive; ++j) {
-      const float4 x = __ldcg(p4 + j * stride4 + i);
-      o.x += x.x; o.y += x.y; o.z += x.z; o.w += x.w;
+      const double2 x = __ldcg(p2 + j * stride2 + i);
+      o.x += x.x; o.y += x.y;
     }
-    const int r = 4 * i / HD, d = 4 * i % HD;
-    out_at(r, d) = from_f<T>(o.x);
-    out_at(r, d + 1) = from_f<T>(o.y);
-    out_at(r, d + 2) = from_f<T>(o.z);
-    out_at(r, d + 3) = from_f<T>(o.w);
+    const int r = 2 * i / HD, d = 2 * i % HD;
+    out_at(r, d) = from_f<T>((float)o.x);
+    out_at(r, d + 1) = from_f<T>((float)o.y);
   }
 }
 
 // The two launches of one read, each adding one to *launched once it is
-// queued.  workspace: float32, partials [B, KV, NS, G*Tq, HD], then scores
-// [B, KV, G*Tq, W*PS], then stats [B, KV, NS, 2, G*Tq], then int32 counters
-// [B, KV].
+// queued.  workspace: float64 partials [B, KV, NS, G*Tq, HD], then float32
+// scores [B, KV, G*Tq, W*PS], then float32 chunk maxima [B, KV, NS, G*Tq],
+// then int32 counters [B, KV].
 template <typename T, int EPL, int KF>
 int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
            const void* table, const void* tpos, void* out, void* workspace, int B, int Tq,
            int H, int KV, int PS, int W, int CW, int NS, float div, int additive,
-           int smem_bytes, void* stream, int* launched) {
+           int bf16sm, int smem_bytes, void* stream, int* launched) {
   constexpr int HD = 32 * EPL;
   const int GT = H / KV * Tq;
-  float* part = static_cast<float*>(workspace);
-  float* scores = part + (size_t)B * KV * NS * GT * HD;
+  double* part = static_cast<double*>(workspace);
+  float* scores = reinterpret_cast<float*>(part + (size_t)B * KV * NS * GT * HD);
   float* stats = scores + (size_t)B * KV * GT * W * PS;
-  int* done = reinterpret_cast<int*>(stats + (size_t)B * KV * NS * 2 * GT);
+  int* done = reinterpret_cast<int*>(stats + (size_t)B * KV * NS * GT);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   // the kernels' dynamic shared-memory limit, raised to the most any plan
   // takes once per device (a bit each), not on every read
@@ -557,13 +571,13 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
   const dim3 grid(KV, B, NS);
   paged_attn_score_kernel<T, EPL, KF><<<grid, THREADS, smem_bytes, st>>>(
       (const T*)q, k, (const __half*)ks, (const int32_t*)table, (const int32_t*)tpos,
-      scores, stats, done, Tq, H, KV, PS, W, CW, NS, div, additive);
+      scores, stats, done, Tq, H, KV, PS, W, CW, NS, div, additive, bf16sm);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ++*launched;
   paged_attn_pv_kernel<T, EPL, KF><<<grid, THREADS, smem_bytes, st>>>(
       v, (const __half*)vs, (const int32_t*)table, (const int32_t*)tpos, scores, stats,
-      part, done, (T*)out, Tq, H, KV, PS, W, CW, NS);
+      part, done, (T*)out, Tq, H, KV, PS, W, CW, NS, bf16sm);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ++*launched;
@@ -574,12 +588,12 @@ template <typename T, int KF>
 int launch_hd(const void* q, const void* k, const void* v, const void* ks, const void* vs,
               const void* table, const void* tpos, void* out, void* workspace, int B,
               int Tq, int H, int KV, int HD, int PS, int W, int CW, int NS, float div,
-              int additive, int smem_bytes, void* stream, int* launched) {
+              int additive, int bf16sm, int smem_bytes, void* stream, int* launched) {
 #define PA_CASE(E)                                                                     \
   case E:                                                                              \
     return launch<T, E, KF>(q, k, v, ks, vs, table, tpos, out, workspace, B, Tq, H,    \
-                            KV, PS, W, CW, NS, div, additive, smem_bytes, stream,  \
-                            launched);
+                            KV, PS, W, CW, NS, div, additive, bf16sm, smem_bytes,  \
+                            stream, launched);
   // the head widths a registered config serves (the LUT-serving model's 64,
   // qwen3-8b's 128); widen the set when a config needs another
   switch (HD / 32) {
@@ -594,13 +608,13 @@ template <typename T>
 int launch_fmt(int kv_fmt, const void* q, const void* k, const void* v, const void* ks,
                const void* vs, const void* table, const void* tpos, void* out,
                void* workspace, int B, int Tq, int H, int KV, int HD, int PS, int W,
-               int CW, int NS, float div, int additive, int smem_bytes, void* stream,
-               int* launched) {
+               int CW, int NS, float div, int additive, int bf16sm, int smem_bytes,
+               void* stream, int* launched) {
 #define PA_FMT(F)                                                                      \
   case F:                                                                              \
     return launch_hd<T, F>(q, k, v, ks, vs, table, tpos, out, workspace, B, Tq, H, KV, \
-                           HD, PS, W, CW, NS, div, additive, smem_bytes, stream,    \
-                           launched);
+                           HD, PS, W, CW, NS, div, additive, bf16sm, smem_bytes,    \
+                           stream, launched);
   switch (kv_fmt) {
     PA_FMT(KV_FP) PA_FMT(KV_I8) PA_FMT(KV_I4)
     default:
@@ -619,14 +633,16 @@ extern "C" {
 // ks / vs [P,PS,KV,1], null for fp.  q [B,Tq,H,HD], table int32 [B,W], tpos
 // int32 [B,Tq], out [B,Tq,H,HD], all contiguous and 16-byte aligned.  The
 // positions of a row are split into NS chunks of CW pages (NS = ceil(W / CW));
-// workspace: 4-byte words, B*KV*(G*Tq*(NS*(HD + 2) + W*PS) + 1) of them,
+// workspace: 4-byte words, B*KV*(G*Tq*(NS*(2*HD + 1) + W*PS) + 1) of them,
 // 16-byte aligned; smem_bytes: dynamic shared memory of the score and PV
-// launches (at most 227 KB).  Adds the CUDA launches it queued to *launched.
+// launches (at most 227 KB).  bf16_softmax: 1 runs the bfloat16 score
+// pipeline, 0 the float32 one.  Adds the CUDA launches it queued to *launched.
 int paged_attention_run(int dtype, int kv_fmt, const void* q, const void* k,
                         const void* v, const void* ks, const void* vs, const void* table,
                         const void* tpos, void* out, void* workspace, int B, int Tq, int H,
                         int KV, int HD, int PS, int W, int CW, int NS, float div,
-                        int additive, int smem_bytes, void* stream, int* launched) {
+                        int additive, int bf16_softmax, int smem_bytes, void* stream,
+                        int* launched) {
   if (B <= 0 || Tq <= 0 || KV <= 0 || H % KV != 0 || (HD != 64 && HD != 128) ||
       PS <= 0 || W <= 0 || CW <= 0 || NS != (W + CW - 1) / CW || workspace == nullptr ||
       smem_bytes > SMEM_MAX || launched == nullptr ||
@@ -635,12 +651,12 @@ int paged_attention_run(int dtype, int kv_fmt, const void* q, const void* k,
   switch (dtype) {
     case 0:
       return launch_fmt<float>(kv_fmt, q, k, v, ks, vs, table, tpos, out, workspace, B, Tq,
-                               H, KV, HD, PS, W, CW, NS, div, additive, smem_bytes, stream,
-                               launched);
+                               H, KV, HD, PS, W, CW, NS, div, additive, bf16_softmax,
+                               smem_bytes, stream, launched);
     case 1:
       return launch_fmt<__nv_bfloat16>(kv_fmt, q, k, v, ks, vs, table, tpos, out,
                                        workspace, B, Tq, H, KV, HD, PS, W, CW, NS, div,
-                                       additive, smem_bytes, stream, launched);
+                                       additive, bf16_softmax, smem_bytes, stream, launched);
     default:
       return (int)cudaErrorInvalidValue;
   }

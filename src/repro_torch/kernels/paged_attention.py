@@ -10,14 +10,19 @@ the query rows: the chunk decides how a query's sums round, so a row reads
 the same bits in a decode, a verify and a prefill call of any batch) and a
 read is two launches over a
 grid of (KV head, row, chunk) blocks: scores of each chunk into a float32
-workspace with the chunk's max and exp-sum; the PV pass of each chunk after
-combining every chunk's (max, sum) in a fixed order, whose last block to
-finish sums the chunks' partials in chunk order.  The softmax stays deferred (exp and normalise against
-the row's global max, probabilities rounded to the input dtype), as in the
-TPU kernel, so it repeats every rounding of the plain version,
-:func:`repro_torch.models.attention.paged_gather_read`; the two differ by
-float32 summation order and the rounding of the per-chunk rescale inside the
-softmax sum.  Pools hold fp pages, or int8 / packed-int4 codes with float16
+workspace with the chunk's max; the PV pass of each chunk after taking the
+row's max over the chunks and its exp-sum over all its scores, whose last
+block to finish sums the chunks' partials in chunk order.  The softmax stays
+deferred (exp and normalise against the row's global max, probabilities
+rounded to the input dtype), as in the TPU kernel, so it repeats every
+rounding of the plain version,
+:func:`repro_torch.models.attention.paged_gather_read`, and its three sums
+(q·k, the exp-sum, p·v) accumulate in float64 as the plain read's do, so
+the two round the same values and agree bit for bit.
+``softmax_dtype="bfloat16"`` runs the reference's bfloat16 score pipeline:
+scores rounded to bfloat16 before the mask, then x - max, exp, the row sum
+and the divide each rounded to bfloat16, as the plain read's ops round
+them.  Pools hold fp pages, or int8 / packed-int4 codes with float16
 scales per (page slot, KV head), dequantized in registers with the plain
 formula.  The workspace comes from torch's allocator on the current stream.
 """
@@ -36,11 +41,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head widths the kernel is built for (the registered configs' 64 and 128)
 HEAD_DIMS = (64, 128)
 _KV_FORMATS = {"fp": 0, "int8": 1, "int4": 2}
+#: the score pipelines the kernel runs (``ModelConfig.softmax_dtype``)
+_SOFTMAX_DTYPES = ("float32", "bfloat16")
 #: dynamic shared memory a block may take (H100: 227 KB)
 SMEM_LIMIT = 227 * 1024
 #: the kernel's warps per block and query rows per accumulation chunk
 #: (``NWARPS`` and ``RC`` in the source): its PV partials take
-#: NWARPS * RC * hd floats of shared memory
+#: NWARPS * RC * hd doubles of shared memory
 _NWARPS, _RC = 8, 8
 #: blocks per SM the split aims at (about two waves), for _PLAN_ROWS batch
 #: rows (the serving width of every path the split was tuned on); the chunk
@@ -64,9 +71,8 @@ def _lib():
     fn = build.load("paged_attention").paged_attention_run
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
-                       + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,
-                                               ctypes.c_int, ctypes.c_void_p,
-                                               ctypes.POINTER(ctypes.c_int)])
+                       + [ctypes.c_int] * 9 + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
     return fn
 
@@ -82,7 +88,7 @@ def split_plan(t: int, h: int, kv: int, hd: int, ps: int, w: int,
     or the PV partials (PV launch), can make it depend on ``t``; no served
     shape comes near that cap."""
     gt = (h // kv) * t
-    base = 4 * max(gt * hd + t, _NWARPS * _RC * hd + 2 * gt)
+    base = max(4 * (gt * hd + t), 8 * _NWARPS * _RC * hd + 4 * 2 * gt)
     per_page = 4 * (gt * ps + 1)
     cap = (SMEM_LIMIT - base) // per_page
     if cap < 1:
@@ -122,8 +128,10 @@ def paged_attention_cuda(q, k_pool, v_pool, page_table, tpos, *,
                          "k_scale and v_scale of shape [P, ps, kv, 1]")
     if page_table.dtype != torch.int32 or tpos.dtype != torch.int32:
         raise TypeError("paged_attention_cuda: page_table and tpos are int32")
-    if str(softmax_dtype) not in ("float32", "torch.float32"):
-        raise NotImplementedError("paged_attention_cuda: softmax runs in float32")
+    sm = str(softmax_dtype).replace("torch.", "")
+    if sm not in _SOFTMAX_DTYPES:
+        raise ValueError(f"paged_attention_cuda: softmax_dtype {softmax_dtype!r} "
+                         f"is not one of {_SOFTMAX_DTYPES}")
     if mask_mode not in ("where", "additive"):
         raise ValueError(f"unknown mask_mode {mask_mode!r}")
     if not all(x.is_contiguous() for x in tensors):
@@ -144,11 +152,12 @@ def paged_attention_cuda(q, k_pool, v_pool, page_table, tpos, *,
         raise ValueError(f"paged_attention_cuda: head_dim {hd} is not one the "
                          f"kernel is built for {HEAD_DIMS}")
     plan = split_plan(t, h, kv, hd, ps, w, build.sms(q.device.index))
-    # partials [B, KV, NS, G*T, hd], scores [B, KV, G*T, W*ps], chunk stats
-    # [B, KV, NS, 2, G*T], int32 counters [B, KV], carved by the kernel in
-    # that order
-    workspace = torch.empty(b * kv * ((h // kv) * t * (plan.ns * (hd + 2) + w * ps) + 1),
-                            dtype=torch.float32, device=q.device)
+    # float64 partials [B, KV, NS, G*T, hd], scores [B, KV, G*T, W*ps],
+    # chunk maxima [B, KV, NS, G*T], int32 counters [B, KV], carved by the
+    # kernel in that order (in 4-byte words)
+    workspace = torch.empty(
+        b * kv * ((h // kv) * t * (plan.ns * (2 * hd + 1) + w * ps) + 1),
+        dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     ks, vs = (x.data_ptr() for x in scales) if scales else (None, None)
     queued = ctypes.c_int(0)
@@ -157,22 +166,25 @@ def paged_attention_cuda(q, k_pool, v_pool, page_table, tpos, *,
                  page_table.data_ptr(), tpos.data_ptr(), out.data_ptr(),
                  workspace.data_ptr(), b, t, h, kv, hd, ps, w, plan.chunk,
                  plan.ns, _score_divisor(hd, q.dtype), int(mask_mode == "additive"),
-                 plan.smem, torch.cuda.current_stream(q.device).cuda_stream,
+                 int(sm == "bfloat16"), plan.smem, torch.cuda.current_stream(q.device).cuda_stream,
                  ctypes.byref(queued))
     paged_attention_cuda.cuda_launches += queued.value
     build.check(err, "paged_attention_run")
     paged_attention_cuda.launches += 1
     paged_attention_cuda.launches_by_format[fmt] += 1
     paged_attention_cuda.launches_by_t[t] = paged_attention_cuda.launches_by_t.get(t, 0) + 1
+    paged_attention_cuda.launches_by_softmax[sm] += 1
     return out
 
 
-#: reads in this process, in all, by page format and by query rows T, and
+#: reads in this process, in all, by page format, by query rows T and by
+#: softmax dtype, and
 #: the CUDA launches the kernel's entry point queued for them (reset by
 #: callers that count a run)
 paged_attention_cuda.launches = 0
 paged_attention_cuda.launches_by_format = dict.fromkeys(_KV_FORMATS, 0)
 paged_attention_cuda.launches_by_t = {}
+paged_attention_cuda.launches_by_softmax = dict.fromkeys(_SOFTMAX_DTYPES, 0)
 paged_attention_cuda.cuda_launches = 0
 
 

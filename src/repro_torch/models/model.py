@@ -3,15 +3,24 @@
 Parameters are a dict ``{"embed", "blocks": [per-layer dict], "final_norm",
 "lm_head"}``; the reference stacks each layer position over periods and
 scans, the port keeps one dict per layer (see ``repro_torch.convert``).
+Configs with ``modality`` audio or vlm have no ``embed`` table: their
+frontends are stubs, and the backbone takes precomputed frame or patch
+embeddings ``[B, T, d_model]`` in place of token ids.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import PagedKVCache, attention_forward, init_attention
+from repro_torch.models.attention import (
+    KVCache,
+    attention_forward,
+    causal_bias,
+    init_attention,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_embed,
@@ -36,9 +45,11 @@ def init_block(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def block_forward(p, x: torch.Tensor, cfg: ModelConfig, positions,
-                  cache: PagedKVCache, page_table) -> torch.Tensor:
+                  cache=None, page_table=None, *, update_cache: bool = False,
+                  attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     h = apply_norm(p["norm_mixer"], x, cfg)
-    x = x + attention_forward(p["mixer"], h, cfg, positions, cache, page_table)
+    x = x + attention_forward(p["mixer"], h, cfg, positions, cache, page_table,
+                              update_cache=update_cache, attn_bias=attn_bias)
     h = apply_norm(p["norm_ffn"], x, cfg)
     return x + apply_mlp(p["ffn"], h, cfg)
 
@@ -48,36 +59,105 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     ``torch.Generator`` seeded with ``seed`` on ``device``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return {"blocks": [init_block(gen, cfg) for _ in range(cfg.n_layers)],
-            "final_norm": init_norm(cfg, cfg.d_model, dev),
-            "lm_head": init_lm_head(gen, cfg),
-            "embed": init_embed(gen, cfg)}
+    return _init_tree(gen, cfg)
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-            positions: torch.Tensor, caches: Dict[str, PagedKVCache],
-            page_table: torch.Tensor, last_idx: Optional[torch.Tensor] = None):
-    """tokens [B, T] int; positions [B, T] int32 (pad lanes carry the
-    garbage position); caches ``{"pos_0": PagedKVCache[n_periods, ...]}``
-    updated in place; page_table int32 [B, W].
+def _init_tree(gen, cfg: ModelConfig) -> Params:
+    params = {"blocks": [init_block(gen, cfg) for _ in range(cfg.n_layers)],
+              "final_norm": init_norm(cfg, cfg.d_model, gen.device),
+              "lm_head": init_lm_head(gen, cfg)}
+    if cfg.modality == "text":
+        params["embed"] = init_embed(gen, cfg)
+    return params
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+                device="cuda") -> Params:
+    """Dense decode caches stacked over periods: ``{"pos_0": KVCache
+    [n_periods, batch, max_len, kv, hd]}`` on ``device``."""
+    dev = resolve_device(device)
+    return {f"pos_{pos}": KVCache.zeros(cfg, batch, max_len,
+                                        dtype or cfg.dtype(), device=dev,
+                                        stack=(cfg.n_periods,))
+            for pos in range(cfg.period)}
+
+
+def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
+            positions: Optional[torch.Tensor] = None,
+            caches: Optional[Params] = None,
+            page_table: Optional[torch.Tensor] = None,
+            last_idx: Optional[torch.Tensor] = None, *,
+            update_cache: bool = False, last_logit_only: bool = False):
+    """inputs: tokens [B, T] int, or embeddings [B, T, D] (audio and vlm
+    configs).  positions: int32 [B, T] (pad lanes carry the garbage
+    position), or [B, T, 3] under M-RoPE; None counts 0..T-1.
+
+    caches: None (causal self-attention over the segment), dense
+    ``{"pos_0": KVCache}`` from :func:`init_caches` (``update_cache``: a
+    prefill into an empty cache; else decode over the cache), or paged
+    ``{"pos_0": PagedKVCache}`` with ``page_table`` int32 [B, W].  Caches
+    are updated in place.
 
     ``last_idx`` int [B]: per-row index of the last real token, gathered
-    before the LM head (logits [B, 1, V]).  Returns (logits, caches)."""
-    h = apply_embed(params["embed"], tokens)
+    before the LM head (logits [B, 1, V]); ``last_logit_only`` keeps the
+    last position.  Returns (logits, caches)."""
+    if inputs.ndim == 2:
+        h = apply_embed(params["embed"], inputs)
+    else:
+        h = inputs.to(cfg.dtype())
+    b, t = h.shape[0], h.shape[1]
+    if positions is None:
+        positions = torch.arange(t, dtype=torch.int32,
+                                 device=h.device)[None].expand(b, t)
+    attn_bias = (causal_bias(t, device=h.device)
+                 if cfg.attn_impl == "lean" and t > 1 else None)
     for layer, bp in enumerate(params["blocks"]):
-        pos, pidx = layer % cfg.period, layer // cfg.period
-        cache = caches[f"pos_{pos}"].layer(pidx)
-        h = block_forward(bp, h, cfg, positions, cache, page_table)
+        cache = None
+        if caches is not None:
+            pos, pidx = layer % cfg.period, layer // cfg.period
+            cache = caches[f"pos_{pos}"].layer(pidx)
+        h = block_forward(bp, h, cfg, positions, cache, page_table,
+                          update_cache=update_cache, attn_bias=attn_bias)
     if last_idx is not None:
         rows = torch.arange(h.shape[0], device=h.device)
         h = h[rows, last_idx.long()][:, None]
+    elif last_logit_only:
+        h = h[:, -1:]
     h = apply_norm(params["final_norm"], h, cfg)
     return apply_lm_head(params["lm_head"], h), caches
 
 
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy in float32."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+class _ShapeGen:
+    """Stands in for a generator on the meta device: the init functions
+    then build tensors with shapes and dtypes and no data."""
+
+    device = torch.device("meta")
+
+
 def count_params(cfg: ModelConfig) -> int:
-    """Parameters of :func:`init_model`'s tree for ``cfg``, from the shapes."""
-    d, hd = cfg.d_model, cfg.head_dim_
-    attn = 2 * d * cfg.q_dim + 2 * d * cfg.kv_dim + (2 * hd if cfg.qk_norm else 0)
-    block = 2 * d + attn + 3 * d * cfg.d_ff
-    return cfg.n_layers * block + d + 2 * cfg.vocab * d
+    """Parameters of :func:`init_model`'s tree for ``cfg``, counted from the
+    tree's shapes (built on the meta device, no bytes)."""
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from leaves(v)
+        elif isinstance(tree, list):
+            for v in tree:
+                yield from leaves(v)
+        else:
+            yield tree
+
+    return sum(math.prod(x.shape) for x in leaves(_init_tree(_ShapeGen(), cfg)))
+
+
+def count_active_params(cfg: ModelConfig) -> int:
+    """Parameters a token touches: all of them in a dense stack."""
+    return count_params(cfg)

@@ -78,7 +78,11 @@ from repro_torch.spec import (
     make_provider,
     make_verify_step,
 )
-from repro_torch.spec.decode import make_fused_draft, make_paged_step
+from repro_torch.spec.decode import (  # noqa: F401  (mk_positions re-exported)
+    make_fused_draft,
+    make_paged_step,
+    mk_positions,
+)
 
 
 @dataclasses.dataclass
@@ -630,11 +634,14 @@ class PagedScheduler:
                 used_pages=self.pool.used_pages)
         return live
 
-    def _pack_rows(self, rows, toks, poss, n_rows: int, t_step: int):
+    def _pack_rows(self, rows, toks, poss, n_rows: int, t_step: int,
+                   cfg: Optional[ModelConfig] = None):
         """One fixed-shape batch from per-lane token and position lists, as
-        device tensors.  Pad rows and columns carry the garbage position
-        (never a negative one), so their writes land in the garbage page and
-        every real row's ``kpos <= tpos`` mask excludes them."""
+        device tensors, the positions shaped for ``cfg`` (default the
+        target's; ``[B, T, 3]`` under M-RoPE).  Pad rows and columns carry
+        the garbage position (never a negative one), so their writes land
+        in the garbage page and every real row's ``kpos <= tpos`` mask
+        excludes them."""
         tokens = np.zeros((n_rows, t_step), np.int32)
         positions = np.full((n_rows, t_step), self.pad_pos, np.int32)
         last_idx = np.zeros((n_rows,), np.int32)
@@ -646,8 +653,11 @@ class PagedScheduler:
             last_idx[r] = n - 1
             table[r, : len(l.pages)] = l.pages
         dev = self.device
-        return tuple(torch.from_numpy(a).to(dev)
-                     for a in (tokens, positions, table, last_idx))
+        tokens, positions, table, last_idx = (
+            torch.from_numpy(a).to(dev)
+            for a in (tokens, positions, table, last_idx))
+        return (tokens, mk_positions(cfg or self.cfg, positions), table,
+                last_idx)
 
     def _run_batch(self, rows, plan, n_rows: int, t_step: int) -> np.ndarray:
         """One call of the step for ``rows`` = [(batch_row, lane_idx, lane)],
@@ -801,7 +811,8 @@ class PagedScheduler:
     def _run_draft(self, rows, toks, poss, width: int,
                    t_step: int) -> np.ndarray:
         """One fused draft call → all gamma proposals [width, gamma]."""
-        batch = self._pack_rows(rows, toks, poss, width, t_step)
+        batch = self._pack_rows(rows, toks, poss, width, t_step,
+                                self._provider.cfg)
         shared = self._provider.shared_cache
         with self._issue("draft", width, t_step), torch.inference_mode():
             drafts, new = self._draft_step(
@@ -814,7 +825,8 @@ class PagedScheduler:
         return drafts.cpu().numpy()
 
     def _run_ingest(self, rows, toks, poss, width: int, t_step: int) -> None:
-        batch = self._pack_rows(rows, toks, poss, width, t_step)
+        batch = self._pack_rows(rows, toks, poss, width, t_step,
+                                self._provider.cfg)
         with self._issue("ingest", width, t_step), torch.inference_mode():
             _, self.draft_caches = self._draft_ingest(
                 self._provider.params, self.draft_caches, *batch)

@@ -82,6 +82,14 @@ def breakeven_acceptance(gamma: int, cost_ratio: float) -> float:
     return min(1.0, max(0.0, cost_ratio))
 
 
+def mk_positions(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
+    """Shape positions for the model: [B, T] → [B, T, 3] under M-RoPE (the
+    temporal, height and width coordinates of a text token are one)."""
+    if cfg.mrope_sections:
+        return torch.stack([pos, pos, pos], dim=-1)
+    return pos
+
+
 def make_fused_draft(step_fn, gamma: int):
     """The whole gamma-token draft loop as one call: (params, caches, tokens
     [B,T], positions, page_table, last_idx) → (drafts [B, gamma] int32,
@@ -100,12 +108,16 @@ def make_fused_draft(step_fn, gamma: int):
         logits, caches = step_fn(params, caches, tokens, positions,
                                  page_table, last_idx)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)          # [B]
-        pos = torch.gather(positions, 1, last_idx.long()[:, None])[:, 0] + 1
+        tpos = positions[..., 0] if positions.ndim == 3 else positions
+        pos = torch.gather(tpos, 1, last_idx.long()[:, None])[:, 0] + 1
         drafts = [tok]
         zero = torch.zeros_like(last_idx)
         for _ in range(gamma - 1):
-            lg, caches = step_fn(params, caches, tok[:, None],
-                                 pos[:, None].to(torch.int32), page_table, zero)
+            nxt = pos[:, None].to(torch.int32)
+            if positions.ndim == 3:  # M-RoPE: one coordinate per section
+                nxt = nxt[..., None].expand(-1, -1, positions.shape[-1])
+            lg, caches = step_fn(params, caches, tok[:, None], nxt,
+                                 page_table, zero)
             tok = torch.argmax(lg, dim=-1).to(torch.int32)
             drafts.append(tok)
             pos = pos + 1

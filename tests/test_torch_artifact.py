@@ -249,9 +249,9 @@ def test_model_config_manifest_matches_reference():
     ref_only = {f.name: f.default for f in dataclasses.fields(JModelConfig)
                 if f.name not in {g.name for g in dataclasses.fields(ModelConfig)}}
     assert tconfig._REFERENCE_ONLY == ref_only
-    with pytest.raises(NotImplementedError, match="mlp_act"):
+    with pytest.raises(NotImplementedError, match="tie_embeddings"):
         ModelConfig.from_manifest(dataclasses.asdict(
-            dataclasses.replace(jcfg, mlp_act="gelu")))
+            dataclasses.replace(jcfg, tie_embeddings=True)))
     with pytest.raises(NotImplementedError, match="family"):
         ModelConfig.from_manifest(dataclasses.asdict(
             dataclasses.replace(jcfg, family="moe")))

@@ -184,6 +184,8 @@ def test_paged_kernel_matches_plain(card, dtype, atol, mask_mode, case):
     out = paged_attention(*args, mask_mode=mask_mode)
     ref = paged_gather_read(*args, mask_mode=mask_mode)
     assert (out.float() - ref.float()).abs().max().item() <= atol
+    # both sum in float64 and round at the same points: the same bits
+    assert torch.equal(out, ref)
     assert (paged_attention_cuda.launches, paged_attention_cuda.cuda_launches) == (
         before[0] + 1, before[1] + 2)
     # the PV launch's last block sums the chunks in a fixed order: same bits
@@ -205,6 +207,7 @@ def test_paged_kernel_reads_quantized_pools(card, kv_dtype, dtype, atol, case):
     out = paged_attention(q, kc, vc, table, tpos, k_scale=ks, v_scale=vs)
     ref = paged_gather_read(q, kc, vc, table, tpos, k_scale=ks, v_scale=vs)
     assert (out.float() - ref.float()).abs().max().item() <= atol
+    assert torch.equal(out, ref)
     assert paged_attention_cuda.launches_by_format[kv_dtype] == before + 1
     with pytest.raises(ValueError, match="head_dim"):
         paged_attention(*_paged_case(gen, card, torch.float32, 1, [5], hd=16))
@@ -213,6 +216,71 @@ def test_paged_kernel_reads_quantized_pools(card, kv_dtype, dtype, atol, case):
         (kc, ks), (vc, vs) = (kv_quant.quantize_kv(x, kv_dtype) for x in (k, v))
         with pytest.raises(ValueError, match="head_dim"):
             paged_attention(q, kc, vc, table, tpos, k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.parametrize("case", ["short", "verify", "long_t1", "all_masked"])
+@pytest.mark.parametrize("kv_dtype", ["fp16", "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_kernel_bf16_softmax_matches_plain(card, dtype, kv_dtype, case):
+    """The bfloat16 score pipeline (softmax_dtype="bfloat16") over fp, int8
+    and int4 pages, at decode and at verify (T = 4, the pad column), within
+    2e-2 of the plain read (the reference's tolerance for its kernel: one
+    bf16 ulp per reduction of the softmax), and EQUAL to it, since both sum
+    in float64 and round at the same points."""
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.models.attention import paged_gather_read
+
+    gen = torch.Generator(device=card).manual_seed(8)
+    q, k, v, table, tpos = _paged_args(gen, card, dtype, case)
+    scales = {}
+    if kv_dtype != "fp16":
+        (k, ks), (v, vs) = (kv_quant.quantize_kv(x, kv_dtype) for x in (k, v))
+        scales = {"k_scale": ks, "v_scale": vs}
+    before = paged_attention_cuda.launches_by_softmax["bfloat16"]
+    for mode in ("where", "additive"):
+        out = paged_attention(q, k, v, table, tpos, softmax_dtype="bfloat16",
+                              mask_mode=mode, **scales)
+        ref = paged_gather_read(q, k, v, table, tpos, softmax_dtype="bfloat16",
+                                mask_mode=mode, **scales)
+        assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+        assert torch.equal(out, ref)
+    assert paged_attention_cuda.launches_by_softmax["bfloat16"] == before + 2
+    with pytest.raises(ValueError, match="softmax_dtype"):
+        paged_attention(q, k, v, table, tpos, softmax_dtype="float16", **scales)
+
+
+def test_slot_runtime_serves_on_the_card(card, monkeypatch):
+    """runtime="slots" on the card: the dense cache lives there, every
+    matrix runs the bit-plane kernel, no attention kernel is launched, and
+    the tokens EQUAL the same serve with the kernel swapped for its plain
+    version (exact int32 either way)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg, params = _tiny_frozen_engine_params()
+    rng = np.random.default_rng(3)
+    prompts = {u: rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for u, n in enumerate((5, 19, 33, 12))}
+
+    def serve(runtime):
+        eng = ServeEngine(cfg, params, batch_size=2, max_len=64, runtime=runtime)
+        for u, p in prompts.items():
+            eng.submit(Request(uid=u, prompt=p, max_new_tokens=8))
+        done = eng.run()
+        return eng, {u: done[u].generated for u in done}
+
+    bp, pa = bitplane_vmm_cuda.launches, paged_attention_cuda.launches
+    eng, slots = serve("slots")
+    assert eng.caches["pos_0"].k.device.type == "cuda"
+    assert bitplane_vmm_cuda.launches > bp
+    assert paged_attention_cuda.launches == pa
+    assert eng.metrics()["prefill_compiles"] == 4   # buckets 8, 16, 32, 64
+    monkeypatch.setattr(ops, "bitplane_vmm", ref.bitplane_vmm_ref)
+    bp = bitplane_vmm_cuda.launches
+    assert serve("slots")[1] == slots
+    assert bitplane_vmm_cuda.launches == bp
 
 
 def test_entry_points_run_on_the_card(card):
