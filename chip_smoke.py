@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                    # every phase
     python3 chip_smoke.py --phase attention  # build, then the attention phase
-    python3 chip_smoke.py --phase vmm        # build, then the two VMM phases
+    python3 chip_smoke.py --phase vmm        # build, then the VMM phases
     python3 chip_smoke.py --phase plans      # build, then the VMM plans' sweep
     python3 chip_smoke.py --phase ci_boot    # build, then one boot and serve
                                              # of the CI smoke's artifact
@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phase obs        # build, then phase 12 alone
     python3 chip_smoke.py --phase auto       # build, then phase 13 alone
     python3 chip_smoke.py --phase dense      # build, then phases 14-15 alone
+    python3 chip_smoke.py --phase families   # build, then phases 16-19 alone
     python3 chip_smoke.py --out FILE         # every JSON line also to FILE
     python3 chip_smoke.py --phase attention --src OTHER/src
     python3 chip_smoke.py --phase vmm --src OTHER/src
@@ -144,6 +145,37 @@ Phases, one JSON line each:
    ``pallas_bitplane``: a 16-row embedding prefill into ``init_caches`` and
    4 decode steps against the plain-swapped forward, logits EQUAL.
 
+16. the families' shapes (``family_shapes``, run after phase 3): the
+   bit-plane kernel at every matrix shape of mamba2-780m and qwen2-moe-a2.7b
+   (FAMILY_VMM_SHAPES) at M = 4 and 64, and the attention kernel at
+   qwen2-moe's heads (MHA, 16 KV heads of 128, bf16) at decode and a
+   prefill chunk over fp, int8 and int4 pages: EQUAL; then the
+   stacked-expert VMMs (``stacked_vmm``): qwen2-moe's expert stack
+   [64, 2048, 1408] at C = 4 and 16 rows per expert through the bit-plane
+   kernel and a LUT-carrying [6, 256, 512] stack through the LUT-readout
+   kernel, one call per expert, EQUAL to the plain versions' loop and,
+   through the engine's ``dense``, to the same call under the plain
+   versions; each timed with its bound and ``torch._int_mm`` over the
+   experts;
+17. ``serve_ssm``: mamba2-780m (48 layers, d 1536, 48 SSD heads, state 128,
+   vocab 50280) at full size, seed-0 weights frozen by ``da_mode="auto"``
+   (``bitplane_stacked`` throughout, 97 bit-plane calls per forward), the
+   phase-6 requests on ``runtime="auto"`` (the slot runtime: exact-length
+   prefills into a MambaCache), tokens EQUAL to the plain-swapped serve's,
+   and a width-4 decode window;
+18. ``serve_moe``: qwen2-moe-a2.7b (24 layers, d 2048, MHA 16 heads, q/k/v
+   biases, 60 experts padded to 64, top-4, 4 shared, vocab 151936) at full
+   size, dropless, the same freeze (4729 bit-plane calls per forward, one
+   per expert of each stacked pack), the phase-6 requests on the paged
+   runtime with the attention kernel, tokens EQUAL to the plain-swapped
+   serve's, and a width-4 decode window;
+19. ``family_variants``: jamba-1.5-large-398b at one period (8 of its 72
+   layers, full width: attention at position 4, Mamba elsewhere, MoE at 1,
+   3, 5 and 7; initialised and frozen block by block, since its bf16
+   weights do not fit the card beside its codes) and moonshot-v1-16b-a3b at
+   4 of 48 layers: a 16-row prefill into ``init_caches`` (KVCache and
+   MambaCache) and 4 decode steps, kernels against plain logits EQUAL.
+
 ``--phase plans`` runs none of these after the build: it times each
 constant of the two VMM plans (kernels/bitplane_vmm.py, kernels/da_vmm.py)
 against its alternatives at the shapes of phases 2-3, each EQUAL to the
@@ -152,8 +184,8 @@ plain version, and the attention split's rows constant
 EQUAL to the plain read (within ATTN_ATOL for an older checkout's, --src),
 in two passes of opposite order.
 
-Each path (6-15, each leg of 10 and 11, each run of 12 and 14, each model of
-15) sets the kernels' launch counts
+Each path (6-15 and 17-19, each leg of 10 and 11, each run of 12 and 14,
+each model of 15 and 19) sets the kernels' launch counts
 to 0 just before it runs and reads them just after.  Then the
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and last
 the ``{"ok": true, "device": ...}`` line.  Any failed check raises and the
@@ -235,7 +267,9 @@ PATH_DTYPE = {"serve": "bfloat16", "serve_int8kv": "bfloat16",
               "serve_obs": "bfloat16",
               "artifact_lut": "float32", "artifact_lut_spec": "float32",
               "artifact_ci": "float32", "artifact_auto": "float32",
-              "serve_dense": "bfloat16", "dense_variants": "bfloat16"}
+              "serve_dense": "bfloat16", "dense_variants": "bfloat16",
+              "serve_ssm": "bfloat16", "serve_moe": "bfloat16",
+              "family_variants": "bfloat16"}
 
 
 #: a file that receives every emitted line too (``--out``), for lines the
@@ -496,12 +530,11 @@ def phase_int8(flush):
     return rows
 
 
-def _lut_bound(xq, luts, cfg):
-    """Least time for this data: the distinct LUT rows its addresses read,
-    plus the codes and the output, at the HBM rate; or the int32 adds at the
-    CUDA cores' rate, whichever is larger."""
-    import torch
-
+def _lut_terms(xq, luts, cfg):
+    """The two least times for this data: the distinct LUT rows its
+    addresses read, plus the codes and the output, at the HBM rate; and the
+    int32 adds at the CUDA cores' rate.  Returns ({bytes, operations} ms,
+    rows read)."""
     from repro_torch.core.da import group_addresses
 
     m, k = xq.shape
@@ -509,8 +542,13 @@ def _lut_bound(xq, luts, cfg):
     addr = group_addresses(xq, cfg).permute(2, 0, 1).reshape(g, -1)
     srt = addr.sort(dim=1).values
     rows = int(g + (srt[:, 1:] != srt[:, :-1]).sum())
-    bound = {"bytes": (4 * rows * n + 4 * m * k + 4 * m * n) / HBM_BYTES_PER_S * 1e3,
-             "operations": m * cfg.x_bits * g * n / INT32_OPS_PER_S * 1e3}
+    return ({"bytes": (4 * rows * n + 4 * m * k + 4 * m * n) / HBM_BYTES_PER_S * 1e3,
+             "operations": m * cfg.x_bits * g * n / INT32_OPS_PER_S * 1e3}, rows)
+
+
+def _lut_bound(xq, luts, cfg):
+    """Least time for this data: the larger of :func:`_lut_terms`' two."""
+    bound, rows = _lut_terms(xq, luts, cfg)
     by = max(bound, key=bound.get)
     return bound[by], by, rows
 
@@ -2183,6 +2221,448 @@ def phase_dense_variants():
     return _merge_counts(counts_all)
 
 
+#: the families' VMM shapes the vmm check holds the bit-plane kernel to, at
+#: M = 4 and 64: mamba2-780m's in_proj, out_proj and LM head, qwen2-moe's
+#: fused q|k|v, wo, expert up / gate and down, shared-expert up / gate and
+#: down and LM head (each expert of a stacked pack is a 2-D call)
+FAMILY_VMM_SHAPES = ((1536, 6448), (3072, 1536), (1536, 50280), (2048, 6144),
+                     (2048, 2048), (2048, 1408), (1408, 2048), (2048, 5632),
+                     (5632, 2048), (2048, 151936))
+#: qwen2-moe's attention heads (MHA: 16 query heads over 16 KV heads of 128)
+MOE_HEADS = dict(h=16, kv=16, hd=128)
+#: the stacked-expert checks: qwen2-moe's [64, 2048, 1408] expert stack at
+#: C = 4 and 16 rows per expert through the bit-plane kernel, and a
+#: LUT-carrying [6, 256, 512] stack through the LUT-readout kernel
+STACKED_BITPLANE = (64, 2048, 1408, (4, 16))
+STACKED_LUT = (6, 256, 512, (4, 16))
+
+
+def phase_family_shapes():
+    """The two kernels the families' paths run, held EQUAL to their plain
+    versions at those paths' shapes before any serve: the bit-plane kernel
+    at every FAMILY_VMM_SHAPES shape at M = 4 and 64 (8-bit codes), and the
+    attention kernel at qwen2-moe's head shape (bf16, hd 128, 16 KV heads:
+    one query head per KV head) at decode (B=4, T=1, W=17) and a prefill
+    chunk (T=16), over fp, int8 and int4 pages, both mask modes."""
+    import torch
+
+    from repro_torch.core.da import DAConfig
+    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
+    from repro_torch.kernels.ref import bitplane_vmm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cfg = DAConfig(x_bits=8, x_signed=True)
+    checked = []
+    for k, n in FAMILY_VMM_SHAPES:
+        wq = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        for m in (4, 64):
+            xq = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                               dtype=torch.int32)
+            if not torch.equal(bitplane_vmm_cuda(xq, wq, cfg),
+                               bitplane_vmm_ref(xq, wq, cfg)):
+                raise AssertionError(f"bitplane kernel != plain at M={m} K={k} N={n}")
+            checked.append(f"M={m} K={k} N={n}")
+        del wq
+    rows = []
+    for b, t, w in ((4, 1, 17), (4, 16, 17)):
+        for mode in ("where", "additive"):
+            rows += _attention_case(gen, b, t, w, mode, "bfloat16", MOE_HEADS, None)
+    torch.cuda.empty_cache()
+    emit({"phase": "family_shapes", "bitplane_equal": checked,
+          "attention_heads": MOE_HEADS,
+          "attention_cases": [{k: r[k] for k in ("b", "t", "w", "kv", "mask_mode",
+                                                 "equal", "max_abs_err")}
+                              for r in rows]})
+
+
+def phase_stacked_vmm(flush):
+    """Stacked-expert packs through both VMM kernels, one call per expert:
+    qwen2-moe's expert stack [64, 2048, 1408] (int8 codes) at C = 4 and 16
+    rows per expert through the bit-plane kernel, and a LUT-carrying
+    [6, 256, 512] stack through the LUT-readout kernel, each at the integer
+    level EQUAL to the plain versions' loop over the experts and through the
+    engine (``dense`` on a bf16 [E, C, K] input) EQUAL to the same call
+    under ``plain_vmm()``, which launches none.  Each timed: the E calls of
+    one stacked VMM on the event timers and by kernel on the device, the
+    plain loop, the bound, and ``torch._int_mm`` over the E experts."""
+    import torch
+
+    from repro_torch.core.da import DAConfig, build_luts
+    from repro_torch.core.engine import (
+        PackedWeights,
+        dense,
+        int_mm_acts,
+        int_mm_weights,
+    )
+    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
+    from repro_torch.kernels.da_vmm import da_vmm_cuda
+    from repro_torch.kernels.ref import bitplane_vmm_ref, da_vmm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cfg = DAConfig(x_bits=8, x_signed=True)
+    rows = []
+    for name, (e, k, n, cs) in (("bitplane_vmm", STACKED_BITPLANE),
+                                ("da_vmm", STACKED_LUT)):
+        lut = name == "da_vmm"
+        wq = torch.randint(-127, 128, (e, k, n), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        luts = (torch.stack([build_luts(wq[i], cfg.group_size) for i in range(e)])
+                if lut else None)
+        kernel = da_vmm_cuda if lut else bitplane_vmm_cuda
+        plain = da_vmm_ref if lut else bitplane_vmm_ref
+        table = (lambda i: luts[i]) if lut else (lambda i: wq[i])  # noqa: E731
+        pack = PackedWeights(wq=wq, w_scale=torch.rand(
+            (e, 1, n), generator=gen, device="cuda") / 100, luts=luts, cfg=cfg,
+            mode="pallas_lut" if lut else "pallas_bitplane")
+        for c in cs:
+            xq = torch.randint(-128, 128, (e, c, k), generator=gen, device="cuda",
+                               dtype=torch.int32)
+
+            def stacked():
+                return [kernel(xq[i], table(i), cfg) for i in range(e)]
+
+            before = kernel.launches
+            got = torch.stack(stacked())
+            launches = kernel.launches - before
+            want = torch.stack([plain(xq[i], table(i), cfg) for i in range(e)])
+            x = torch.randn((e, c, k), generator=gen, device="cuda").to(torch.bfloat16)
+            y = dense(x, pack)
+            before = kernel.launches
+            with plain_vmm():
+                y_plain = dense(x, pack)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(y, y_plain)
+                    and launches == e and kernel.launches == before):
+                raise AssertionError(f"stacked {name} [{e}, {k}, {n}] at C={c}: "
+                                     "kernels != plain loop")
+            row = {"kernel": name, "experts": e, "k": k, "n": n, "c": c,
+                   "x_bits": 8, "launches_per_stacked_vmm": launches,
+                   "equal": True, "max_abs_err": 0,
+                   **call_times(stacked, flush,
+                                LUT_KERNELS if lut else BITPLANE_KERNELS)}
+            row["plain_ms"] = time_cuda(
+                lambda: [plain(xq[i], table(i), cfg) for i in range(e)], 3, flush, 1)
+            w8 = [int_mm_weights(wq[i]) for i in range(e)]
+            x8 = [int_mm_acts(xq[i], w8[i].shape[0]) for i in range(e)]
+            row["library_ms"] = time_cuda(
+                lambda: [torch._int_mm(a, b) for a, b in zip(x8, w8)], 20, flush)
+            if lut:  # the rows each expert's addresses read of its own tables
+                both = {"bytes": 0.0, "operations": 0.0}
+                for i in range(e):
+                    for key, v in _lut_terms(xq[i], luts[i], cfg)[0].items():
+                        both[key] += v
+            else:
+                nbytes = e * (k * n + 4 * c * k + 4 * c * n)
+                ops = 2 * e * c * k * n * cfg.x_bits
+                both = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                        "operations": ops / INT8_OPS_PER_S * 1e3}
+            by = max(both, key=both.get)
+            row.update(bound_ms=both[by], bound_by=by)
+            rows.append(row)
+            del xq, got, want, w8, x8
+        del wq, luts, pack
+        torch.cuda.empty_cache()
+    emit({"phase": "stacked_vmm", "plain": "the plain versions, expert by expert",
+          "library": "torch._int_mm per expert (" + LIBRARY + "), E calls",
+          "shapes": rows})
+    return rows
+
+
+def _auto_plan_check(name, plan):
+    """The analytic plan at these widths: ``bitplane_stacked`` throughout,
+    no LUTs (no matrix's tables fit the cell budget)."""
+    modes = sorted({p.mode for p in plan.values()})
+    if modes != ["bitplane_stacked"] or any(p.with_luts for p in plan.values()):
+        raise AssertionError(f"{name}'s auto plan is not bitplane_stacked "
+                             f"throughout: {modes}")
+    return modes
+
+
+def _calls_per_forward(params, cfg) -> int:
+    """Bit-plane kernel calls of one forward (a 4-token prompt, no cache)."""
+    import torch
+
+    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
+    from repro_torch.models.model import forward
+
+    tokens = torch.zeros((1, 4), dtype=torch.int32, device="cuda")
+    before = bitplane_vmm_cuda.launches
+    with torch.inference_mode():
+        forward(params, tokens, cfg, last_logit_only=True)
+    torch.cuda.synchronize()
+    return bitplane_vmm_cuda.launches - before
+
+
+def _family_serve(phase, cfg, runtime, reckoned):
+    """Seed-0 weights of ``cfg`` made on the card, frozen by
+    ``da_mode="auto"`` (analytic plan: ``bitplane_stacked`` throughout), the
+    phase-6 requests served on ``runtime`` through the kernels and again
+    with every kernel swapped for its plain version: tokens EQUAL, 0
+    launches on the plain side; then a window of 4 width-4 decode steps."""
+    import torch
+
+    from repro_torch.core.freeze import packed_leaves
+    from repro_torch.models.model import init_model
+    from repro_torch.serve.engine import ServeEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    float_gb = sum(x.numel() * x.element_size() for x in _tensors(params)) / 1e9
+    kw = dict(DENSE_SERVE)
+    if runtime == "slots":
+        kw.pop("page_size")
+    eng = ServeEngine(cfg, params, runtime="auto", da_mode="auto", device="cuda", **kw)
+    if eng.runtime != runtime:
+        raise AssertionError(f"{cfg.name}: runtime='auto' picked {eng.runtime}")
+    frozen, plan = eng.params, eng.artifact.plan
+    del params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    modes = _auto_plan_check(cfg.name, plan)
+    code_bytes = sum(w.wq.numel() for _, w in packed_leaves(frozen))
+    calls = _calls_per_forward(frozen, cfg)
+    if calls != reckoned["calls_per_forward"]:
+        raise AssertionError(f"{cfg.name}: {calls} bit-plane calls per forward, "
+                             f"reckoned {reckoned['calls_per_forward']}")
+    emit({"phase": f"{phase}_freeze", "model": cfg.name, "family": cfg.family,
+          "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
+          "plan_modes": modes, "matrices": len(plan),
+          "float_gb": float_gb, "code_gb": code_bytes / 1e9,
+          "peak_mem_gb_freeze": torch.cuda.max_memory_allocated() / 1e9,
+          "calls_per_forward": calls, "reckoned": reckoned,
+          "init_s": t1 - t0, "freeze_s": t2 - t1})
+    tokens, runs = {}, {}
+    for side in ("kernels", "plain"):
+        kw = dict(DENSE_SERVE)
+        if runtime == "paged":
+            kw["paged_attn"] = "fused" if side == "kernels" else "gather"
+        else:
+            kw.pop("page_size")
+        eng = ServeEngine(cfg, frozen, runtime=runtime, device="cuda", **kw)
+        torch.cuda.reset_peak_memory_stats()
+        with (plain_vmm() if side == "plain" else contextlib.nullcontext()):
+            reqs, done, counts = _serve_requests(eng, cfg.vocab, 8)
+        tokens[side] = _tokens(done, reqs)
+        line = (_serve_line if runtime == "paged" else _slot_line)(
+            phase, eng, reqs, done, counts, side=side)
+        line.update(runtime=runtime, calls_per_forward=calls)
+        if side == "kernels":
+            want = ("bitplane_vmm", "paged_attention") if runtime == "paged" \
+                else ("bitplane_vmm",)
+            if min(counts[k] for k in want) <= 0 or (
+                    runtime == "slots" and counts["paged_attention"]):
+                raise AssertionError(f"{phase}: kernels of the path not "
+                                     f"launched as expected: {counts}")
+            runs[side] = counts
+            emit(line)
+            window = decode_window(eng, cfg.vocab)
+            window["phase"] = f"decode_step_{phase}"
+            emit(window)
+        else:
+            if any(counts[k] for k in ("bitplane_vmm", "da_vmm", "paged_attention")):
+                raise AssertionError(f"{phase}: the plain side launched a kernel: "
+                                     f"{counts}")
+            emit(line)
+        del eng
+        gc.collect()
+    equal = tokens["kernels"] == tokens["plain"]
+    emit({"phase": phase, "model": cfg.name, "tokens_equal": equal})
+    if not equal:
+        raise AssertionError(f"{cfg.name}: tokens through the kernels differ "
+                             "from the plain serve's")
+    del frozen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs["kernels"]
+
+
+def _tensors(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def phase_serve_ssm():
+    """mamba2-780m (48 layers, d 1536, 48 SSD heads, state 128, vocab
+    50280) at full size on the slot runtime (``runtime="auto"`` picks it for
+    an ssm stack); reckoned 97 bit-plane calls per forward (in_proj and
+    out_proj of 48 layers, the LM head)."""
+    from repro_torch.configs.registry import get
+
+    cfg = get("mamba2-780m")
+    return _family_serve("serve_ssm", cfg, "slots",
+                         {"calls_per_forward": 2 * cfg.n_layers + 1})
+
+
+def phase_serve_moe():
+    """qwen2-moe-a2.7b (24 layers, d 2048, MHA 16 heads, q/k/v biases, 60
+    experts padded to 64, top-4, 4 shared, vocab 151936) at full size,
+    dropless as the reference's server runs it, on the paged runtime
+    (page 16, the attention kernel); reckoned 4729 bit-plane calls per
+    forward: 24 x (q|k|v, wo, 64 x 3 experts, 3 shared) and the LM head."""
+    from repro_torch.configs.registry import get
+    from repro_torch.models.moe import padded_experts
+
+    cfg = dataclasses.replace(get("qwen2-moe-a2.7b"), moe_dropless=True)
+    return _family_serve("serve_moe", cfg, "paged", {
+        "calls_per_forward": cfg.n_layers * (2 + 3 * padded_experts(cfg) + 3) + 1})
+
+
+def _frozen_by_block(cfg, seed: int = 0):
+    """``init_model(cfg, seed)``'s weights drawn in its order on the card,
+    each block frozen by ``da_mode="auto"`` as soon as it is drawn (a
+    stacked-expert leaf quantized expert by expert), so the float weights of
+    one block at a time are on the card.  Returns (frozen params, plans)."""
+    import torch
+
+    from repro_torch.core.freeze import freeze_model
+    from repro_torch.models.layers import init_embed, init_lm_head, init_norm
+    from repro_torch.models.model import init_block
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    blocks, plans = [], {}
+    for i in range(cfg.n_layers):
+        art = freeze_model(init_block(gen, cfg, i % cfg.period), mode="auto",
+                           device="cuda")
+        blocks.append(art.params)
+        plans.update({f"{i}/{k}": p for k, p in art.plan.items()})
+        del art
+        gc.collect()
+        torch.cuda.empty_cache()
+    params = {"blocks": blocks, "final_norm": init_norm(cfg, cfg.d_model, gen.device)}
+    head = freeze_model({"lm_head": init_lm_head(gen, cfg)}, mode="auto",
+                        device="cuda")
+    params["lm_head"] = head.params["lm_head"]
+    plans.update(head.plan)
+    if cfg.modality == "text":
+        params["embed"] = init_embed(gen, cfg)
+    return params, plans
+
+
+def phase_family_variants():
+    """jamba-1.5-large-398b at one period (8 of 72 layers: attention at
+    position 4, Mamba elsewhere, MoE at 1, 3, 5, 7, 16 experts top-2, the
+    MLP at 0, 2, 4, 6) at full width, initialised and frozen block by block
+    (its codes take 44.6 GB, its bf16 weights 89 GB), and
+    moonshot-v1-16b-a3b (64 experts top-6) at 4 of 48 layers, frozen by
+    ``da_mode="auto"``: a 16-row prefill into ``init_caches`` (KVCache and
+    MambaCache) and 4 decode steps, against the same forward with the
+    kernels swapped for their plain versions (0 launches there): logits
+    EQUAL."""
+    import torch
+
+    from repro_torch.configs.registry import get
+    from repro_torch.core.freeze import packed_leaves
+    from repro_torch.models.model import forward, init_caches
+
+    b, t0, steps = 2, 16, 4
+    counts_all = []
+    for name, layers in (("jamba-1.5-large-398b", 8), ("moonshot-v1-16b-a3b", 4)):
+        cfg = dataclasses.replace(get(name), n_layers=layers, moe_dropless=True)
+        torch.cuda.reset_peak_memory_stats()
+        t_init = time.perf_counter()
+        frozen, plans = _frozen_by_block(cfg)
+        torch.cuda.synchronize()
+        t_frozen = time.perf_counter()
+        peak_freeze = torch.cuda.max_memory_allocated() / 1e9
+        modes = _auto_plan_check(name, plans)
+        code_gb = sum(w.wq.numel() for _, w in packed_leaves(frozen)) / 1e9
+        largest = max((w for _, w in packed_leaves(frozen)), key=lambda w: w.wq.numel())
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab, (b, t0 + steps), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        pos = torch.arange(t0, dtype=torch.int32, device="cuda")[None].expand(b, t0)
+        out = {}
+        torch.cuda.reset_peak_memory_stats()
+        for side in ("kernels", "plain"):
+            caches = init_caches(cfg, b, 64, device="cuda")
+            torch.cuda.synchronize()
+            _reset_counts()
+            logits = []
+            with torch.inference_mode(), (plain_vmm() if side == "plain"
+                                          else contextlib.nullcontext()):
+                lg, _ = forward(frozen, tokens[:, :t0], cfg, pos, caches,
+                                update_cache=True, last_logit_only=True)
+                logits.append(lg[:, 0].float())
+                for s in range(t0, t0 + steps):
+                    p1 = torch.full((b, 1), s, dtype=torch.int32, device="cuda")
+                    lg, _ = forward(frozen, tokens[:, s:s + 1], cfg, p1, caches)
+                    logits.append(lg[:, 0].float())
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            if side == "kernels":
+                if counts["bitplane_vmm"] <= 0:
+                    raise AssertionError(f"{name}: the bit-plane kernel never ran")
+                counts_all.append(counts)
+            elif any(counts[k] for k in ("bitplane_vmm", "da_vmm", "paged_attention")):
+                raise AssertionError(f"{name}: the plain side launched a kernel")
+            out[side] = torch.stack(logits)
+        if not torch.isfinite(out["kernels"]).all():
+            raise AssertionError(f"{name}: non-finite logits through the kernels")
+        diff = (out["kernels"] - out["plain"]).abs()
+        equal = torch.equal(out["kernels"], out["plain"])
+        emit({"phase": "family_variants", "model": name, "family": cfg.family,
+              "layers": cfg.n_layers, "d_model": cfg.d_model,
+              "layer_pattern": [f"{cfg.mixer_kind(p)}+{cfg.ffn_kind(p)}"
+                                for p in range(cfg.period)],
+              "caches": sorted({type(c).__name__ for c in caches.values()}),
+              "batch": b, "prefill_rows": t0, "decode_steps": steps,
+              "shape": list(out["kernels"].shape), "plan_modes": modes,
+              "code_gb": code_gb,
+              "largest_leaf": {"shape": list(largest.wq.shape),
+                               "bf16_gb": largest.wq.numel() * 2 / 1e9,
+                               "f32_gb": largest.wq.numel() * 4 / 1e9},
+              "peak_mem_gb_freeze": peak_freeze,
+              "peak_mem_gb_forward": torch.cuda.max_memory_allocated() / 1e9,
+              "max_abs_err": diff.max().item(), "atol": 0.0, "equal": equal,
+              "logit_absmax": out["plain"].abs().max().item(),
+              "argmax_equal": bool((out["kernels"].argmax(-1)
+                                    == out["plain"].argmax(-1)).all()),
+              "launches": counts_all[-1],
+              "reduced": f"{layers} of {get(name).n_layers} layers",
+              "freeze_s": t_frozen - t_init})
+        if not equal:
+            raise AssertionError(f"{name}: kernels vs plain logits differ by "
+                                 f"{diff.max().item()}")
+        del frozen, out, caches
+        gc.collect()
+        torch.cuda.empty_cache()
+    return _merge_counts(counts_all)
+
+
+def phase_families(flush):
+    """This slice's phases: the kernels at the families' shapes, the
+    stacked-expert VMMs, mamba2-780m and qwen2-moe-a2.7b served at full
+    size, jamba and moonshot against their plain sides.  Returns the
+    stacked rows and each path's launch counts."""
+    timings = {}
+    t0 = time.perf_counter()
+    phase_family_shapes()
+    stacked = phase_stacked_vmm(flush)
+    timings["checks_s"] = time.perf_counter() - t0
+    paths = {}
+    for path, fn in (("serve_ssm", phase_serve_ssm), ("serve_moe", phase_serve_moe),
+                     ("family_variants", phase_family_variants)):
+        t0 = time.perf_counter()
+        paths[path] = fn()
+        timings[f"{path}_s"] = time.perf_counter() - t0
+    emit({"phase": "families_seconds", **timings})
+    return stacked, paths
+
+
 def decode_window(eng, vocab: int, steps: int = 4):
     """Where a full-width decode step spends its time: host wall of
     ``steps`` batch-4 decode ticks, then the same number of ticks under
@@ -2222,18 +2702,21 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase", choices=("all", "attention", "vmm", "plans",
                                             "ci_boot", "serve", "obs", "auto",
-                                            "dense"),
+                                            "dense", "families"),
                         default="all",
                         help="'attention', 'vmm', 'plans', 'ci_boot', 'serve', "
-                             "'obs' or 'auto': build the kernels and run only "
-                             "the attention phase, only the bit-plane, int8 "
-                             "and LUT phases, only the plans' sweep, only the "
+                             "'obs', 'auto', 'dense' or 'families': build the "
+                             "kernels and run only "
+                             "the attention phase, only the bit-plane, int8, "
+                             "LUT and stacked-expert phases, only the plans' "
+                             "sweep, only the "
                              "CI smoke artifact's boot and first leg, only "
                              "the qwen3-8b serve and its decode window, only "
                              "the traced qwen3-8b serves, only the planned "
-                             "freeze and serve, or only the dense variants "
+                             "freeze and serve, only the dense variants "
                              "(minitron-8b on both runtimes, musicgen-large, "
-                             "qwen2-vl-72b) (no result line)")
+                             "qwen2-vl-72b), or only the MoE / Mamba / hybrid "
+                             "phases (no result line)")
     parser.add_argument("--src", help="import the port from this directory "
                         "(another checkout's src/) instead of this one's; "
                         "only with --phase attention, vmm, ci_boot or serve")
@@ -2267,42 +2750,63 @@ def main() -> int:
         print(smi_line(), flush=True)
         return 0
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    if args.phase == "families":
+        phase_families(flush)
+        print(smi_line(), flush=True)
+        return 0
     if args.phase == "attention":
         phase_attention(flush)
     if args.phase == "vmm":
         phase_bitplane(flush)
         phase_int8(flush)
         phase_lut_vmm(flush)
+        phase_stacked_vmm(flush)
     if args.phase == "plans":
         phase_plans(flush)
     if args.phase != "all":
         print(smi_line(), flush=True)
         return 0
-    vmm = phase_bitplane(flush)
-    phase_int8(flush)
-    lut = phase_lut_vmm(flush)
-    attn = phase_attention(flush)
+    secs = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    vmm = timed("bitplane_vmm", phase_bitplane, flush)
+    timed("int8_vmm", phase_int8, flush)
+    lut = timed("lut_vmm", phase_lut_vmm, flush)
+    timed("family_shapes", phase_family_shapes)
+    stacked = timed("stacked_vmm", phase_stacked_vmm, flush)
+    attn = timed("paged_attention", phase_attention, flush)
     del flush
     torch.cuda.empty_cache()
-    phase_logits()
-    params, fp_counts, plain_tokens, serve_shapes = phase_serve()
-    int8_counts = phase_serve_int8kv(params)
-    prefix_counts = phase_serve_prefix(params)
-    spec_counts = phase_serve_spec(params, plain_tokens)
-    obs_counts = phase_serve_obs(params, plain_tokens)
+    timed("logits", phase_logits)
+    params, fp_counts, plain_tokens, serve_shapes = timed("serve", phase_serve)
+    int8_counts = timed("serve_int8kv", phase_serve_int8kv, params)
+    prefix_counts = timed("serve_prefix", phase_serve_prefix, params)
+    spec_counts = timed("serve_spec", phase_serve_spec, params, plain_tokens)
+    obs_counts = timed("serve_obs", phase_serve_obs, params, plain_tokens)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    lut_counts, lut_spec_counts = phase_artifact_lut()
-    ci_counts = phase_artifact_ci()
-    auto_counts = phase_artifact_auto(serve_shapes)
-    dense_counts = phase_serve_dense()
-    variant_counts = phase_dense_variants()
+    lut_counts, lut_spec_counts = timed("artifact_lut", phase_artifact_lut)
+    ci_counts = timed("artifact_ci", phase_artifact_ci)
+    auto_counts = timed("artifact_auto", phase_artifact_auto, serve_shapes)
+    dense_counts = timed("serve_dense", phase_serve_dense)
+    variant_counts = timed("dense_variants", phase_dense_variants)
+    ssm_counts = timed("serve_ssm", phase_serve_ssm)
+    moe_counts = timed("serve_moe", phase_serve_moe)
+    family_counts = timed("family_variants", phase_family_variants)
+    emit({"phase": "phase_seconds", **secs})
     paths = {"serve": fp_counts, "serve_int8kv": int8_counts,
              "serve_prefix": prefix_counts, "serve_spec": spec_counts,
              "serve_obs": obs_counts, "artifact_lut": lut_counts, "artifact_lut_spec": lut_spec_counts,
              "artifact_ci": ci_counts, "artifact_auto": auto_counts,
-             "serve_dense": dense_counts, "dense_variants": variant_counts}
+             "serve_dense": dense_counts, "dense_variants": variant_counts,
+             "serve_ssm": ssm_counts, "serve_moe": moe_counts,
+             "family_variants": family_counts}
 
     def launches(name, fmt=None, dtype=None, key=None):
         """Launches over the paths (that run ``dtype``): of ``name``, of its
@@ -2340,6 +2844,19 @@ def main() -> int:
                 **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "bound_by", "library_ms")}}
 
+    def stacked_row(kernel, c, path=None):
+        """A stacked-expert check's row: the E calls of one stacked VMM;
+        launches: the path that runs such stacks (its expert and other
+        calls), none for a check-only stack."""
+        r = next(r for r in stacked if (r["kernel"], r["c"]) == (kernel, c))
+        n = paths[path][kernel] if path else 0
+        return {"shape": f"E={r['experts']} x (M={c} K={r['k']} N={r['n']}) "
+                         f"x_bits=8, one call per expert",
+                "launches": n, "launches_by_path": {path: n} if path else {},
+                **{k: r[k] for k in ("launches_per_stacked_vmm", "max_abs_err",
+                                     "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}}
+
     dec_vmm = vmm_row(vmm, 4, 4096, 12288, 8, "bitplane_vmm")
     dec_lut = vmm_row(lut, 4, 256, 8000, 8, "da_vmm")
     formats = ([attn_row(fmt, "bfloat16", 17) for fmt in ("fp", "int8", "int4")]
@@ -2374,7 +2891,9 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in vmm),
          **{k: dec_vmm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "shape")},
-         "variants": [vmm_row(vmm, 4, 4096, 12288, DRAFT_X_BITS, "bitplane_vmm")]},
+         "variants": [vmm_row(vmm, 4, 4096, 12288, DRAFT_X_BITS, "bitplane_vmm"),
+                      stacked_row("bitplane_vmm", 4, "serve_moe"),
+                      stacked_row("bitplane_vmm", 16, "serve_moe")]},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:66",
@@ -2395,7 +2914,8 @@ def main() -> int:
                                     "library_ms")},
          "library_note": LIBRARY,
          "shape": "M=4 K=256 N=8000 x_bits=8 L=8 (LM head of the LUT path)",
-         "variants": [vmm_row(lut, 4, 256, 8000, DRAFT_X_BITS, "da_vmm")]},
+         "variants": [vmm_row(lut, 4, 256, 8000, DRAFT_X_BITS, "da_vmm"),
+                      stacked_row("da_vmm", 4), stacked_row("da_vmm", 16)]},
     ]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

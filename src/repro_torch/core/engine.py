@@ -107,9 +107,11 @@ class PackedWeights:
     """Frozen DA linear weights: the PMA contents for one weight matrix.
 
     wq:      [K, N] int8 codes (rows may be strided: q/k/v codes of one layer
-             share a buffer so the fused projection reads them in one pass).
-    w_scale: [1, N] per-output-column float32 scale.
-    luts:    [G, 2^L, N] int32 weight-sum tables from build_luts, or None.
+             share a buffer so the fused projection reads them in one pass),
+             or [E, K, N] for stacked experts (MoE), one PMA set per expert.
+    w_scale: [1, N] per-output-column float32 scale ([E, 1, N] stacked).
+    luts:    [G, 2^L, N] int32 weight-sum tables from build_luts
+             ([E, G, 2^L, N] stacked), or None.
     cfg:     DAConfig the artifact was packed under.
     mode:    default execution mode for ``packed(x)`` ("auto" → dispatch).
     int8_operand: ``torch._int_mm``'s weight operand (:func:`int_mm_weights`),
@@ -123,6 +125,8 @@ class PackedWeights:
     mode: str = "auto"
     int8_operand: Optional[torch.Tensor] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+    _experts: Optional[Tuple["PackedWeights", ...]] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def k(self) -> int:
@@ -135,6 +139,21 @@ class PackedWeights:
     @property
     def has_luts(self) -> bool:
         return self.luts is not None
+
+    def experts(self) -> Tuple["PackedWeights", ...]:
+        """The 2-D pack of each expert of a stacked [E, K, N] pack: views of
+        its codes, scales and LUTs, built on the first call and kept (an
+        ``int8`` call lays out each expert's operand once, too)."""
+        if self.wq.ndim != 3:
+            raise ValueError(f"experts() of a {self.wq.ndim}-D pack; stacked "
+                             "experts are [E, K, N]")
+        if self._experts is None:
+            object.__setattr__(self, "_experts", tuple(
+                PackedWeights(wq=self.wq[e], w_scale=self.w_scale[e],
+                              luts=None if self.luts is None else self.luts[e],
+                              cfg=self.cfg, mode=self.mode)
+                for e in range(self.wq.shape[0])))
+        return self._experts
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return da_matmul(x, self)
@@ -157,7 +176,8 @@ def pack_weights(w: torch.Tensor, cfg: DAConfig = DAConfig(x_signed=True),
                  with_luts: Optional[bool] = None) -> PackedWeights:
     """Pre-VMM procedure (§III-A): quantize once, sum weights, 'write the PMAs'.
 
-    2-D float weights [K, N] → per-column int8 codes and float32 scales.
+    Float weights [K, N], or stacked experts [E, K, N], → per-column int8
+    codes and float32 scales (per expert).
     LUTs are built once, here: when ``mode`` names a LUT backend, or under
     ``mode="auto"`` when the blow-up stays within ``lut_cell_limit`` cells
     (``lut_cells``, not weights).  ``with_luts`` (when not None) overrides
@@ -165,19 +185,43 @@ def pack_weights(w: torch.Tensor, cfg: DAConfig = DAConfig(x_signed=True),
     lut-or-not per layer and passes its verdict down here.
     """
     mode = canonical_mode(mode)
-    if w.ndim != 2:
-        raise NotImplementedError(
-            f"pack_weights: {w.ndim}-D weights (stacked experts) arrive with "
-            "the MoE slice")
+    if w.ndim not in (2, 3):
+        raise ValueError(f"pack_weights takes [K, N] or stacked experts "
+                         f"[E, K, N], got {tuple(w.shape)}")
     if with_luts is None:
         if mode == "auto":
-            with_luts = lut_cells(*w.shape, cfg.group_size) <= lut_cell_limit
+            with_luts = lut_cells(*w.shape[-2:], cfg.group_size) <= lut_cell_limit
         else:
             with_luts = get_backend(mode).needs_luts
+    if w.ndim == 3:
+        return _pack_experts(w, cfg, mode, with_luts)
     q = quantize_weights(w, bits=8, axis=0)
     luts = build_luts(q.q, cfg.group_size) if with_luts else None
     return PackedWeights(wq=q.q.to(torch.int8), w_scale=q.scale, luts=luts,
                          cfg=cfg, mode=mode)
+
+
+def _pack_experts(w: torch.Tensor, cfg: DAConfig, mode: str,
+                  with_luts: bool) -> PackedWeights:
+    """Stacked experts [E, K, N], quantized along K and tabled expert by
+    expert (the reference quantizes the stack along ``axis=-2`` in one go:
+    the same per-expert, per-column scales; one expert at a time bounds
+    the quantize temporaries to one expert's size)."""
+    e, k, n = w.shape
+    wq = torch.empty((e, k, n), dtype=torch.int8, device=w.device)
+    scale = torch.empty((e, 1, n), dtype=torch.float32, device=w.device)
+    luts = None
+    for i in range(e):
+        q = quantize_weights(w[i], bits=8, axis=0)
+        wq[i] = q.q
+        scale[i] = q.scale
+        if with_luts:
+            table = build_luts(q.q, cfg.group_size)
+            if luts is None:
+                luts = torch.empty((e,) + tuple(table.shape), dtype=table.dtype,
+                                   device=w.device)
+            luts[i] = table
+    return PackedWeights(wq=wq, w_scale=scale, luts=luts, cfg=cfg, mode=mode)
 
 
 def pack_quantized(wq, w_scale=1.0, cfg: DAConfig = DAConfig(),
@@ -685,15 +729,40 @@ def da_matmul(x: torch.Tensor, weights: PackedWeights,
     return y.reshape(lead + (weights.n,))
 
 
+def da_matmul_experts(x: torch.Tensor, weights: PackedWeights) -> torch.Tensor:
+    """Stacked experts: x [.., E, C, K] float against an [E, K, N] pack →
+    [.., E, C, N] float.  Each expert's rows (every group's, together) go
+    through the registered backend against that expert's 2-D pack, one call
+    per expert; the per-row quantization and the dequantization, which do
+    not depend on the rows beside a row, run once over all experts, so every
+    output equals a :func:`da_matmul` of that expert's rows."""
+    cfg = dataclasses.replace(weights.cfg, x_signed=True)
+    eff = effective_x_bits(cfg, None)
+    rcfg = dataclasses.replace(cfg, x_bits=eff)  # dispatch sees draft cycles
+    lead, (e, c, k) = x.shape[:-3], x.shape[-3:]
+    xe = x.movedim(-3, 0).reshape(e, -1, k)                # [E, rows, K]
+    spec = _resolve_spec(None, xe.shape[1], weights.k, weights.n, rcfg,
+                         weights.has_luts, default_mode=weights.mode)
+    _check_lut_shape(spec, weights, rcfg)
+    xqt = quantize_acts_signed(xe.to(torch.float32), bits=cfg.x_bits)
+    acc = torch.stack([_truncated_acc(spec, xqt.q[i], pe, cfg, eff)
+                       for i, pe in enumerate(weights.experts())])
+    y = acc.to(torch.float32) * xqt.scale * weights.w_scale  # [E, rows, N]
+    return y.reshape((e,) + tuple(lead) + (c, weights.n)).movedim(0, -3)
+
+
 def dense(x: torch.Tensor, w) -> torch.Tensor:
     """Weight application dispatching on the leaf type: a PackedWeights runs
     the multiplier-free datapath (cast back to x's dtype); a plain tensor is
-    a float matmul."""
+    a float matmul.  Stacked experts ([E, K, N] against x [.., E, C, K],
+    MoE's [E, C, K] or grouped [G, E, C, K]) apply each expert to its own
+    rows (:func:`da_matmul_experts` for a stacked pack)."""
     if isinstance(w, PackedWeights):
-        if w.wq.ndim != 2:
-            raise NotImplementedError("stacked-expert PackedWeights arrive "
-                                      "with the MoE slice")
+        if w.wq.ndim == 3:
+            return da_matmul_experts(x, w).to(x.dtype)
         return w(x).to(x.dtype)
+    if w.ndim == 3:
+        return torch.einsum("...ecd,edf->...ecf", x, w)
     return x @ w
 
 

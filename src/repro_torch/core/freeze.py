@@ -500,8 +500,9 @@ def da_memory_report(frozen_params: Any, model_cfg: Any = None,
     int32 LUT bytes) and its :mod:`repro_torch.obs.hwcost` price per
     token-pass; ``"hw"`` is the model-total
     :meth:`~repro_torch.obs.hwcost.HardwareCostModel.summary`, the table
-    that ``metrics()["hw"]`` serves.  With ``model_cfg``, a ``"kv"``
-    section prices the paged KV cache beside the weights: per-position page
+    that ``metrics()["hw"]`` serves.  With the ``model_cfg`` of a stack
+    whose every mixer is attention (the paged pool's), a ``"kv"`` section
+    prices the paged KV cache beside the weights: per-position page
     dtype, bytes per token per layer, model-total bytes per token and the
     capacity multiplier against compute-dtype pages.
     """
@@ -547,7 +548,8 @@ def da_memory_report(frozen_params: Any, model_cfg: Any = None,
         "layers": layers,
         "hw": hwm.summary() if hwm else None,
     }
-    if model_cfg is not None:  # the port's family is attention throughout
+    if model_cfg is not None and all(model_cfg.mixer_kind(p) == "attn"
+                                     for p in range(model_cfg.period)):
         from repro_torch.serve.kvcache import kv_token_bytes, resolve_kv_dtypes
 
         resolved = resolve_kv_dtypes(model_cfg, kv_dtypes)

@@ -1,17 +1,20 @@
-"""Model configuration of the dense attention family.
+"""Model configuration covering every family of the reference's zoo.
 
-Field names and defaults follow the reference ``ModelConfig``; the port
-covers the dense family (SwiGLU, GELU and squared-ReLU MLPs, RMS norm or
+Field names and defaults follow the reference ``ModelConfig``: the dense
+attention family (SwiGLU, GELU and squared-ReLU MLPs, RMS norm or
 LayerNorm, optional q/k/v biases, 1-D RoPE or M-RoPE, token or embedding
-inputs); MoE, Mamba and the hybrid stack arrive with later slices, so every
-layer position is an attention mixer with an MLP.  An artifact manifest's
-``model_cfg`` (the reference's full field set) reads through
+inputs), Mixture-of-Experts FFNs (``moe``), Mamba-2 mixers (``ssm``) and
+the attention:Mamba interleave (``hybrid``).  Layers group into periods of
+the layer pattern (:attr:`ModelConfig.period`); :meth:`mixer_kind` and
+:meth:`ffn_kind` say what each position of a period holds.  An artifact
+manifest's ``model_cfg`` (the reference's full field set) reads through
 :meth:`ModelConfig.from_manifest`, which refuses any field that would change
 the model and that the port does not implement.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -19,46 +22,29 @@ import torch
 #: The reference's fields that the port's config does not carry, with their
 #: reference defaults.  A manifest may hold them at these values.
 _REFERENCE_ONLY: Dict[str, Any] = {
-    "n_experts": 0, "top_k": 0, "moe_d_ff": 0, "n_shared_experts": 0,
-    "moe_period": 1, "moe_offset": 0, "capacity_factor": 1.25,
-    "moe_dropless": False, "moe_group_size": 1024,
-    "ssm_state": 0, "ssm_head_dim": 64, "ssm_conv": 4, "ssm_expand": 2,
-    "ssm_groups": 1, "ssm_chunk": 256, "attn_period": 0, "attn_offset": 0,
     "remat": True, "remat_policy": "nothing",
     "tie_embeddings": False, "scan_unroll": False, "prefill_last_only": False,
-    "moe_impl": "dense",
 }
 
-#: Of those, the ones that do not change what a dense model computes, at any
-#: value: training and compile knobs, the MoE knobs without experts
-#: (``n_experts`` 0), the Mamba and hybrid knobs of a family without Mamba
-#: layers, and the prefill head slice (serving always slices the last token).
-_INERT_WHEN_DENSE = {
-    "remat", "remat_policy", "scan_unroll", "prefill_last_only",
-    "top_k", "moe_d_ff", "n_shared_experts", "moe_period", "moe_offset",
-    "capacity_factor", "moe_dropless", "moe_group_size", "moe_impl",
-    "ssm_state", "ssm_head_dim", "ssm_conv", "ssm_expand", "ssm_groups",
-    "ssm_chunk", "attn_period", "attn_offset",
-}
+#: Of those, the ones that do not change what a model computes, at any value:
+#: training and compile knobs, and the prefill head slice (serving always
+#: slices the last token).
+_INERT = {"remat", "remat_policy", "scan_unroll", "prefill_last_only"}
 
-#: the ROADMAP item that ports each family the port refuses
-_FAMILY_ITEM = {"moe": "ROADMAP Queue 1 item 4, MoE",
-                "ssm": "ROADMAP Queue 1 item 4, Mamba2",
-                "hybrid": "ROADMAP Queue 1 item 4, hybrid"}
+#: the families the reference defines
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _refuse_family(name, family) -> None:
-    if family != "dense":
-        raise NotImplementedError(
-            f"{name}: family {family!r} is not ported yet "
-            f"({_FAMILY_ITEM.get(family, 'no ROADMAP item')}); the port "
-            "covers dense attention models")
+    if family not in FAMILIES:
+        raise ValueError(f"{name}: unknown family {family!r}; expected one "
+                         f"of {FAMILIES}")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense
+    family: str                    # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     vocab: int
@@ -78,6 +64,29 @@ class ModelConfig:
     mlp_act: str = "swiglu"        # swiglu | gelu | relu2
     norm_type: str = "rmsnorm"     # rmsnorm | layernorm
 
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0
+    moe_period: int = 1            # MoE replaces the MLP every k-th layer
+    moe_offset: int = 0
+    capacity_factor: float = 1.25
+    moe_dropless: bool = False     # capacity = group size (exact; serving)
+    moe_group_size: int = 1024     # token-group size; capacity is per group
+
+    # Mamba2 / SSD
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_groups: int = 1
+    ssm_chunk: int = 256
+
+    # hybrid interleave (jamba): 1 attention layer per attn_period layers
+    attn_period: int = 0
+    attn_offset: int = 0
+
     # numerics / execution
     norm_eps: float = 1e-5
     param_dtype: str = "bfloat16"
@@ -86,6 +95,7 @@ class ModelConfig:
                                       # the online-softmax prefill
     attn_mask_mode: str = "where"     # where | additive
     softmax_dtype: str = "float32"    # float32 | bfloat16 score pipeline
+    moe_impl: str = "dense"           # dense (one-hot dispatch) | sorted
     attn_impl: str = "reference"      # reference | lean (the no-cache path)
     cache_mode: str = "scatter"       # dense-cache write: scatter (ragged
                                       # rows) | slice (uniform positions)
@@ -109,8 +119,8 @@ class ModelConfig:
     @classmethod
     def from_manifest(cls, raw: Dict[str, Any]) -> "ModelConfig":
         """A manifest's ``model_cfg`` (the reference's fields) as the port's
-        config.  Raises on a non-dense family, an unknown field, or a
-        reference field away from its default that would change the model."""
+        config.  Raises on an unknown family or field, or a reference field
+        away from its default that would change the model."""
         _refuse_family(raw.get("name"), raw.get("family"))
         ours = {f.name for f in dataclasses.fields(cls)}
         unknown = sorted(set(raw) - ours - set(_REFERENCE_ONLY))
@@ -119,7 +129,7 @@ class ModelConfig:
                              "the port nor the reference defines")
         changed = sorted(
             k for k in set(raw) - ours
-            if k not in _INERT_WHEN_DENSE and raw[k] != _REFERENCE_ONLY[k])
+            if k not in _INERT and raw[k] != _REFERENCE_ONLY[k])
         if changed:
             raise NotImplementedError(
                 f"{raw.get('name')}: model_cfg sets "
@@ -141,17 +151,51 @@ class ModelConfig:
         return self.n_kv_heads * self.head_dim_
 
     @property
-    def period(self) -> int:
-        """Layer-pattern period (1: a homogeneous dense stack)."""
-        return 1
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
 
-    def mixer_kind(self, pos: int) -> str:
-        """Mixer of layer position ``pos``: attention throughout."""
-        return "attn"
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def conv_channels(self) -> int:
+        """Mamba-2 convolves x together with the B and C streams."""
+        return self.d_inner + 2 * self.ssm_groups * self.ssm_state
+
+    @property
+    def period(self) -> int:
+        """Layer-pattern period: 1 for homogeneous stacks; the hybrid's
+        attention period and the MoE period combine by their lcm."""
+        p = 1
+        if self.family == "hybrid" and self.attn_period:
+            p = self.attn_period
+        if self.n_experts and self.moe_period > 1:
+            p = math.lcm(p, self.moe_period)
+        return p
 
     @property
     def n_periods(self) -> int:
+        if self.n_layers % self.period:
+            raise ValueError(f"{self.name}: {self.n_layers} layers are not "
+                             f"whole periods of {self.period}")
         return self.n_layers // self.period
+
+    def mixer_kind(self, pos: int) -> str:
+        """Mixer of layer position ``pos`` within a period: attn | mamba."""
+        if self.family == "ssm":
+            return "mamba"
+        if self.family == "hybrid":
+            return "attn" if pos % self.attn_period == self.attn_offset else "mamba"
+        return "attn"
+
+    def ffn_kind(self, pos: int) -> str:
+        """FFN of layer position ``pos``: mlp | moe | none."""
+        if self.family == "ssm":
+            return "none"
+        if self.n_experts and pos % self.moe_period == self.moe_offset:
+            return "moe"
+        return "mlp"
 
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)

@@ -1,8 +1,11 @@
-"""LM assembly: a Python loop over the layers of a dense attention stack.
+"""LM assembly: a Python loop over the layers of a transformer, SSM, MoE or
+hybrid stack.
 
 Parameters are a dict ``{"embed", "blocks": [per-layer dict], "final_norm",
 "lm_head"}``; the reference stacks each layer position over periods and
 scans, the port keeps one dict per layer (see ``repro_torch.convert``).
+Block ``i`` sits at position ``i % period`` of the layer pattern, whose
+mixer (attention or Mamba-2) and FFN (MLP, MoE or none) the config names.
 Configs with ``modality`` audio or vlm have no ``embed`` table: their
 frontends are stubs, and the backbone takes precomputed frame or patch
 embeddings ``[B, T, d_model]`` in place of token ids.
@@ -32,26 +35,43 @@ from repro_torch.models.layers import (
     init_mlp,
     init_norm,
 )
+from repro_torch.models.mamba2 import MambaCache, init_mamba, mamba_forward
+from repro_torch.models.moe import init_moe, moe_forward, padded_experts
 
 Params = Dict[str, Any]
 
 
-def init_block(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def init_block(gen: torch.Generator, cfg: ModelConfig, pos: int = 0) -> Params:
+    """The block at layer position ``pos``: a pre-norm and the position's
+    mixer, then (unless the FFN is ``none``) a pre-norm and its MLP or MoE."""
     dev = gen.device
-    return {"norm_mixer": init_norm(cfg, cfg.d_model, dev),
-            "mixer": init_attention(gen, cfg),
-            "norm_ffn": init_norm(cfg, cfg.d_model, dev),
-            "ffn": init_mlp(gen, cfg, cfg.d_model, cfg.d_ff)}
+    mixer, ffn = cfg.mixer_kind(pos), cfg.ffn_kind(pos)
+    p: Params = {"norm_mixer": init_norm(cfg, cfg.d_model, dev),
+                 "mixer": (init_attention(gen, cfg) if mixer == "attn"
+                           else init_mamba(gen, cfg))}
+    if ffn != "none":
+        p["norm_ffn"] = init_norm(cfg, cfg.d_model, dev)
+        p["ffn"] = (init_moe(gen, cfg) if ffn == "moe"
+                    else init_mlp(gen, cfg, cfg.d_model, cfg.d_ff))
+    return p
 
 
-def block_forward(p, x: torch.Tensor, cfg: ModelConfig, positions,
+def block_forward(p, x: torch.Tensor, cfg: ModelConfig, pos: int, positions,
                   cache=None, page_table=None, *, update_cache: bool = False,
                   attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     h = apply_norm(p["norm_mixer"], x, cfg)
-    x = x + attention_forward(p["mixer"], h, cfg, positions, cache, page_table,
+    if cfg.mixer_kind(pos) == "attn":
+        y = attention_forward(p["mixer"], h, cfg, positions, cache, page_table,
                               update_cache=update_cache, attn_bias=attn_bias)
+    else:
+        y = mamba_forward(p["mixer"], h, cfg, cache, update_cache)
+    x = x + y
+    ffn = cfg.ffn_kind(pos)
+    if ffn == "none":
+        return x
     h = apply_norm(p["norm_ffn"], x, cfg)
-    return x + apply_mlp(p["ffn"], h, cfg)
+    return x + (moe_forward(p["ffn"], h, cfg) if ffn == "moe"
+                else apply_mlp(p["ffn"], h, cfg))
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
@@ -63,7 +83,8 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
 
 
 def _init_tree(gen, cfg: ModelConfig) -> Params:
-    params = {"blocks": [init_block(gen, cfg) for _ in range(cfg.n_layers)],
+    params = {"blocks": [init_block(gen, cfg, i % cfg.period)
+                         for i in range(cfg.n_layers)],
               "final_norm": init_norm(cfg, cfg.d_model, gen.device),
               "lm_head": init_lm_head(gen, cfg)}
     if cfg.modality == "text":
@@ -73,13 +94,17 @@ def _init_tree(gen, cfg: ModelConfig) -> Params:
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                 device="cuda") -> Params:
-    """Dense decode caches stacked over periods: ``{"pos_0": KVCache
-    [n_periods, batch, max_len, kv, hd]}`` on ``device``."""
+    """Decode caches stacked over periods on ``device``: ``{"pos_i":
+    KVCache [n_periods, batch, max_len, kv, hd]}`` at attention positions,
+    ``MambaCache [n_periods, batch, ...]`` at Mamba positions."""
     dev = resolve_device(device)
-    return {f"pos_{pos}": KVCache.zeros(cfg, batch, max_len,
-                                        dtype or cfg.dtype(), device=dev,
-                                        stack=(cfg.n_periods,))
-            for pos in range(cfg.period)}
+    dtype = dtype or cfg.dtype()
+    stack = (cfg.n_periods,)
+    return {f"pos_{pos}": (
+        KVCache.zeros(cfg, batch, max_len, dtype, device=dev, stack=stack)
+        if cfg.mixer_kind(pos) == "attn"
+        else MambaCache.zeros(cfg, batch, dtype, device=dev, stack=stack))
+        for pos in range(cfg.period)}
 
 
 def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
@@ -93,10 +118,10 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
     position), or [B, T, 3] under M-RoPE; None counts 0..T-1.
 
     caches: None (causal self-attention over the segment), dense
-    ``{"pos_0": KVCache}`` from :func:`init_caches` (``update_cache``: a
-    prefill into an empty cache; else decode over the cache), or paged
-    ``{"pos_0": PagedKVCache}`` with ``page_table`` int32 [B, W].  Caches
-    are updated in place.
+    ``{"pos_i": KVCache | MambaCache}`` from :func:`init_caches`
+    (``update_cache``: a prefill into an empty cache; else decode over the
+    cache), or paged ``{"pos_i": PagedKVCache}`` with ``page_table`` int32
+    [B, W] (attention stacks only).  Caches are updated in place.
 
     ``last_idx`` int [B]: per-row index of the last real token, gathered
     before the LM head (logits [B, 1, V]); ``last_logit_only`` keeps the
@@ -112,11 +137,10 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
     attn_bias = (causal_bias(t, device=h.device)
                  if cfg.attn_impl == "lean" and t > 1 else None)
     for layer, bp in enumerate(params["blocks"]):
-        cache = None
+        pos, cache = layer % cfg.period, None
         if caches is not None:
-            pos, pidx = layer % cfg.period, layer // cfg.period
-            cache = caches[f"pos_{pos}"].layer(pidx)
-        h = block_forward(bp, h, cfg, positions, cache, page_table,
+            cache = caches[f"pos_{pos}"].layer(layer // cfg.period)
+        h = block_forward(bp, h, cfg, pos, positions, cache, page_table,
                           update_cache=update_cache, attn_bias=attn_bias)
     if last_idx is not None:
         rows = torch.arange(h.shape[0], device=h.device)
@@ -159,5 +183,12 @@ def count_params(cfg: ModelConfig) -> int:
 
 
 def count_active_params(cfg: ModelConfig) -> int:
-    """Parameters a token touches: all of them in a dense stack."""
-    return count_params(cfg)
+    """Active parameters: the routed experts count ``top_k`` of their
+    (padded) number, as the reference's roofline counts them."""
+    total = count_params(cfg)
+    if not cfg.n_experts:
+        return total
+    per_expert = 3 * cfg.d_model * cfg.moe_d_ff
+    n_moe = cfg.n_periods * sum(cfg.ffn_kind(pos) == "moe"
+                                for pos in range(cfg.period))
+    return total - n_moe * (padded_experts(cfg) - cfg.top_k) * per_expert

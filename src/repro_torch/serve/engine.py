@@ -9,10 +9,12 @@ constant, the DA precondition).
   the paged KV pool (chunked prefill, preemption, prefix cache, spec
   decoding, quantized pages);
 * ``runtime="slots"``: the fixed-slot runtime over a dense ``[B, max_len]``
-  cache (:class:`_SlotRuntime`), kept for mixers whose state does not page
-  (Mamba, hybrid stacks) and as the baseline.  A prompt prefills in one
-  call, padded to a power-of-two length bucket, into a fresh batch-1 cache
-  whose rows are copied into its slot; every step decodes all ``B`` slots.
+  cache (:class:`_SlotRuntime`), for mixers whose state does not page
+  (Mamba, hybrid stacks: ``runtime="auto"`` picks it for them) and as the
+  baseline.  A prompt prefills in one call (padded to a power-of-two length
+  bucket for attention stacks, at its exact length for recurrent ones) into
+  a fresh batch-1 cache whose rows (KV, or the Mamba conv window and SSM
+  state) are copied into its slot; every step decodes all ``B`` slots.
 
 ``ServeEngine`` freezes float params through
 :func:`repro_torch.core.freeze.freeze_model` when ``da_mode`` is given:
@@ -50,6 +52,7 @@ from repro_torch.core.freeze import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.mamba2 import MambaCache
 from repro_torch.models.model import forward, init_caches
 from repro_torch.obs import Observability, write_chrome_trace, write_prometheus
 from repro_torch.obs.hwcost import HardwareCostModel
@@ -129,11 +132,16 @@ def make_serve_step(cfg: ModelConfig):
 
 def scatter_cache_row(caches, c1, slot: int):
     """Copy batch row 0 of the batch-1 cache tree ``c1`` into row ``slot`` of
-    the batch tree, in place (KVCache k/v ``[P, B, S, kv, hd]``); the
-    stacked ``length`` takes the elementwise max (per-slot lengths live on
-    the host and reach the model as positions).  Returns ``caches``."""
+    the batch tree, in place: KVCache k/v ``[P, B, S, kv, hd]``, MambaCache
+    conv ``[P, B, conv-1, ch]`` and ssm ``[P, B, H, Pd, S]``; the stacked
+    ``length`` takes the elementwise max (per-slot lengths live on the host
+    and reach the model as positions).  Returns ``caches``."""
     for key, big in caches.items():
         small = c1[key]
+        if isinstance(big, MambaCache):
+            big.conv[:, slot] = small.conv[:, 0].to(big.conv.dtype)
+            big.ssm[:, slot] = small.ssm[:, 0].to(big.ssm.dtype)
+            continue
         big.k[:, slot] = small.k[:, 0].to(big.k.dtype)
         big.v[:, slot] = small.v[:, 0].to(big.v.dtype)
         torch.maximum(big.length, small.length, out=big.length)
@@ -392,7 +400,7 @@ class ServeEngine:
         # pricing the served work on the paper's DA circuits; None derives
         # it from the artifact or the frozen params (float weights: none).
         # runtime: "paged", "slots" or "auto" (paged when every mixer is
-        # attention, as in every config the port has).  The scheduler knobs
+        # attention, slots for ssm and hybrid stacks).  The scheduler knobs
         # (greedy, prefill_chunk, prefill_lanes, token_budget, admission,
         # analysis_debug) pass through to PagedScheduler; the slot runtime
         # takes greedy and refuses the paged-only ones (kv_dtype(s),
@@ -458,9 +466,9 @@ class ServeEngine:
         engine's runtime knobs (``prefix_cache``, ``spec``, ...).
 
         KV precision follows the artifact: the plan's wk entries record the
-        page dtype of each layer position.  An explicit ``kv_dtype``
-        overrides a homogeneous plan and raises on a per-layer one (it would
-        flatten it)."""
+        page dtype of each layer position, and the pool is built to match.
+        An explicit ``kv_dtype`` (or ``kv_dtypes``) overrides a homogeneous
+        plan and raises on a per-position one (it would flatten it)."""
         art = load_artifact(directory, device=device)
         if art.model_cfg is None:
             raise ValueError(f"artifact {directory} carries no model config; "
@@ -472,18 +480,14 @@ class ServeEngine:
                            None)
                 if seg is not None:
                     plan_kv[seg] = p.kv_dtype
-        if len(set(plan_kv.values())) > 1:
-            if kv_dtype is not None:
-                raise ValueError(
-                    f"artifact {directory} was frozen with per-layer KV dtypes "
-                    f"{plan_kv}; overriding them with a global kv_dtype= would "
-                    "silently flatten the plan — drop the override or re-freeze")
-            raise NotImplementedError(
-                f"artifact {directory}: per-position KV dtypes {plan_kv} need a "
-                "layer pattern with period > 1, which the port's dense family "
-                "does not have")
-        if kv_dtype is None and plan_kv:
-            kv_dtype = next(iter(plan_kv.values()))
+        explicit = kv_dtype is not None or bool(kw.get("kv_dtypes"))
+        if explicit and len(set(plan_kv.values())) > 1:
+            raise ValueError(
+                f"artifact {directory} was frozen with per-layer KV dtypes "
+                f"{plan_kv}; overriding them with a global kv_dtype= would "
+                "silently flatten the plan — drop the override or re-freeze")
+        if not explicit and plan_kv:
+            kw["kv_dtypes"] = plan_kv
         kw.setdefault("hw", art.hwcost)  # the manifest's cost table
         eng = cls(art.model_cfg, art.params, batch_size, max_len,
                   kv_dtype=kv_dtype, device=device, **kw)

@@ -59,10 +59,17 @@ def resolve_kv_dtypes(cfg: ModelConfig, kv_dtypes=None) -> Dict[str, str]:
 def init_paged_caches(cfg: ModelConfig, n_pages: int, page_size: int, dtype,
                       kv_dtypes=None, device="cuda") -> Dict[str, PagedKVCache]:
     """Paged caches stacked over periods: ``{pos_i: [n_periods, n_pages,
-    ...]}`` (every layer position of the dense family is attention), on the
-    card unless ``device`` says otherwise."""
+    ...]}``, on the card unless ``device`` says otherwise.  Only attention
+    mixers page (their KV grows with the sequence); a stack with a Mamba
+    position serves through the slot runtime instead."""
     if page_size < 1:
         raise ValueError(f"page_size must be >= 1, got {page_size}")
+    for pos in range(cfg.period):
+        if cfg.mixer_kind(pos) != "attn":
+            raise ValueError(
+                f"paged KV caches cover attention mixers only; layer position "
+                f"{pos} is {cfg.mixer_kind(pos)!r} (serve this arch with the "
+                f"slot runtime)")
     device = resolve_device(device)
     resolved = resolve_kv_dtypes(cfg, kv_dtypes)
     return {key: PagedKVCache.zeros(cfg, n_pages, page_size, dtype, kv_dtype=dt,

@@ -239,7 +239,8 @@ def test_model_config_manifest_matches_reference():
                                moe_dropless=True, remat=False)
     ours = ModelConfig.from_manifest(json.loads(json.dumps(
         dataclasses.asdict(jcfg))))
-    assert ours == treg.reduce_for_smoke(treg.get("qwen3-8b"))
+    assert ours == dataclasses.replace(
+        treg.reduce_for_smoke(treg.get("qwen3-8b")), moe_dropless=True)
     back = JModelConfig(**ours.to_manifest())
     for f in dataclasses.fields(ours):
         assert getattr(back, f.name) == getattr(ours, f.name)
@@ -252,8 +253,5 @@ def test_model_config_manifest_matches_reference():
     with pytest.raises(NotImplementedError, match="tie_embeddings"):
         ModelConfig.from_manifest(dataclasses.asdict(
             dataclasses.replace(jcfg, tie_embeddings=True)))
-    with pytest.raises(NotImplementedError, match="family"):
-        ModelConfig.from_manifest(dataclasses.asdict(
-            dataclasses.replace(jcfg, family="moe")))
     with pytest.raises(ValueError, match="neither"):
         ModelConfig.from_manifest(dict(dataclasses.asdict(jcfg), bogus=1))

@@ -116,15 +116,23 @@ def test_configs_match_reference(name):
             assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
 
 
-@pytest.mark.parametrize("family,item", [("moe", "MoE"), ("ssm", "Mamba2"),
-                                         ("hybrid", "hybrid")])
-def test_other_families_are_refused_with_their_roadmap_item(family, item):
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item 4, {item}"):
-        ModelConfig(name="x", family=family, n_layers=1, d_model=8, vocab=4)
+@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "unknown"])
+def test_every_reference_family_is_accepted(family):
+    """``ModelConfig`` and ``from_manifest`` accept the reference's MoE,
+    Mamba-2 and hybrid families (ported since the dense slice refused
+    them); a family the reference does not have still raises."""
     raw = dataclasses.asdict(dataclasses.replace(ARCHS["qwen3-8b"],
                                                  family=family))
-    with pytest.raises(NotImplementedError, match=item):
-        ModelConfig.from_manifest(raw)
+    if family == "unknown":
+        with pytest.raises(ValueError, match="unknown family"):
+            ModelConfig(name="x", family=family, n_layers=1, d_model=8, vocab=4)
+        with pytest.raises(ValueError, match="unknown family"):
+            ModelConfig.from_manifest(raw)
+        return
+    assert ModelConfig(name="x", family=family, n_layers=1, d_model=8,
+                       vocab=4).family == family
+    assert ModelConfig.from_manifest(raw) == dataclasses.replace(
+        treg.get("qwen3-8b"), family=family)
 
 
 @pytest.mark.parametrize("frozen", [False, True])

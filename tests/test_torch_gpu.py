@@ -650,3 +650,76 @@ def test_planned_serve_on_the_card(card, monkeypatch):
     monkeypatch.setattr(ops, "bitplane_vmm", ref.bitplane_vmm_ref)
     plain, none = serve(eng.params)
     assert none == (0, 0) and plain == kernels
+
+
+@pytest.mark.parametrize("mode,e,c,k,n", [
+    ("pallas_bitplane", 8, 4, 2048, 1408), ("bitplane_stacked", 8, 16, 1408, 2048),
+    ("pallas_lut", 6, 4, 256, 512), ("lut", 6, 16, 256, 512)])
+def test_stacked_expert_pack_equals_the_plain_loop(card, monkeypatch, mode, e, c,
+                                                   k, n):
+    """A stacked-expert pack [E, K, N] applied by ``dense`` to [G, E, C, K]
+    activations: one kernel launch per expert (its groups' rows together),
+    the result EQUAL to the same call with the kernels swapped for their
+    plain versions, and to a loop over the experts' 2-D packs."""
+    from repro_torch.core.engine import dense, pack_weights
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
+    from repro_torch.kernels.da_vmm import da_vmm_cuda
+
+    g = torch.Generator(device=card).manual_seed(e + c + k)
+    w = torch.randn((e, k, n), generator=g, device=card).to(torch.bfloat16)
+    packed = pack_weights(w, mode=mode, with_luts=mode.endswith("lut"))
+    x = torch.randn((2, e, c, k), generator=g, device=card).to(torch.bfloat16)
+    counter = da_vmm_cuda if mode.endswith("lut") else bitplane_vmm_cuda
+    before = counter.launches
+    y = dense(x, packed)
+    torch.cuda.synchronize()
+    assert counter.launches == before + e
+    loop = torch.stack([dense(x[:, i], pe) for i, pe in
+                        enumerate(packed.experts())], dim=1)
+    assert torch.equal(y, loop)
+    monkeypatch.setattr(ops, "da_vmm", ref.da_vmm_ref)
+    monkeypatch.setattr(ops, "bitplane_vmm", ref.bitplane_vmm_ref)
+    before = counter.launches
+    assert torch.equal(dense(x, packed), y) and counter.launches == before
+
+
+def test_mamba_slot_serve_on_the_card(card, monkeypatch):
+    """A reduced mamba2-780m on the slot runtime, frozen on the card: each
+    prompt prefills at its exact length, in_proj / out_proj / the LM head
+    run the bit-plane kernel, no attention kernel is launched, and the
+    tokens EQUAL the same serve with the kernel swapped for its plain
+    version."""
+    from repro_torch.configs.registry import get, reduce_for_smoke
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.models.mamba2 import MambaCache
+    from repro_torch.models.model import init_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = reduce_for_smoke(get("mamba2-780m"))
+    eng = ServeEngine(cfg, init_model(cfg, seed=0), batch_size=2, max_len=64,
+                      da_mode="bitplane_stacked")
+    params = eng.params
+    rng = np.random.default_rng(4)
+    prompts = {u: rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for u, n in enumerate((5, 19, 33, 12))}
+
+    def serve():
+        e = ServeEngine(cfg, params, batch_size=2, max_len=64)
+        assert e.runtime == "slots" and isinstance(e.caches["pos_0"], MambaCache)
+        for u, p in prompts.items():
+            e.submit(Request(uid=u, prompt=p, max_new_tokens=8))
+        before = bitplane_vmm_cuda.launches, paged_attention_cuda.launches
+        done = e.run()
+        assert e.metrics()["prefill_compiles"] == 4   # one per exact length
+        return ({u: done[u].generated for u in done},
+                (bitplane_vmm_cuda.launches - before[0],
+                 paged_attention_cuda.launches - before[1]))
+
+    kernels, launched = serve()
+    assert launched[0] > 0 and launched[1] == 0
+    monkeypatch.setattr(ops, "bitplane_vmm", ref.bitplane_vmm_ref)
+    plain, none = serve()
+    assert none == (0, 0) and plain == kernels

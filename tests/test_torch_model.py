@@ -43,7 +43,8 @@ ATOL = 1e-5
 def setup():
     jcfg = dataclasses.replace(reduce_for_smoke(ARCHS["qwen3-8b"]),
                                moe_dropless=True)
-    tcfg = treg.reduce_for_smoke(treg.get("qwen3-8b"))
+    tcfg = dataclasses.replace(treg.reduce_for_smoke(treg.get("qwen3-8b")),
+                               moe_dropless=True)
     params = jinit(jax.random.key(0), jcfg)
     frozen = jfreeze(params, JDA(x_signed=True), mode="pallas_bitplane",
                      model_cfg=jcfg).params
