@@ -153,10 +153,12 @@ Phases, one JSON line each:
    stacked-expert VMMs (``stacked_vmm``): qwen2-moe's expert stack
    [64, 2048, 1408] at C = 4 and 16 rows per expert through the bit-plane
    kernel and a LUT-carrying [6, 256, 512] stack through the LUT-readout
-   kernel, one call per expert, EQUAL to the plain versions' loop and,
-   through the engine's ``dense``, to the same call under the plain
-   versions; each timed with its bound and ``torch._int_mm`` over the
-   experts;
+   kernel, each as one call of the kernel's experts' entry (the expert on
+   its grid; a zeroing memset only where the plan splits) and as E calls
+   of its 2-D entry, both EQUAL to the plain versions' loop and, through
+   the engine's ``dense`` (one call per stack), to the same call under the
+   plain versions; both forms timed in the same call, with the bound and
+   ``torch._int_mm`` over the experts (not under ``--src``);
 17. ``serve_ssm``: mamba2-780m (48 layers, d 1536, 48 SSD heads, state 128,
    vocab 50280) at full size, seed-0 weights frozen by ``da_mode="auto"``
    (``bitplane_stacked`` throughout, 97 bit-plane calls per forward), the
@@ -165,8 +167,8 @@ Phases, one JSON line each:
    and a width-4 decode window;
 18. ``serve_moe``: qwen2-moe-a2.7b (24 layers, d 2048, MHA 16 heads, q/k/v
    biases, 60 experts padded to 64, top-4, 4 shared, vocab 151936) at full
-   size, dropless, the same freeze (4729 bit-plane calls per forward, one
-   per expert of each stacked pack), the phase-6 requests on the paged
+   size, dropless, the same freeze (193 bit-plane calls per forward, one
+   per stacked expert pack), the phase-6 requests on the paged
    runtime with the attention kernel, tokens EQUAL to the plain-swapped
    serve's, and a width-4 decode window;
 19. ``family_variants``: jamba-1.5-large-398b at one period (8 of its 72
@@ -1015,6 +1017,14 @@ def _attention_times(kernel, q, kc, vc, table, tpos, scales, fmt, flush,
     return row
 
 
+#: the VMM entries of ``kernels/ops.py``: each matrix's, and each stack of
+#: experts' (one kernel call per pack)
+VMM_ENTRIES = ("da_vmm", "bitplane_vmm", "da_vmm_experts", "bitplane_vmm_experts")
+#: the launch counts a plain-swapped run must leave at 0
+KERNEL_COUNTS = ("bitplane_vmm", "bitplane_vmm_experts", "da_vmm", "da_vmm_experts",
+                 "paged_attention")
+
+
 @contextlib.contextmanager
 def plain_vmm():
     """Both VMM kernels swapped for their plain versions (``kernels/ref.py``)
@@ -1023,12 +1033,15 @@ def plain_vmm():
     there instead, so a serve under it is the kernels' plain side."""
     from repro_torch.kernels import ops, ref
 
-    saved = ops.da_vmm, ops.bitplane_vmm
-    ops.da_vmm, ops.bitplane_vmm = ref.da_vmm_ref, ref.bitplane_vmm_ref
+    names = [n for n in VMM_ENTRIES if hasattr(ops, n)]
+    saved = {n: getattr(ops, n) for n in names}
+    for n in names:
+        setattr(ops, n, getattr(ref, f"{n}_ref"))
     try:
         yield
     finally:
-        ops.da_vmm, ops.bitplane_vmm = saved
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
 
 
 def phase_logits():
@@ -1083,13 +1096,25 @@ def phase_logits():
     torch.cuda.empty_cache()
 
 
+def _vmm_wrappers() -> dict:
+    """The VMM kernels' wrappers by count name; an older checkout's port
+    (``--src``) has no experts' entries."""
+    out = {}
+    for name in ("bitplane_vmm", "da_vmm"):
+        mod = _vmm_module(name)
+        for key in (name, f"{name}_experts"):
+            fn = getattr(mod, f"{key}_cuda", None)
+            if fn is not None:
+                out[key] = fn
+    return out
+
+
 def _reset_counts():
-    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
-    from repro_torch.kernels.da_vmm import da_vmm_cuda
     from repro_torch.kernels.paged_attention import paged_attention_cuda
 
-    bitplane_vmm_cuda.launches = bitplane_vmm_cuda.cuda_launches = 0
-    da_vmm_cuda.launches = da_vmm_cuda.cuda_launches = 0
+    for fn in _vmm_wrappers().values():
+        fn.launches = fn.cuda_launches = 0
+        fn.launches_by_bits = {}
     paged_attention_cuda.launches = 0
     paged_attention_cuda.cuda_launches = 0
     for fmt in paged_attention_cuda.launches_by_format:
@@ -1098,25 +1123,27 @@ def _reset_counts():
     by_softmax = getattr(paged_attention_cuda, "launches_by_softmax", {})
     for sm in by_softmax:
         by_softmax[sm] = 0
-    bitplane_vmm_cuda.launches_by_bits = {}
-    da_vmm_cuda.launches_by_bits = {}
     paged_attention_cuda.launches_by_t = {}
 
 
 def _read_counts():
-    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
-    from repro_torch.kernels.da_vmm import da_vmm_cuda
+    """Every kernel's calls since :func:`_reset_counts`: each VMM entry's
+    (the experts' entries one per stack; 0 for an older checkout's port
+    without them), with the CUDA launches it queued and its calls by
+    x_bits, and the attention kernel's reads by format, T and softmax."""
     from repro_torch.kernels.paged_attention import paged_attention_cuda
 
-    return {"bitplane_vmm": bitplane_vmm_cuda.launches,
-            "bitplane_vmm_cuda_launches": bitplane_vmm_cuda.cuda_launches,
-            "da_vmm": da_vmm_cuda.launches,
-            "da_vmm_cuda_launches": da_vmm_cuda.cuda_launches,
+    wrappers = _vmm_wrappers()
+    out = {}
+    for key in ("bitplane_vmm", "bitplane_vmm_experts", "da_vmm", "da_vmm_experts"):
+        fn = wrappers.get(key)
+        out[key] = fn.launches if fn else 0
+        out[f"{key}_cuda_launches"] = fn.cuda_launches if fn else 0
+        out[f"{key}_by_bits"] = dict(fn.launches_by_bits) if fn else {}
+    return {**out,
             "paged_attention": paged_attention_cuda.launches,
             "paged_attention_cuda_launches": paged_attention_cuda.cuda_launches,
             "paged_attention_by_format": dict(paged_attention_cuda.launches_by_format),
-            "bitplane_vmm_by_bits": dict(bitplane_vmm_cuda.launches_by_bits),
-            "da_vmm_by_bits": dict(da_vmm_cuda.launches_by_bits),
             "paged_attention_by_t": dict(paged_attention_cuda.launches_by_t),
             "paged_attention_by_softmax": dict(getattr(
                 paged_attention_cuda, "launches_by_softmax", {}))}
@@ -2092,8 +2119,7 @@ def phase_serve_dense():
                     window["phase"] = f"decode_step_dense_{runtime}"
                     emit(window)
             else:
-                if any(counts[k] for k in ("bitplane_vmm", "da_vmm",
-                                           "paged_attention")):
+                if any(counts[k] for k in KERNEL_COUNTS):
                     raise AssertionError(f"{leg}: the plain side launched "
                                          f"a kernel: {counts}")
                 emit(line)
@@ -2192,7 +2218,7 @@ def phase_dense_variants():
                 if counts["bitplane_vmm"] <= 0:
                     raise AssertionError(f"{name}: the bit-plane kernel never ran")
                 counts_all.append(counts)
-            elif any(counts[k] for k in ("bitplane_vmm", "da_vmm", "paged_attention")):
+            elif any(counts[k] for k in KERNEL_COUNTS):
                 raise AssertionError(f"{name}: the plain side launched a kernel")
             out[side] = torch.stack(logits)
         if not torch.isfinite(out["kernels"]).all():
@@ -2224,7 +2250,7 @@ def phase_dense_variants():
 #: the families' VMM shapes the vmm check holds the bit-plane kernel to, at
 #: M = 4 and 64: mamba2-780m's in_proj, out_proj and LM head, qwen2-moe's
 #: fused q|k|v, wo, expert up / gate and down, shared-expert up / gate and
-#: down and LM head (each expert of a stacked pack is a 2-D call)
+#: down and LM head (an expert's matrix alone; the stacks in ``stacked_vmm``)
 FAMILY_VMM_SHAPES = ((1536, 6448), (3072, 1536), (1536, 50280), (2048, 6144),
                      (2048, 2048), (2048, 1408), (1408, 2048), (2048, 5632),
                      (5632, 2048), (2048, 151936))
@@ -2277,15 +2303,20 @@ def phase_family_shapes():
 
 
 def phase_stacked_vmm(flush):
-    """Stacked-expert packs through both VMM kernels, one call per expert:
-    qwen2-moe's expert stack [64, 2048, 1408] (int8 codes) at C = 4 and 16
-    rows per expert through the bit-plane kernel, and a LUT-carrying
-    [6, 256, 512] stack through the LUT-readout kernel, each at the integer
-    level EQUAL to the plain versions' loop over the experts and through the
-    engine (``dense`` on a bf16 [E, C, K] input) EQUAL to the same call
-    under ``plain_vmm()``, which launches none.  Each timed: the E calls of
-    one stacked VMM on the event timers and by kernel on the device, the
-    plain loop, the bound, and ``torch._int_mm`` over the E experts."""
+    """Stacked-expert packs through both VMM kernels: qwen2-moe's expert
+    stack [64, 2048, 1408] (int8 codes) at C = 4 and 16 rows per expert
+    through the bit-plane kernel, and a LUT-carrying [6, 256, 512] stack
+    through the LUT-readout kernel.  Each kernel in two forms: one call of
+    its experts' entry per stack (the expert on the kernel's grid, as the
+    reference's vmapped ``pallas_call``; what the engine runs) and E calls
+    of its 2-D entry (the per-expert form).  Both EQUAL to the plain
+    versions' loop over the experts; the experts' entry is one call per
+    stack and queues the CUDA launches its plan says (a zeroing memset only
+    where it splits K or the groups); through the engine (``dense`` on a
+    bf16 [E, C, K] input) one call of the experts' entry and none of the
+    2-D entry, EQUAL to the same call under ``plain_vmm()``, which launches
+    none.  Both forms timed in this call on the same timers, with the plain
+    loop, the bound, and ``torch._int_mm`` over the E experts."""
     import torch
 
     from repro_torch.core.da import DAConfig, build_luts
@@ -2295,23 +2326,23 @@ def phase_stacked_vmm(flush):
         int_mm_acts,
         int_mm_weights,
     )
-    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
-    from repro_torch.kernels.da_vmm import da_vmm_cuda
-    from repro_torch.kernels.ref import bitplane_vmm_ref, da_vmm_ref
+    from repro_torch.kernels.ref import bitplane_vmm_experts_ref, da_vmm_experts_ref
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     cfg = DAConfig(x_bits=8, x_signed=True)
+    sms = _vmm_module("build").sms(0)
     rows = []
     for name, (e, k, n, cs) in (("bitplane_vmm", STACKED_BITPLANE),
                                 ("da_vmm", STACKED_LUT)):
         lut = name == "da_vmm"
+        mod = _vmm_module(name)
+        kernel, batched = getattr(mod, f"{name}_cuda"), getattr(mod, f"{name}_experts_cuda")
+        plain = da_vmm_experts_ref if lut else bitplane_vmm_experts_ref
         wq = torch.randint(-127, 128, (e, k, n), generator=gen, device="cuda",
                            dtype=torch.int8)
         luts = (torch.stack([build_luts(wq[i], cfg.group_size) for i in range(e)])
                 if lut else None)
-        kernel = da_vmm_cuda if lut else bitplane_vmm_cuda
-        plain = da_vmm_ref if lut else bitplane_vmm_ref
-        table = (lambda i: luts[i]) if lut else (lambda i: wq[i])  # noqa: E731
+        table = luts if lut else wq
         pack = PackedWeights(wq=wq, w_scale=torch.rand(
             (e, 1, n), generator=gen, device="cuda") / 100, luts=luts, cfg=cfg,
             mode="pallas_lut" if lut else "pallas_bitplane")
@@ -2319,30 +2350,54 @@ def phase_stacked_vmm(flush):
             xq = torch.randint(-128, 128, (e, c, k), generator=gen, device="cuda",
                                dtype=torch.int32)
 
-            def stacked():
-                return [kernel(xq[i], table(i), cfg) for i in range(e)]
+            def one_call():
+                return batched(xq, table, cfg)
 
-            before = kernel.launches
-            got = torch.stack(stacked())
-            launches = kernel.launches - before
-            want = torch.stack([plain(xq[i], table(i), cfg) for i in range(e)])
+            def e_launch():
+                return [kernel(xq[i], table[i], cfg) for i in range(e)]
+
+            if lut:
+                plan = mod.lut_plan(c, n, luts.shape[1], sms, e)
+                splits = -(-luts.shape[1] // plan.gpb)
+                fields = {"tokens_per_block": plan.bm, "groups_per_block": plan.gpb,
+                          "group_ranges": splits}
+            else:
+                plan = mod.bitplane_plan(c, k, n, sms, e)
+                splits = plan.splits
+                fields = {"tokens_per_block": plan.tokens, "k_splits": splits}
+            before = batched.launches, batched.cuda_launches, kernel.launches
+            got = one_call()
+            calls = (batched.launches - before[0], batched.cuda_launches - before[1])
+            per = torch.stack(e_launch())
+            e_calls = kernel.launches - before[2]
+            want = plain(xq, table, cfg)
             x = torch.randn((e, c, k), generator=gen, device="cuda").to(torch.bfloat16)
+            before = batched.launches, kernel.launches
             y = dense(x, pack)
-            before = kernel.launches
+            dense_calls = (batched.launches - before[0], kernel.launches - before[1])
+            before = batched.launches, kernel.launches
             with plain_vmm():
                 y_plain = dense(x, pack)
             torch.cuda.synchronize()
-            if not (torch.equal(got, want) and torch.equal(y, y_plain)
-                    and launches == e and kernel.launches == before):
-                raise AssertionError(f"stacked {name} [{e}, {k}, {n}] at C={c}: "
-                                     "kernels != plain loop")
+            planned = 1 + (splits > 1)
+            if not (torch.equal(got, want) and torch.equal(per, want)
+                    and torch.equal(y, y_plain) and calls == (1, planned)
+                    and e_calls == e and dense_calls == (1, 0)
+                    and (batched.launches, kernel.launches) == before):
+                raise AssertionError(
+                    f"stacked {name} [{e}, {k}, {n}] at C={c}: one call "
+                    f"{calls} (planned 1, {planned}), E calls {e_calls}, dense "
+                    f"{dense_calls}, or a result != the plain loop")
             row = {"kernel": name, "experts": e, "k": k, "n": n, "c": c,
-                   "x_bits": 8, "launches_per_stacked_vmm": launches,
-                   "equal": True, "max_abs_err": 0,
-                   **call_times(stacked, flush,
-                                LUT_KERNELS if lut else BITPLANE_KERNELS)}
-            row["plain_ms"] = time_cuda(
-                lambda: [plain(xq[i], table(i), cfg) for i in range(e)], 3, flush, 1)
+                   "x_bits": 8, "launches_per_stacked_vmm": 1,
+                   "cuda_launches_per_stacked_vmm": planned,
+                   "zeroing_memsets": planned - 1, "blocks_per_launch": plan.blocks,
+                   **fields, "equal": True, "max_abs_err": 0,
+                   **call_times(one_call, flush, LUT_KERNELS if lut else BITPLANE_KERNELS)}
+            row["e_launch"] = {"launches_per_stacked_vmm": e_calls,
+                               **call_times(e_launch, flush,
+                                            LUT_KERNELS if lut else BITPLANE_KERNELS)}
+            row["plain_ms"] = time_cuda(lambda: plain(xq, table, cfg), 3, flush, 1)
             w8 = [int_mm_weights(wq[i]) for i in range(e)]
             x8 = [int_mm_acts(xq[i], w8[i].shape[0]) for i in range(e)]
             row["library_ms"] = time_cuda(
@@ -2360,10 +2415,12 @@ def phase_stacked_vmm(flush):
             by = max(both, key=both.get)
             row.update(bound_ms=both[by], bound_by=by)
             rows.append(row)
-            del xq, got, want, w8, x8
-        del wq, luts, pack
+            del xq, got, per, want, w8, x8
+        del wq, luts, table, pack
         torch.cuda.empty_cache()
     emit({"phase": "stacked_vmm", "plain": "the plain versions, expert by expert",
+          "forms": "ms etc.: one call of the experts' entry per stack; "
+                   "e_launch: E calls of the 2-D entry",
           "library": "torch._int_mm per expert (" + LIBRARY + "), E calls",
           "shapes": rows})
     return rows
@@ -2379,19 +2436,21 @@ def _auto_plan_check(name, plan):
     return modes
 
 
-def _calls_per_forward(params, cfg) -> int:
-    """Bit-plane kernel calls of one forward (a 4-token prompt, no cache)."""
+def _calls_per_forward(params, cfg) -> dict:
+    """Bit-plane kernel calls of one forward (a 4-token prompt, no cache):
+    in all, and those of the experts' entry (one per stacked pack)."""
     import torch
 
-    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
     from repro_torch.models.model import forward
 
     tokens = torch.zeros((1, 4), dtype=torch.int32, device="cuda")
-    before = bitplane_vmm_cuda.launches
+    _reset_counts()
     with torch.inference_mode():
         forward(params, tokens, cfg, last_logit_only=True)
     torch.cuda.synchronize()
-    return bitplane_vmm_cuda.launches - before
+    counts = _read_counts()
+    return {"calls_per_forward": counts["bitplane_vmm"] + counts["bitplane_vmm_experts"],
+            "expert_calls_per_forward": counts["bitplane_vmm_experts"]}
 
 
 def _family_serve(phase, cfg, runtime, reckoned):
@@ -2427,15 +2486,15 @@ def _family_serve(phase, cfg, runtime, reckoned):
     modes = _auto_plan_check(cfg.name, plan)
     code_bytes = sum(w.wq.numel() for _, w in packed_leaves(frozen))
     calls = _calls_per_forward(frozen, cfg)
-    if calls != reckoned["calls_per_forward"]:
-        raise AssertionError(f"{cfg.name}: {calls} bit-plane calls per forward, "
-                             f"reckoned {reckoned['calls_per_forward']}")
+    if calls != reckoned:
+        raise AssertionError(f"{cfg.name}: bit-plane calls per forward {calls}, "
+                             f"reckoned {reckoned}")
     emit({"phase": f"{phase}_freeze", "model": cfg.name, "family": cfg.family,
           "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
           "plan_modes": modes, "matrices": len(plan),
           "float_gb": float_gb, "code_gb": code_bytes / 1e9,
           "peak_mem_gb_freeze": torch.cuda.max_memory_allocated() / 1e9,
-          "calls_per_forward": calls, "reckoned": reckoned,
+          **calls, "reckoned": reckoned,
           "init_s": t1 - t0, "freeze_s": t2 - t1})
     tokens, runs = {}, {}
     for side in ("kernels", "plain"):
@@ -2451,10 +2510,12 @@ def _family_serve(phase, cfg, runtime, reckoned):
         tokens[side] = _tokens(done, reqs)
         line = (_serve_line if runtime == "paged" else _slot_line)(
             phase, eng, reqs, done, counts, side=side)
-        line.update(runtime=runtime, calls_per_forward=calls)
+        line.update(runtime=runtime, **calls)
         if side == "kernels":
             want = ("bitplane_vmm", "paged_attention") if runtime == "paged" \
                 else ("bitplane_vmm",)
+            if reckoned["expert_calls_per_forward"]:
+                want += ("bitplane_vmm_experts",)
             if min(counts[k] for k in want) <= 0 or (
                     runtime == "slots" and counts["paged_attention"]):
                 raise AssertionError(f"{phase}: kernels of the path not "
@@ -2465,7 +2526,7 @@ def _family_serve(phase, cfg, runtime, reckoned):
             window["phase"] = f"decode_step_{phase}"
             emit(window)
         else:
-            if any(counts[k] for k in ("bitplane_vmm", "da_vmm", "paged_attention")):
+            if any(counts[k] for k in KERNEL_COUNTS):
                 raise AssertionError(f"{phase}: the plain side launched a kernel: "
                                      f"{counts}")
             emit(line)
@@ -2499,26 +2560,28 @@ def phase_serve_ssm():
     """mamba2-780m (48 layers, d 1536, 48 SSD heads, state 128, vocab
     50280) at full size on the slot runtime (``runtime="auto"`` picks it for
     an ssm stack); reckoned 97 bit-plane calls per forward (in_proj and
-    out_proj of 48 layers, the LM head)."""
+    out_proj of 48 layers, the LM head), no stacked pack."""
     from repro_torch.configs.registry import get
 
     cfg = get("mamba2-780m")
     return _family_serve("serve_ssm", cfg, "slots",
-                         {"calls_per_forward": 2 * cfg.n_layers + 1})
+                         {"calls_per_forward": 2 * cfg.n_layers + 1,
+                          "expert_calls_per_forward": 0})
 
 
 def phase_serve_moe():
     """qwen2-moe-a2.7b (24 layers, d 2048, MHA 16 heads, q/k/v biases, 60
     experts padded to 64, top-4, 4 shared, vocab 151936) at full size,
     dropless as the reference's server runs it, on the paged runtime
-    (page 16, the attention kernel); reckoned 4729 bit-plane calls per
-    forward: 24 x (q|k|v, wo, 64 x 3 experts, 3 shared) and the LM head."""
+    (page 16, the attention kernel); reckoned 193 bit-plane calls per
+    forward: 24 x (q|k|v, wo, 3 stacked expert packs of 64 experts, one
+    call each, 3 shared) and the LM head."""
     from repro_torch.configs.registry import get
-    from repro_torch.models.moe import padded_experts
 
     cfg = dataclasses.replace(get("qwen2-moe-a2.7b"), moe_dropless=True)
     return _family_serve("serve_moe", cfg, "paged", {
-        "calls_per_forward": cfg.n_layers * (2 + 3 * padded_experts(cfg) + 3) + 1})
+        "calls_per_forward": cfg.n_layers * (2 + 3 + 3) + 1,
+        "expert_calls_per_forward": cfg.n_layers * 3})
 
 
 def _frozen_by_block(cfg, seed: int = 0):
@@ -2604,10 +2667,13 @@ def phase_family_variants():
             torch.cuda.synchronize()
             counts = _read_counts()
             if side == "kernels":
-                if counts["bitplane_vmm"] <= 0:
-                    raise AssertionError(f"{name}: the bit-plane kernel never ran")
+                # the dense matrices through the 2-D entry, every stacked
+                # expert pack through the experts' entry (one call each)
+                if min(counts["bitplane_vmm"], counts["bitplane_vmm_experts"]) <= 0:
+                    raise AssertionError(f"{name}: a bit-plane entry never ran: "
+                                         f"{counts}")
                 counts_all.append(counts)
-            elif any(counts[k] for k in ("bitplane_vmm", "da_vmm", "paged_attention")):
+            elif any(counts[k] for k in KERNEL_COUNTS):
                 raise AssertionError(f"{name}: the plain side launched a kernel")
             out[side] = torch.stack(logits)
         if not torch.isfinite(out["kernels"]).all():
@@ -2684,8 +2750,8 @@ def decode_window(eng, vocab: int, steps: int = 4):
     busy = traced["device_busy_ms"]
     # the memsets the VMM entry points queued (one per split call), against
     # every memset the trace holds
-    zeroings = sum(counts[f"{k}_cuda_launches"] - counts[k]
-                   for k in ("bitplane_vmm", "da_vmm"))
+    zeroings = sum(counts[f"{k}_cuda_launches"] - counts[k] for k in
+                   ("bitplane_vmm", "bitplane_vmm_experts", "da_vmm", "da_vmm_experts"))
     return {"phase": "decode_step", "width": 4, "steps": steps,
             "wall_ms": wall_ms, "device_ms": traced["device_ms"],
             "device_busy_ms": busy, "busy_share": busy / wall_ms,
@@ -2760,7 +2826,8 @@ def main() -> int:
         phase_bitplane(flush)
         phase_int8(flush)
         phase_lut_vmm(flush)
-        phase_stacked_vmm(flush)
+        if not args.src:  # an older checkout's port has no experts' entries
+            phase_stacked_vmm(flush)
     if args.phase == "plans":
         phase_plans(flush)
     if args.phase != "all":
@@ -2844,18 +2911,25 @@ def main() -> int:
                 **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "bound_by", "library_ms")}}
 
-    def stacked_row(kernel, c, path=None):
-        """A stacked-expert check's row: the E calls of one stacked VMM;
-        launches: the path that runs such stacks (its expert and other
-        calls), none for a check-only stack."""
+    def stacked_row(kernel, c, one_call):
+        """A stacked-expert row of ``stacked_vmm``: one call of the experts'
+        entry per stack (launches: that entry's calls on every path, at
+        every C), or the E calls of the 2-D entry (launches 0: no path runs
+        a stack that way)."""
         r = next(r for r in stacked if (r["kernel"], r["c"]) == (kernel, c))
-        n = paths[path][kernel] if path else 0
-        return {"shape": f"E={r['experts']} x (M={c} K={r['k']} N={r['n']}) "
-                         f"x_bits=8, one call per expert",
-                "launches": n, "launches_by_path": {path: n} if path else {},
-                **{k: r[k] for k in ("launches_per_stacked_vmm", "max_abs_err",
-                                     "ms", "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms")}}
+        t = r if one_call else r["e_launch"]
+        total, by_path = launches(f"{kernel}_experts") if one_call else (0, {})
+        return {"form": ("one call of the experts' entry per stack" if one_call
+                         else "E calls of the 2-D entry"),
+                **({"batches": "jax.vmap of the kernel in src/repro/core/engine.py:"
+                               "782,784 (one pallas_call, grid (E, ..))"}
+                   if one_call else {}),
+                "shape": f"E={r['experts']} x (M={c} K={r['k']} N={r['n']}) x_bits=8",
+                "launches": total, "launches_by_path": by_path,
+                "launches_per_stacked_vmm": t["launches_per_stacked_vmm"],
+                "device_ms": t["device_ms"], "ms": t["ms"],
+                **{k: r[k] for k in ("max_abs_err", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}}
 
     dec_vmm = vmm_row(vmm, 4, 4096, 12288, 8, "bitplane_vmm")
     dec_lut = vmm_row(lut, 4, 256, 8000, 8, "da_vmm")
@@ -2880,20 +2954,32 @@ def main() -> int:
         **{k: sm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms")}}
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-    bp_total, bp_paths = launches("bitplane_vmm")
-    lut_total, lut_paths = launches("da_vmm")
+
+    def entries(name):
+        """Calls of a kernel through both entries (each stack one call of
+        the experts' entry), by path and by entry."""
+        one, one_paths = launches(name)
+        stacks, stack_paths = launches(f"{name}_experts")
+        by_path = {p: one_paths.get(p, 0) + stack_paths.get(p, 0)
+                   for p in {**one_paths, **stack_paths}}
+        return one + stacks, by_path, {"2d": one, "experts": stacks}
+
+    bp_total, bp_paths, bp_entries = entries("bitplane_vmm")
+    lut_total, lut_paths, lut_entries = entries("da_vmm")
     emit({"kernels": [
         {"name": "bitplane_vmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitplane_vmm.cu",
          "replaces": "src/repro/kernels/bitplane_vmm.py:33",
          "launches": bp_total, "launches_by_path": bp_paths,
-         "cuda_launches": launches("bitplane_vmm_cuda_launches")[0],
+         "launches_by_entry": bp_entries,
+         "cuda_launches": (launches("bitplane_vmm_cuda_launches")[0]
+                           + launches("bitplane_vmm_experts_cuda_launches")[0]),
          "max_abs_err": max(r["max_abs_err"] for r in vmm),
          **{k: dec_vmm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "shape")},
-         "variants": [vmm_row(vmm, 4, 4096, 12288, DRAFT_X_BITS, "bitplane_vmm"),
-                      stacked_row("bitplane_vmm", 4, "serve_moe"),
-                      stacked_row("bitplane_vmm", 16, "serve_moe")]},
+         "variants": [vmm_row(vmm, 4, 4096, 12288, DRAFT_X_BITS, "bitplane_vmm")]
+         + [stacked_row("bitplane_vmm", c, one) for one in (True, False)
+            for c in STACKED_BITPLANE[3]]},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:66",
@@ -2908,14 +2994,17 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/da_vmm.cu",
          "replaces": "src/repro/kernels/da_vmm.py:33",
          "launches": lut_total, "launches_by_path": lut_paths,
-         "cuda_launches": launches("da_vmm_cuda_launches")[0],
+         "launches_by_entry": lut_entries,
+         "cuda_launches": (launches("da_vmm_cuda_launches")[0]
+                           + launches("da_vmm_experts_cuda_launches")[0]),
          "max_abs_err": max(r["max_abs_err"] for r in lut),
          **{k: dec_lut[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")},
          "library_note": LIBRARY,
          "shape": "M=4 K=256 N=8000 x_bits=8 L=8 (LM head of the LUT path)",
-         "variants": [vmm_row(lut, 4, 256, 8000, DRAFT_X_BITS, "da_vmm"),
-                      stacked_row("da_vmm", 4), stacked_row("da_vmm", 16)]},
+         "variants": [vmm_row(lut, 4, 256, 8000, DRAFT_X_BITS, "da_vmm")]
+         + [stacked_row("da_vmm", c, one) for one in (True, False)
+            for c in STACKED_LUT[3]]},
     ]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -41,7 +41,11 @@ name                 needs LUTs  execution
 Every DA mode is bit-exact, so on CUDA the three LUT modes all run the
 LUT-readout kernel and the three storage-free modes the bit-plane kernel: an
 artifact keeps its mode names, and no registered DA mode runs a plain form
-on the card.  The CPU keeps each mode's plain form.  A mode whose
+on the card.  The CPU keeps each mode's plain form.  On a stacked-expert
+pack ([E, K, N]) each of those six modes runs its kernel once per pack
+(``BackendSpec.experts_fn``, the expert on the kernel's grid, as the
+reference's vmapped ``pallas_call``); ``int8`` and the CPU's plain forms
+make one call per expert.  A mode whose
 capabilities the artifact or config does not meet (a LUT mode without LUTs
 or with tables of another group size, ``int8`` on unsigned codes) raises
 instead of computing wrong integers.
@@ -75,6 +79,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import pathlib
@@ -247,6 +252,10 @@ class BackendSpec:
     """Capability spec + implementation of one DA execution mode.
 
     fn:             (xq int32 [M,K], packed, cfg) → int32 [M,N] == xq @ wq.
+    experts_fn:     the same over a stacked-expert pack, (xq int32 [E,M,K],
+                    packed [E,K,N], cfg) → int32 [E,M,N]: one kernel call
+                    per pack where the mode runs a kernel; None → one ``fn``
+                    call per expert (:meth:`PackedWeights.experts`).
     needs_luts:     reads materialized weight-sum LUTs from the artifact.
     is_da:          multiplier-free DA datapath (``auto`` only considers
                     these; baselines such as int8 are requested explicitly).
@@ -259,6 +268,8 @@ class BackendSpec:
     name: str
     fn: Callable[[torch.Tensor, PackedWeights, DAConfig], torch.Tensor]
     description: str = ""
+    experts_fn: Optional[Callable[[torch.Tensor, PackedWeights, DAConfig],
+                                  torch.Tensor]] = None
     needs_luts: bool = False
     is_da: bool = True
     signed_only: bool = False
@@ -376,6 +387,49 @@ def _kernel_bitplane_backend(xq, packed, cfg):
     from repro_torch.kernels.ops import bitplane_vmm
 
     return bitplane_vmm(xq, packed.wq, cfg)
+
+
+def _each_expert(fn, xq, packed, cfg):
+    """``fn`` once per expert of a stacked pack: expert e's rows ``xq[e]``
+    against its 2-D pack."""
+    return torch.stack([fn(xq[i], pe, cfg) for i, pe in enumerate(packed.experts())])
+
+
+def _kernel_lut_experts(xq, packed, cfg):
+    from repro_torch.kernels.ops import da_vmm_experts
+
+    return da_vmm_experts(xq, packed.luts, cfg)
+
+
+def _kernel_bitplane_experts(xq, packed, cfg):
+    from repro_torch.kernels.ops import bitplane_vmm_experts
+
+    return bitplane_vmm_experts(xq, packed.wq, cfg)
+
+
+def _batched(kernel_experts, plain=None):
+    """A kernel mode's form over stacked experts: the kernel's batched entry
+    (one call per pack: the kernel on CUDA, its plain version on the CPU);
+    a mode with a plain torch form of its own (``plain``) runs that once per
+    expert on the CPU, as it runs it for one matrix."""
+    def run(xq, packed, cfg):
+        if plain is not None and xq.device.type != "cuda":
+            return _each_expert(plain, xq, packed, cfg)
+        return kernel_experts(xq, packed, cfg)
+
+    return run
+
+
+for _name, _kernel, _plain in (
+        ("lut", _kernel_lut_experts, _lut_backend),
+        ("onehot", _kernel_lut_experts, _onehot_backend),
+        ("pallas_lut", _kernel_lut_experts, None),
+        ("bitplane", _kernel_bitplane_experts, _bitplane_backend),
+        ("bitplane_stacked", _kernel_bitplane_experts, _stacked_backend),
+        ("pallas_bitplane", _kernel_bitplane_experts, None)):
+    _REGISTRY[_name] = dataclasses.replace(_REGISTRY[_name],
+                                           experts_fn=_batched(_kernel, _plain))
+del _name, _kernel, _plain
 
 
 #: torch._int_mm's shape rule on CUDA: M above 16, K and N multiples of 8
@@ -679,12 +733,13 @@ def _rows(lead) -> int:
     return m
 
 
-def _truncated_acc(spec: BackendSpec, xq: torch.Tensor, packed: PackedWeights,
+def _truncated_acc(fn, xq: torch.Tensor, packed: PackedWeights,
                    cfg: DAConfig, eff: int) -> torch.Tensor:
-    """The backend on the top ``eff`` planes of ``xq``: the codes shifted
-    right by ``drop``, the accumulator scaled back by ``2^drop``."""
+    """The backend function ``fn`` on the top ``eff`` planes of ``xq``: the
+    codes shifted right by ``drop``, the accumulator scaled back by
+    ``2^drop``."""
     xs, rcfg, drop = truncate_codes(xq, cfg, eff)
-    acc = spec.fn(xs, packed, rcfg)
+    acc = fn(xs, packed, rcfg)
     return acc * (1 << drop) if drop else acc
 
 
@@ -703,7 +758,7 @@ def da_vmm(xq: torch.Tensor, packed: PackedWeights, mode: Optional[str] = None,
     spec = _resolve_spec(mode, _rows(lead), packed.k, packed.n, ecfg,
                          packed.has_luts, default_mode=packed.mode)
     _check_lut_shape(spec, packed, ecfg)
-    acc = _truncated_acc(spec, xq.reshape(-1, xq.shape[-1]).to(torch.int32),
+    acc = _truncated_acc(spec.fn, xq.reshape(-1, xq.shape[-1]).to(torch.int32),
                          packed, cfg, eff)
     return acc.reshape(lead + (packed.n,))
 
@@ -724,18 +779,21 @@ def da_matmul(x: torch.Tensor, weights: PackedWeights,
     _check_lut_shape(spec, weights, rcfg)
     x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
     xqt = quantize_acts_signed(x2, bits=scfg.x_bits)
-    acc = _truncated_acc(spec, xqt.q, weights, scfg, eff)
+    acc = _truncated_acc(spec.fn, xqt.q, weights, scfg, eff)
     y = acc.to(torch.float32) * xqt.scale * weights.w_scale
     return y.reshape(lead + (weights.n,))
 
 
 def da_matmul_experts(x: torch.Tensor, weights: PackedWeights) -> torch.Tensor:
     """Stacked experts: x [.., E, C, K] float against an [E, K, N] pack →
-    [.., E, C, N] float.  Each expert's rows (every group's, together) go
-    through the registered backend against that expert's 2-D pack, one call
-    per expert; the per-row quantization and the dequantization, which do
-    not depend on the rows beside a row, run once over all experts, so every
-    output equals a :func:`da_matmul` of that expert's rows."""
+    [.., E, C, N] float.  Each expert's rows (every group's, together: the
+    reference's grid ``(G, E, ..)`` gives the same numbers, as quantization
+    is per row) go through the backend's form over stacked experts, one
+    call per pack (``BackendSpec.experts_fn``: one kernel launch on CUDA, as
+    the reference's vmapped ``pallas_call`` puts the expert on its grid), or
+    one call per expert where the mode has no such form (``int8``); the
+    per-row quantization and the dequantization run once over all experts,
+    so every output equals a :func:`da_matmul` of that expert's rows."""
     cfg = dataclasses.replace(weights.cfg, x_signed=True)
     eff = effective_x_bits(cfg, None)
     rcfg = dataclasses.replace(cfg, x_bits=eff)  # dispatch sees draft cycles
@@ -745,8 +803,8 @@ def da_matmul_experts(x: torch.Tensor, weights: PackedWeights) -> torch.Tensor:
                          weights.has_luts, default_mode=weights.mode)
     _check_lut_shape(spec, weights, rcfg)
     xqt = quantize_acts_signed(xe.to(torch.float32), bits=cfg.x_bits)
-    acc = torch.stack([_truncated_acc(spec, xqt.q[i], pe, cfg, eff)
-                       for i, pe in enumerate(weights.experts())])
+    run = spec.experts_fn or functools.partial(_each_expert, spec.fn)
+    acc = _truncated_acc(run, xqt.q, weights, cfg, eff)
     y = acc.to(torch.float32) * xqt.scale * weights.w_scale  # [E, rows, N]
     return y.reshape((e,) + tuple(lead) + (c, weights.n)).movedim(0, -3)
 

@@ -1,12 +1,15 @@
 // Bit-plane (storage-free) DA VMM for Hopper, sm_90a.
 //
 // Replaces the TPU kernel src/repro/kernels/bitplane_vmm.py:_bitplane_kernel
-// (driven by bitplane_vmm_pallas -> _bitplane_vmm_call).
+// (driven by bitplane_vmm_pallas -> _bitplane_vmm_call), and that kernel
+// batched over stacked experts: jax.vmap of it in src/repro/core/engine.py:
+// dense lowers to one pallas_call whose grid leads with the expert.
 //
 // Computes the exact int32 Y[M,N] = sum_b coef(b) * (xbit_b @ W), where
 // xbit_b in {0,1} is bit b of the two's-complement pattern of the low
 // x_bits bits of xq, coef(b) = 2^b and the sign plane of signed codes
-// carries -2^(x_bits-1).  W holds int8 codes.
+// carries -2^(x_bits-1).  W holds int8 codes.  With E experts the same holds
+// for each: Y[e] from xq[e] and W[e], all in one launch.
 //
 // What bounds it on this card.  At decode (M <= 8) the work is
 // 2*M*K*N*x_bits int8 operations against K*N bytes of codes: about 64
@@ -46,6 +49,11 @@
 //    atomicAdd into an output the entry point zeroes) when the tiles alone
 //    would leave SMs idle.  Token tiles vary fastest in the grid, so blocks
 //    sharing a weight tile run together and hit L2.
+//  - Experts: the grid's z is expert x K range (z = e * splits + s), and a
+//    block offsets its codes, weights and output by its expert's strides,
+//    taken in 64 bits (one expert of a [16, 8192, 24576] stack starts past
+//    2^31 bytes).  The tiles of all experts fill the card together, so a
+//    decode-sized stack needs no K split; a single matrix is E = 1.
 //  - Ragged and misaligned operands: K and N edges are zero-filled by the
 //    copies; a weight matrix whose rows are not 16-byte aligned (ldw % 16 or
 //    the base) is staged by plain byte loads into the same ring.
@@ -131,7 +139,8 @@ template <int MT, int WM, bool ALIGNED>
 __global__ void __launch_bounds__(128 * WM)
 bitplane_vmm_kernel(const int32_t* __restrict__ xq, const int8_t* __restrict__ w,
                     int32_t* __restrict__ y, int M, int K, int N, int ldw,
-                    int x_bits, int x_signed, int k_per_split, int atomic) {
+                    long long sxe, long long swe, long long sye, int x_bits,
+                    int x_signed, int k_per_split, int atomic) {
   constexpr int THREADS = 128 * WM;
   constexpr int TB = 2 * MT * WM;
   constexpr int XQ = TB * BK / 4;                      // code quads per step
@@ -140,9 +149,14 @@ bitplane_vmm_kernel(const int32_t* __restrict__ xq, const int8_t* __restrict__ w
   unsigned char* w_s = smem;                                         // ring
   unsigned* x_s = reinterpret_cast<unsigned*>(smem + STAGES * W_TILE);  // [2][TB][BK/4]
 
+  const int splits = (K + k_per_split - 1) / k_per_split;
+  const int e = blockIdx.z / splits;
+  xq += e * sxe;
+  w += e * swe;
+  y += e * sye;
   const int m0 = blockIdx.x * TB;
   const int n0 = blockIdx.y * BN;
-  const int k_begin = blockIdx.z * k_per_split;
+  const int k_begin = (blockIdx.z - e * splits) * k_per_split;
   const int k_end = min(K, k_begin + k_per_split);
   const int nsteps = (k_end - k_begin + BK - 1) / BK;
   const int tid = threadIdx.x;
@@ -316,8 +330,8 @@ bitplane_vmm_kernel(const int32_t* __restrict__ xq, const int8_t* __restrict__ w
 
 template <int MT, int WM, bool ALIGNED>
 int launch(dim3 grid, cudaStream_t st, const int32_t* xq, const int8_t* w, int32_t* y,
-           int M, int K, int N, int ldw, int x_bits, int x_signed, int k_per_split,
-           int atomic) {
+           int M, int K, int N, int ldw, long long sxe, long long swe, long long sye,
+           int x_bits, int x_signed, int k_per_split, int atomic) {
   // the dynamic shared-memory limit, raised once per device
   static std::atomic<unsigned> raised{0};
   int dev = 0;
@@ -331,24 +345,30 @@ int launch(dim3 grid, cudaStream_t st, const int32_t* xq, const int8_t* w, int32
   }
   const int smem = STAGES * W_TILE + 2 * (2 * MT * WM) * BK;
   bitplane_vmm_kernel<MT, WM, ALIGNED><<<grid, 128 * WM, smem, st>>>(
-      xq, w, y, M, K, N, ldw, x_bits, x_signed, k_per_split, atomic);
+      xq, w, y, M, K, N, ldw, sxe, swe, sye, x_bits, x_signed, k_per_split, atomic);
   return 0;
 }
 
 template <bool ALIGNED>
 int dispatch(int mt, int wm, dim3 grid, cudaStream_t st, const int32_t* xq,
-             const int8_t* w, int32_t* y, int M, int K, int N, int ldw, int x_bits,
-             int x_signed, int k_per_split, int atomic) {
+             const int8_t* w, int32_t* y, int M, int K, int N, int ldw, long long sxe,
+             long long swe, long long sye, int x_bits, int x_signed, int k_per_split,
+             int atomic) {
   if (wm == 1 && mt == 1)
-    return launch<1, 1, ALIGNED>(grid, st, xq, w, y, M, K, N, ldw, x_bits, x_signed, k_per_split, atomic);
+    return launch<1, 1, ALIGNED>(grid, st, xq, w, y, M, K, N, ldw, sxe, swe, sye, x_bits, x_signed,
+                                       k_per_split, atomic);
   if (wm == 1 && mt == 2)
-    return launch<2, 1, ALIGNED>(grid, st, xq, w, y, M, K, N, ldw, x_bits, x_signed, k_per_split, atomic);
+    return launch<2, 1, ALIGNED>(grid, st, xq, w, y, M, K, N, ldw, sxe, swe, sye, x_bits, x_signed,
+                                       k_per_split, atomic);
   if (wm == 1 && mt == 4)
-    return launch<4, 1, ALIGNED>(grid, st, xq, w, y, M, K, N, ldw, x_bits, x_signed, k_per_split, atomic);
+    return launch<4, 1, ALIGNED>(grid, st, xq, w, y, M, K, N, ldw, sxe, swe, sye, x_bits, x_signed,
+                                       k_per_split, atomic);
   if (wm == 2 && mt == 4)
-    return launch<4, 2, ALIGNED>(grid, st, xq, w, y, M, K, N, ldw, x_bits, x_signed, k_per_split, atomic);
+    return launch<4, 2, ALIGNED>(grid, st, xq, w, y, M, K, N, ldw, sxe, swe, sye, x_bits, x_signed,
+                                       k_per_split, atomic);
   if (wm == 4 && mt == 4)
-    return launch<4, 4, ALIGNED>(grid, st, xq, w, y, M, K, N, ldw, x_bits, x_signed, k_per_split, atomic);
+    return launch<4, 4, ALIGNED>(grid, st, xq, w, y, M, K, N, ldw, sxe, swe, sye, x_bits, x_signed,
+                                       k_per_split, atomic);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -356,38 +376,46 @@ int dispatch(int mt, int wm, dim3 grid, cudaStream_t st, const int32_t* xq,
 
 extern "C" {
 
-// xq int32 [M, K] contiguous; w int8 [K, N] with row stride ldw >= N;
-// y int32 [M, N] contiguous.  The tile (kernels/bitplane_vmm.py:
-// bitplane_plan): mt m16 tiles per warp and wm warps along M (mt, wm) in
-// (1,1) (2,1) (4,1) (4,2) (4,4); K in ranges of k_per_split, a multiple of
-// 128.  With more than one range the output is zeroed first (one more
-// launch).  Adds the CUDA launches it queued to *launched.
-int bitplane_vmm_s8(const void* xq, const void* w, void* y, int M, int K, int N,
-                    int ldw, int x_bits, int x_signed, int mt, int wm, int k_per_split,
-                    void* stream, int* launched) {
+// E experts, each xq int32 [M, K] contiguous, w int8 [K, N] with row stride
+// ldw >= N and y int32 [M, N] contiguous; expert e's start at element
+// e * sxe, e * swe and e * sye of xq, w and y (64-bit: a stack may pass 2^31
+// elements; the experts' outputs must not overlap).  E = 1 is one matrix.
+// The tile (kernels/bitplane_vmm.py: bitplane_plan): mt m16 tiles per warp
+// and wm warps along M (mt, wm) in (1,1) (2,1) (4,1) (4,2) (4,4); K in
+// ranges of k_per_split, a multiple of 128.  With more than one range every
+// expert's output is zeroed first (one more launch).  Adds the CUDA
+// launches it queued to *launched.
+int bitplane_vmm_s8(const void* xq, const void* w, void* y, int E, int M, int K, int N,
+                    int ldw, long long sxe, long long swe, long long sye, int x_bits,
+                    int x_signed, int mt, int wm, int k_per_split, void* stream,
+                    int* launched) {
   const bool tile = wm == 1 ? (mt == 1 || mt == 2 || mt == 4) : mt == 4 && (wm == 2 || wm == 4);
-  if (M <= 0 || N <= 0 || K <= 0 || x_bits < 1 || x_bits > 8 || ldw < N ||
-      k_per_split < BK || k_per_split % BK || !tile)
+  if (E <= 0 || M <= 0 || N <= 0 || K <= 0 || x_bits < 1 || x_bits > 8 || ldw < N ||
+      k_per_split < BK || k_per_split % BK || !tile ||
+      (E > 1 && (sxe < 0 || swe < 0 || sye < (long long)M * N)))
     return (int)cudaErrorInvalidValue;
   const int tb = 2 * mt * wm;
-  const dim3 grid((M + tb - 1) / tb, (N + BN - 1) / BN, (K + k_per_split - 1) / k_per_split);
-  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
+  const int splits = (K + k_per_split - 1) / k_per_split;
+  if ((N + BN - 1) / BN > 65535 || (long long)E * splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((M + tb - 1) / tb, (N + BN - 1) / BN, E * splits);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int atomic = grid.z > 1;
+  const int atomic = splits > 1;
   cudaError_t err;
-  if (atomic) {
-    err = cudaMemsetAsync(y, 0, (size_t)M * N * sizeof(int32_t), st);
+  if (atomic) {  // the span from expert 0's output to the end of expert E - 1's
+    err = cudaMemsetAsync(y, 0, ((size_t)(E - 1) * sye + (size_t)M * N) * sizeof(int32_t), st);
     if (err != cudaSuccess) return (int)err;
     ++*launched;
   }
-  const bool aligned = ldw % 16 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  const bool aligned = ldw % 16 == 0 && (E == 1 || swe % 16 == 0) &&
+                       (reinterpret_cast<uintptr_t>(w) & 15) == 0;
   const int32_t* x = static_cast<const int32_t*>(xq);
   const int8_t* wp = static_cast<const int8_t*>(w);
   int32_t* yp = static_cast<int32_t*>(y);
-  const int e = aligned ? dispatch<true>(mt, wm, grid, st, x, wp, yp, M, K, N, ldw, x_bits,
-                                         x_signed, k_per_split, atomic)
-                        : dispatch<false>(mt, wm, grid, st, x, wp, yp, M, K, N, ldw, x_bits,
-                                          x_signed, k_per_split, atomic);
+  const int e = aligned ? dispatch<true>(mt, wm, grid, st, x, wp, yp, M, K, N, ldw, sxe, swe,
+                                         sye, x_bits, x_signed, k_per_split, atomic)
+                        : dispatch<false>(mt, wm, grid, st, x, wp, yp, M, K, N, ldw, sxe,
+                                          swe, sye, x_bits, x_signed, k_per_split, atomic);
   if (e) return e;
   err = cudaGetLastError();
   if (err == cudaSuccess) ++*launched;

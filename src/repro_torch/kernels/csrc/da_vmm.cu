@@ -1,7 +1,9 @@
 // LUT-readout Distributed-Arithmetic VMM for Hopper, sm_90a.
 //
 // Replaces the TPU kernel src/repro/kernels/da_vmm.py: _da_vmm_kernel
-// (driven by da_vmm_pallas; engine backend pallas_lut).
+// (driven by da_vmm_pallas; engine backend pallas_lut), and that kernel
+// batched over stacked experts: jax.vmap of it in src/repro/core/engine.py:
+// dense lowers to one pallas_call whose grid leads with the expert.
 //
 // Computes the exact int32 Y[m, n] = sum_b coef(b) * sum_g LUT[g, addr(m, b, g), n]
 // with addr(m, b, g) = sum_i bit_b(xq[m, g*L + i] & mask) << i, the paper's
@@ -31,6 +33,9 @@
 // SM count (kernels/da_vmm.py: lut_plan) so every shape gets at least about
 // one block per SM; with more than one range the entry point zeroes the
 // output (cudaMemsetAsync) and blocks add their partials with atomicAdd.
+// Stacked experts (tables [E, G, 2^L, N]) run in the same launch: z is
+// expert x group range, and a block offsets its codes, tables and output by
+// its expert's strides, taken in 64 bits.
 // A block of 1-4 warps owns one token (two above M = 8) x 32*V columns
 // (V = 4: one 16-byte vector per lane) and a range of at most 8 groups; each
 // warp takes its groups one at a time, forms the addresses (one lane per
@@ -122,18 +127,25 @@ template <int V, int BM>
 __global__ void __launch_bounds__(G_WARPS * 32)
 lut_gather_kernel(const int32_t* __restrict__ xq, const int32_t* __restrict__ luts,
                   int32_t* __restrict__ out, int M, int K, int N, int G, int L,
-                  int x_bits, int x_signed, int gpb, int atomic) {
+                  int x_bits, int x_signed, int gpb, long long sxe, long long sle,
+                  long long soe, int atomic) {
   constexpr int COLS = 32 * V;
   constexpr int ITEMS = BM * 8;  // (token, plane) rows of one group
   __shared__ unsigned red[G_WARPS][BM][COLS];
   const int nw = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ranges = (G + gpb - 1) / gpb;
+  const int e = blockIdx.z / ranges;
+  const int g_begin = (blockIdx.z - e * ranges) * gpb;
+  xq += e * sxe;
+  luts += e * sle;
+  out += e * soe;
   const int nb = blockIdx.y * COLS;
   const int n = nb + lane * V;
   const bool live = n < N;  // V = 4: N % 4 == 0, so all four columns are
   const int m0 = blockIdx.x * BM;
   const int mc = min(BM, M - m0);
-  const int g_end = min(G, (blockIdx.z + 1) * gpb);
+  const int g_end = min(G, g_begin + gpb);
   const unsigned mask = (1u << x_bits) - 1u;
   const int sign_plane = x_signed ? x_bits - 1 : -1;
   const size_t rows = (size_t)1 << L;
@@ -144,7 +156,7 @@ lut_gather_kernel(const int32_t* __restrict__ xq, const int32_t* __restrict__ lu
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[m][j] = 0u;
 
-  for (int g = blockIdx.z * gpb + warp; g < g_end; g += nw) {
+  for (int g = g_begin + warp; g < g_end; g += nw) {
     // lane m < mc forms token m0 + m's addresses; the other lanes' words are
     // 0 (row 0, all zeros), so a ragged tile adds nothing
     uint64_t lo = 0, hi = 0;
@@ -197,18 +209,20 @@ lut_gather_kernel(const int32_t* __restrict__ xq, const int32_t* __restrict__ lu
 template <int V, int BM>
 void launch_gather(dim3 grid, int warps, cudaStream_t st, const int32_t* xq,
                    const int32_t* luts, int32_t* out, int M, int K, int N, int G, int L,
-                   int x_bits, int x_signed, int gpb, int atomic) {
-  lut_gather_kernel<V, BM><<<grid, warps * 32, 0, st>>>(xq, luts, out, M, K, N, G, L,
-                                                        x_bits, x_signed, gpb, atomic);
+                   int x_bits, int x_signed, int gpb, long long sxe, long long sle,
+                   long long soe, int atomic) {
+  lut_gather_kernel<V, BM><<<grid, warps * 32, 0, st>>>(
+      xq, luts, out, M, K, N, G, L, x_bits, x_signed, gpb, sxe, sle, soe, atomic);
 }
 
 template <int V>
 int dispatch_gather(int bm, dim3 grid, int warps, cudaStream_t st, const int32_t* xq,
                     const int32_t* luts, int32_t* out, int M, int K, int N, int G,
-                    int L, int x_bits, int x_signed, int gpb, int atomic) {
+                    int L, int x_bits, int x_signed, int gpb, long long sxe,
+                    long long sle, long long soe, int atomic) {
   switch (bm) {
-    case 1: launch_gather<V, 1>(grid, warps, st, xq, luts, out, M, K, N, G, L, x_bits, x_signed, gpb, atomic); break;
-    case 2: launch_gather<V, 2>(grid, warps, st, xq, luts, out, M, K, N, G, L, x_bits, x_signed, gpb, atomic); break;
+    case 1: launch_gather<V, 1>(grid, warps, st, xq, luts, out, M, K, N, G, L, x_bits, x_signed, gpb, sxe, sle, soe, atomic); break;
+    case 2: launch_gather<V, 2>(grid, warps, st, xq, luts, out, M, K, N, G, L, x_bits, x_signed, gpb, sxe, sle, soe, atomic); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return 0;
@@ -218,39 +232,49 @@ int dispatch_gather(int bm, dim3 grid, int warps, cudaStream_t st, const int32_t
 
 extern "C" {
 
-// xq int32 [M, K] contiguous; luts int32 [G, 2^L, N] contiguous, G * L >= K;
-// out int32 [M, N] contiguous.  1 <= L <= 16, 1 <= x_bits <= 8.  The plan
-// (kernels/da_vmm.py: lut_plan): vec 4 or 1 columns per lane, bm 1 or 2
-// tokens, warps 1-4 and gpb groups per block.  With more than one group
-// range the output is zeroed first (one more launch).
-// Adds the CUDA launches it queued to *launched.
-int da_vmm_lut_s32(const void* xq, const void* luts, void* out, int M, int K, int N,
-                   int G, int L, int x_bits, int x_signed, int vec, int bm,
-                   int gpb, int warps, void* stream, int* launched) {
-  if (M <= 0 || K <= 0 || N <= 0 || G <= 0 || L < 1 || L > 16 || x_bits < 1 ||
+// E experts, each xq int32 [M, K] contiguous, luts int32 [G, 2^L, N]
+// contiguous, G * L >= K, and out int32 [M, N] contiguous; expert e's start
+// at element e * sxe, e * sle and e * soe of xq, luts and out (64-bit; the
+// experts' outputs must not overlap).  E = 1 is one matrix.  1 <= L <= 16,
+// 1 <= x_bits <= 8.  The plan (kernels/da_vmm.py: lut_plan): vec 4 or 1
+// columns per lane, bm 1 or 2 tokens, warps 1-4 and gpb groups per block.
+// With more than one group range every expert's output is zeroed first
+// (one more launch).  Adds the CUDA launches it queued to *launched.
+int da_vmm_lut_s32(const void* xq, const void* luts, void* out, int E, int M, int K,
+                   int N, int G, int L, long long sxe, long long sle, long long soe,
+                   int x_bits, int x_signed, int vec, int bm, int gpb, int warps,
+                   void* stream, int* launched) {
+  if (E <= 0 || M <= 0 || K <= 0 || N <= 0 || G <= 0 || L < 1 || L > 16 || x_bits < 1 ||
       x_bits > 8 || (long long)G * L < K || gpb < 1 || bm < 1)
     return (int)cudaErrorInvalidValue;
   if ((vec != 4 && vec != 1) || (vec == 4 && N % 4) || bm > 2 || warps < 1 ||
       warps > G_WARPS)
     return (int)cudaErrorInvalidValue;
+  // vec 4 reads 16-byte rows of every expert's tables
+  if (E > 1 && (sxe < 0 || sle < 0 || soe < (long long)M * N || (vec == 4 && sle % 4)))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int cols = 32 * vec;
-  const dim3 grid((M + bm - 1) / bm, (N + cols - 1) / cols, (G + gpb - 1) / gpb);
-  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-  const int atomic = grid.z > 1;
+  const int ranges = (G + gpb - 1) / gpb;
+  if ((N + cols - 1) / cols > 65535 || (long long)E * ranges > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((M + bm - 1) / bm, (N + cols - 1) / cols, E * ranges);
+  const int atomic = ranges > 1;
   const int32_t* x = static_cast<const int32_t*>(xq);
   const int32_t* t = static_cast<const int32_t*>(luts);
   int32_t* y = static_cast<int32_t*>(out);
   cudaError_t err;
   if (atomic) {
-    err = cudaMemsetAsync(out, 0, (size_t)M * N * sizeof(int32_t), st);
+    // the span from expert 0's output to the end of expert E - 1's
+    err = cudaMemsetAsync(out, 0, ((size_t)(E - 1) * soe + (size_t)M * N) * sizeof(int32_t),
+                          st);
     if (err != cudaSuccess) return (int)err;
     ++*launched;
   }
   const int e = vec == 4 ? dispatch_gather<4>(bm, grid, warps, st, x, t, y, M, K, N, G, L,
-                                              x_bits, x_signed, gpb, atomic)
+                                              x_bits, x_signed, gpb, sxe, sle, soe, atomic)
                          : dispatch_gather<1>(bm, grid, warps, st, x, t, y, M, K, N, G, L,
-                                              x_bits, x_signed, gpb, atomic);
+                                              x_bits, x_signed, gpb, sxe, sle, soe, atomic);
   if (e) return e;
   err = cudaGetLastError();
   if (err == cudaSuccess) ++*launched;

@@ -31,3 +31,18 @@ def bitplane_vmm_ref(xq: torch.Tensor, wq: torch.Tensor,
     for b in range(cfg.x_bits):
         acc = acc + int(coefs[b]) * mr[b]
     return acc
+
+
+def da_vmm_experts_ref(xq: torch.Tensor, luts: torch.Tensor,
+                       cfg: DAConfig) -> torch.Tensor:
+    """Plain version of the LUT readout over stacked experts: xq [E, M, K]
+    against luts [E, G, 2^L, N], expert by expert → int32 [E, M, N]."""
+    return torch.stack([da_vmm_ref(xq[e], luts[e], cfg) for e in range(xq.shape[0])])
+
+
+def bitplane_vmm_experts_ref(xq: torch.Tensor, wq: torch.Tensor,
+                             cfg: DAConfig) -> torch.Tensor:
+    """Plain version of the bit-plane VMM over stacked experts: xq [E, M, K]
+    against wq [E, K, N], expert by expert → int32 [E, M, N]."""
+    return torch.stack([bitplane_vmm_ref(xq[e], wq[e], cfg)
+                        for e in range(xq.shape[0])])

@@ -654,34 +654,125 @@ def test_planned_serve_on_the_card(card, monkeypatch):
 
 @pytest.mark.parametrize("mode,e,c,k,n", [
     ("pallas_bitplane", 8, 4, 2048, 1408), ("bitplane_stacked", 8, 16, 1408, 2048),
-    ("pallas_lut", 6, 4, 256, 512), ("lut", 6, 16, 256, 512)])
+    ("bitplane", 4, 4, 4096, 256), ("pallas_lut", 6, 4, 256, 512),
+    ("lut", 6, 16, 256, 512), ("onehot", 5, 3, 100, 70)])
 def test_stacked_expert_pack_equals_the_plain_loop(card, monkeypatch, mode, e, c,
                                                    k, n):
     """A stacked-expert pack [E, K, N] applied by ``dense`` to [G, E, C, K]
-    activations: one kernel launch per expert (its groups' rows together),
-    the result EQUAL to the same call with the kernels swapped for their
-    plain versions, and to a loop over the experts' 2-D packs."""
+    activations: one call of the kernel's batched entry per pack (its
+    groups' rows together) and none of the 2-D entry, the result EQUAL to
+    the same call with the kernels swapped for their plain versions, and to
+    a loop over the experts' 2-D packs."""
     from repro_torch.core.engine import dense, pack_weights
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
-    from repro_torch.kernels.da_vmm import da_vmm_cuda
+    from repro_torch.kernels.bitplane_vmm import (
+        bitplane_vmm_cuda,
+        bitplane_vmm_experts_cuda,
+    )
+    from repro_torch.kernels.da_vmm import da_vmm_cuda, da_vmm_experts_cuda
 
     g = torch.Generator(device=card).manual_seed(e + c + k)
     w = torch.randn((e, k, n), generator=g, device=card).to(torch.bfloat16)
-    packed = pack_weights(w, mode=mode, with_luts=mode.endswith("lut"))
+    lut = mode in ("pallas_lut", "lut", "onehot")
+    packed = pack_weights(w, mode=mode, with_luts=lut)
     x = torch.randn((2, e, c, k), generator=g, device=card).to(torch.bfloat16)
-    counter = da_vmm_cuda if mode.endswith("lut") else bitplane_vmm_cuda
-    before = counter.launches
+    batched, single = ((da_vmm_experts_cuda, da_vmm_cuda) if lut
+                       else (bitplane_vmm_experts_cuda, bitplane_vmm_cuda))
+    before = batched.launches, single.launches
     y = dense(x, packed)
     torch.cuda.synchronize()
-    assert counter.launches == before + e
+    assert (batched.launches, single.launches) == (before[0] + 1, before[1])
     loop = torch.stack([dense(x[:, i], pe) for i, pe in
                         enumerate(packed.experts())], dim=1)
     assert torch.equal(y, loop)
     monkeypatch.setattr(ops, "da_vmm", ref.da_vmm_ref)
     monkeypatch.setattr(ops, "bitplane_vmm", ref.bitplane_vmm_ref)
-    before = counter.launches
-    assert torch.equal(dense(x, packed), y) and counter.launches == before
+    monkeypatch.setattr(ops, "da_vmm_experts", ref.da_vmm_experts_ref)
+    monkeypatch.setattr(ops, "bitplane_vmm_experts", ref.bitplane_vmm_experts_ref)
+    before = batched.launches, single.launches
+    assert torch.equal(dense(x, packed), y)
+    assert (batched.launches, single.launches) == before
+
+
+@pytest.mark.parametrize("kernel,e,c,k,n", [
+    ("bitplane", 64, 4, 2048, 1408), ("bitplane", 64, 16, 2048, 1408),
+    ("bitplane", 64, 4, 1408, 2048), ("bitplane", 2, 4, 4096, 256),
+    ("bitplane", 3, 33, 300, 70), ("lut", 6, 4, 256, 512), ("lut", 6, 16, 256, 512),
+    ("lut", 5, 3, 100, 70), ("lut", 64, 4, 64, 1408)])
+def test_batched_kernels_equal_the_e_launch_form(card, kernel, e, c, k, n):
+    """The one-launch form of each VMM kernel over E experts EQUAL to E
+    launches of its 2-D form and to the plain versions' loop: qwen2-moe's
+    expert packs at C = 4 and 16 (no K split at decode, so one CUDA launch),
+    a split stack (its memset zeroes every expert's output), ragged
+    shapes, and N = 70 tables (the LUT kernel's one-column branch)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.bitplane_vmm import (
+        bitplane_plan,
+        bitplane_vmm_cuda,
+        bitplane_vmm_experts_cuda,
+    )
+    from repro_torch.kernels.da_vmm import da_vmm_cuda, da_vmm_experts_cuda, lut_plan
+    from repro_torch.kernels.ref import bitplane_vmm_experts_ref, da_vmm_experts_ref
+
+    gen = torch.Generator(device=card).manual_seed(e * c + k + n)
+    cfg = DAConfig(x_bits=8, x_signed=True)
+    xq = torch.randint(-128, 128, (e, c, k), generator=gen, device=card,
+                       dtype=torch.int32)
+    wq = torch.randint(-127, 128, (e, k, n), generator=gen, device=card,
+                       dtype=torch.int8)
+    sms = build.sms(card.index or 0)
+    if kernel == "lut":
+        table = torch.stack([build_luts(wq[i], cfg.group_size) for i in range(e)])
+        batched, single, plain = da_vmm_experts_cuda, da_vmm_cuda, da_vmm_experts_ref
+        plan = lut_plan(c, n, table.shape[1], sms, e)
+        splits = -(-table.shape[1] // plan.gpb)
+    else:
+        table = wq
+        batched, single, plain = (bitplane_vmm_experts_cuda, bitplane_vmm_cuda,
+                                  bitplane_vmm_experts_ref)
+        splits = bitplane_plan(c, k, n, sms, e).splits
+    if (kernel, e) == ("bitplane", 64):
+        assert splits == 1  # the decode stack fills the card unsplit
+    if (kernel, e, k) == ("bitplane", 2, 4096):
+        assert splits > 1
+    before = batched.launches, batched.cuda_launches
+    got = batched(xq, table, cfg)
+    torch.cuda.synchronize()
+    assert (batched.launches, batched.cuda_launches) == (
+        before[0] + 1, before[1] + _queued(splits))
+    assert got.shape == (e, c, n) and got.dtype == torch.int32
+    assert torch.equal(got, torch.stack([single(xq[i], table[i], cfg)
+                                         for i in range(e)]))
+    assert torch.equal(got, plain(xq, table, cfg))
+    assert torch.equal(batched(xq, table, cfg), got)  # atomics: the same bits
+
+
+def test_batched_bitplane_kernel_reads_an_expert_past_2_31(card):
+    """An expert that starts 2^31 + 2^20 bytes into its stack (the weight
+    stride as a strided view over one buffer): its offset does not fit
+    int32, and the kernel reads it right.  A strided stack it cannot read
+    (a column stride) raises rather than being copied."""
+    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_experts_cuda
+    from repro_torch.kernels.ref import bitplane_vmm_experts_ref
+
+    e, c, k, n, stride = 2, 4, 64, 128, (1 << 31) + (1 << 20)
+    gen = torch.Generator(device=card).manual_seed(31)
+    buf = torch.zeros(stride + k * n, dtype=torch.int8, device=card)
+    wq = buf.as_strided((e, k, n), (stride, n, 1))
+    wq.copy_(torch.randint(-127, 128, (e, k, n), generator=gen, device=card,
+                           dtype=torch.int8))
+    xq = torch.randint(-128, 128, (e, c, k), generator=gen, device=card,
+                       dtype=torch.int32)
+    cfg = DAConfig(x_bits=8, x_signed=True)
+    got = bitplane_vmm_experts_cuda(xq, wq, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bitplane_vmm_experts_ref(xq, wq, cfg))
+    assert not torch.equal(got[0], got[1])
+    with pytest.raises(ValueError, match="weight strides"):
+        bitplane_vmm_experts_cuda(xq, buf[: e * k * n * 2].as_strided(
+            (e, k, n), (2 * k * n, 2 * n, 2)), cfg)
+    del buf, wq
+    torch.cuda.empty_cache()
 
 
 def test_mamba_slot_serve_on_the_card(card, monkeypatch):
