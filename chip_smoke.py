@@ -47,15 +47,18 @@ Phases, one JSON line each:
    and int4 pages at the head shapes of both paths: qwen3-8b's in bfloat16
    (T = 1 at batch 4, 2 and 1, T = 4 (verify, its last column a pad query at
    the garbage position) and 16 at max_len 256, and a long table, W = 300,
-   at T = 1 and 16) and the LUT-serving model's in float32 (the same at
-   max_len 128, no long table), and at both head shapes the bfloat16 score
+   at T = 1 and 16), the LUT-serving model's in float32 (the same at
+   max_len 128, no long table) and qwen2-moe's in bfloat16 (T = 1 and 16
+   at W = 17), and at every head shape the bfloat16 score
    pipeline (``softmax_dtype="bfloat16"``) at decode and verify over fp,
    int8 and int4 pages, its decode timed; every case EQUAL to the plain
    read (both sum in float64; the reference holds its bfloat16 pipeline to
    2e-2), or within ATTN_ATOL for an older checkout's float32 read (--src);
-   ragged tpos, permuted pages, pad lanes on the garbage page, and at both
-   head shapes a row whose every query is masked; each case with the split
-   (chunks, blocks per launch, CUDA launches per read), the read's time on
+   ragged tpos, permuted pages, pad lanes on the garbage page, and at every
+   head shape a row whose every query is masked; each case with its
+   cluster plan (chunks = the cluster's blocks, pages per chunk, blocks per
+   launch, shared bytes per block, where the scores live, clusters the card
+   holds at once) and its CUDA launches per read (one, checked), the read's time on
    two event timers (device spin before the start event or not), its device
    time per kernel from ``torch.profiler`` and its host time to enqueue;
    then each query of a verify-shaped read (T = 3, and T = 4 with a pad
@@ -181,14 +184,14 @@ Phases, one JSON line each:
 ``--phase plans`` runs none of these after the build: it times each
 constant of the two VMM plans (kernels/bitplane_vmm.py, kernels/da_vmm.py)
 against its alternatives at the shapes of phases 2-3, each EQUAL to the
-plain version, and the attention split's rows constant
+plain version, and the attention plan's cluster-size cap ``_NS_MAX``
 (kernels/paged_attention.py) at decode and verify reads of batch 1-4, each
-EQUAL to the plain read (within ATTN_ATOL for an older checkout's, --src),
-in two passes of opposite order.
+EQUAL to the plain read, in two passes of opposite order.
 
 Each path (6-15 and 17-19, each leg of 10 and 11, each run of 12 and 14,
 each model of 15 and 19) sets the kernels' launch counts
-to 0 just before it runs and reads them just after.  Then the
+to 0 just before it runs and reads them just after, and fails if an
+attention read of this port queued other than one CUDA launch.  Then the
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and last
 the ``{"ok": true, "device": ...}`` line.  Any failed check raises and the
 script exits non-zero; with no card it exits 2, and without the port beside
@@ -255,12 +258,15 @@ ATTN_BF16_SOFTMAX_ATOL = 2e-2
 #: decode at batch 4, 2 and 1, verify (T = VERIFY_T, batch 4) and prefill at
 #: max_len 256 / page 16 (W = 17), and a long table (W = 300) at decode and
 #: prefill.  The LUT-serving model, f32: the same at max_len 128 / page 16
-#: (W = 9), without the long table.  The first case of each is its decode.
+#: (W = 9), without the long table.  qwen2-moe-a2.7b, bf16 (one query head
+#: per KV head, 16 of them): decode and prefill at W = 17.  The first case
+#: of each is its decode.
 ATTN_HEADS = (("bfloat16", dict(h=32, kv=8, hd=128),
                ((4, 1, 17), (2, 1, 17), (1, 1, 17), (4, VERIFY_T, 17),
                 (4, 16, 17), (4, 1, 300), (2, 16, 300))),
               ("float32", dict(h=4, kv=2, hd=64),
-               ((4, 1, 9), (2, 1, 9), (1, 1, 9), (4, VERIFY_T, 9), (4, 16, 9))))
+               ((4, 1, 9), (2, 1, 9), (1, 1, 9), (4, VERIFY_T, 9), (4, 16, 9))),
+              ("bfloat16", dict(h=16, kv=16, hd=128), ((4, 1, 17), (4, 16, 17))))
 #: the case of each head shape run again with one row's queries all masked
 ATTN_MASKED = {"bfloat16": (4, 16, 17), "float32": (4, 1, 9)}
 #: the activation dtype each path hands the attention kernel
@@ -387,7 +393,28 @@ def phase_device():
 
     secs = build.build_all()
     emit({"phase": "device", "smi": smi_line(), "build_s": secs,
-          "ptxas": build.ptxas_summary()})
+          "ptxas": build.ptxas_summary(),
+          "attention_ptxas": _kernel_resources(build.ptxas_summary(), "paged_attn_")})
+
+
+def _kernel_resources(lines, prefix) -> list:
+    """Registers and spill bytes of each instance of the kernels whose
+    mangled name holds ``prefix``, from the ptxas summary lines."""
+    out, cur = [], None
+    for line in lines:
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            cur = {"entry": m.group(1)} if prefix in m.group(1) else None
+            if cur:
+                out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return out
 
 
 def lut_model_cfg():
@@ -703,15 +730,15 @@ def phase_plans(flush):
     _attention_plan_sweep(flush)
 
 
-#: the attention split's constant the plans phase times, its values, and the
-#: (B, T) reads it times them at, at each head shape's decode width
-ATTN_PLAN_SWEEP = ("_PLAN_ROWS", (1, 2, 4), ((1, 1), (2, 1), (4, 1), (4, VERIFY_T)))
+#: the attention plan's constant the plans phase times (the most chunks a
+#: row takes: the cluster's size), its values, and the (B, T) reads it
+#: times them at, at each head shape's decode width
+ATTN_PLAN_SWEEP = ("_NS_MAX", (2, 4, 8), ((1, 1), (2, 1), (4, 1), (4, VERIFY_T)))
 
 
 def _attention_plan_sweep(flush):
     """ATTN_PLAN_SWEEP's constant at each of its values, at both head shapes
-    over fp pages: the read EQUAL to the plain read (within ATTN_ATOL for
-    an older checkout's), its split,
+    over fp pages: the read EQUAL to the plain read, its plan,
     its device ms (``torch.profiler``) and its ms on the spin timer, in two
     passes of opposite order."""
     import torch
@@ -744,7 +771,7 @@ def _attention_plan_sweep(flush):
                             raise AssertionError(f"attention with {const}={v}: {err} "
                                                  f"off the plain read at {row}")
                         r = row.setdefault(str(v), {
-                            **_split_fields(pa, b, t, w, kp.shape[1], heads),
+                            **_split_fields(pa, b, t, w, kp.shape[1], heads, q.dtype),
                             "device_ms": [], "ms": []})
                         r["device_ms"].append(sum(
                             device_ms_by_kernel(call, 5, flush, "paged_attn_").values()))
@@ -907,12 +934,28 @@ def _row_invariance(gen):
         raise AssertionError(f"a row's read or norm depends on its batch: {decode} {norms}")
 
 
-def _split_fields(pa, b, t, w, ps, heads) -> dict:
-    """The split a read of this case runs with."""
-    plan = pa.split_plan(t, heads["h"], heads["kv"], heads["hd"], ps, w,
-                         _vmm_module("build").sms(0))
-    return {"chunks": plan.ns, "chunk_pages": plan.chunk,
-            "blocks_per_launch": heads["kv"] * b * plan.ns}
+def _one_launch_read(pa) -> bool:
+    """Whether the port's attention read is one cluster launch (this
+    checkout's); an older checkout's (``--src``) launched twice a read."""
+    return hasattr(pa, "block_shape")
+
+
+def _split_fields(pa, b, t, w, ps, heads, dtype, fmt="fp") -> dict:
+    """The split a read of this case runs with: chunks (the cluster's
+    blocks), pages per chunk, blocks per launch, and for a cluster read
+    its shared bytes per block and where the chunk's scores live."""
+    h, kv, hd = heads["h"], heads["kv"], heads["hd"]
+    if not _one_launch_read(pa):
+        plan = pa.split_plan(t, h, kv, hd, ps, w, _vmm_module("build").sms(0))
+        return {"chunks": plan.ns, "chunk_pages": plan.chunk,
+                "blocks_per_launch": kv * b * plan.ns}
+    plan = pa.split_plan(kv, ps, w, _vmm_module("build").sms(0))
+    shape = pa.block_shape(t, h, kv, hd, ps, plan.chunk, dtype.itemsize, fmt)
+    return {"chunks": plan.ns, "chunk_pages": plan.chunk, "cluster_size": plan.ns,
+            "blocks_per_launch": kv * b * plan.ns, "smem_bytes": shape.smem,
+            "scores_in": "scratch" if shape.scratch else "shared",
+            "max_active_clusters": pa.max_clusters(dtype, fmt, hd, plan.ns,
+                                                   shape.smem, 0)}
 
 
 def _attention_case(gen, b, t, w, mode, dname, heads, flush, masked_row=None,
@@ -930,8 +973,8 @@ def _attention_case(gen, b, t, w, mode, dname, heads, flush, masked_row=None,
                                          getattr(torch, dname), **heads)
     if masked_row is not None:
         tpos[masked_row] = -1
-    split = _split_fields(pa, b, t, w, kp.shape[1], heads)
     for fmt in ("fp", "int8", "int4"):
+        split = _split_fields(pa, b, t, w, kp.shape[1], heads, q.dtype, fmt)
         if fmt == "fp":
             kc, vc, scales = kp, vp, {}
         else:
@@ -944,6 +987,9 @@ def _attention_case(gen, b, t, w, mode, dname, heads, flush, masked_row=None,
             raise AssertionError("an attention read did not count one read")
         if before[1] is not None:
             split["cuda_launches_per_read"] = kernel.cuda_launches - before[1]
+        if _one_launch_read(pa) and split["cuda_launches_per_read"] != 1:
+            raise AssertionError(f"an attention read queued "
+                                 f"{split['cuda_launches_per_read']} CUDA launches")
         ref = paged_gather_read(q, kc, vc, table, tpos, mask_mode=mode,
                                 softmax_dtype=softmax, **scales)
         torch.cuda.synchronize()
@@ -1130,9 +1176,17 @@ def _read_counts():
     """Every kernel's calls since :func:`_reset_counts`: each VMM entry's
     (the experts' entries one per stack; 0 for an older checkout's port
     without them), with the CUDA launches it queued and its calls by
-    x_bits, and the attention kernel's reads by format, T and softmax."""
+    x_bits, and the attention kernel's reads by format, T and softmax.
+    Raises if this port's attention reads queued other than one CUDA
+    launch each."""
     from repro_torch.kernels.paged_attention import paged_attention_cuda
 
+    pa = importlib.import_module("repro_torch.kernels.paged_attention")
+    if (_one_launch_read(pa) and paged_attention_cuda.cuda_launches
+            != paged_attention_cuda.launches):
+        raise AssertionError(f"{paged_attention_cuda.launches} attention reads "
+                             f"queued {paged_attention_cuda.cuda_launches} CUDA "
+                             f"launches, not one each")
     wrappers = _vmm_wrappers()
     out = {}
     for key in ("bitplane_vmm", "bitplane_vmm_experts", "da_vmm", "da_vmm_experts"):

@@ -5,26 +5,27 @@ kernel walks each row's page table itself and skips the positions past the
 row's largest tpos (masked for all its queries).  One block walking all of a
 (KV head, row)'s positions would fill only B * KV SMs, so the positions are
 split into chunks of whole pages (:func:`split_plan`, picked here from the
-head shape, the table width and the SM count, never from tpos, the batch or
-the query rows: the chunk decides how a query's sums round, so a row reads
-the same bits in a decode, a verify and a prefill call of any batch) and a
-read is two launches over a
-grid of (KV head, row, chunk) blocks: scores of each chunk into a float32
-workspace with the chunk's max; the PV pass of each chunk after taking the
-row's max over the chunks and its exp-sum over all its scores, whose last
-block to finish sums the chunks' partials in chunk order.  The softmax stays
-deferred (exp and normalise against the row's global max, probabilities
-rounded to the input dtype), as in the TPU kernel, so it repeats every
-rounding of the plain version,
-:func:`repro_torch.models.attention.paged_gather_read`, and its three sums
-(q·k, the exp-sum, p·v) accumulate in float64 as the plain read's do, so
-the two round the same values and agree bit for bit.
+table width, the page size, the KV heads and the SM count, never from
+tpos, the batch or the query rows: the chunk decides how a query's sums
+round, so a row reads the same bits in a decode, a verify and a prefill
+call of any batch).  A read is one
+launch: the chunks of a (KV head, row) are one thread-block cluster, which
+takes the row's max, its exp-sum and its PV sum across the chunks through
+distributed shared memory, in chunk order.  The softmax stays deferred
+(exp and normalise against the row's global max, probabilities rounded to
+the input dtype), as in the TPU kernel, so it repeats every rounding of the
+plain version, :func:`repro_torch.models.attention.paged_gather_read`, and
+its three sums (q·k, the exp-sum, p·v) accumulate in float64 (the products
+on the float64 tensor cores) as the plain read's do, so the two round the
+same values and agree bit for bit.
 ``softmax_dtype="bfloat16"`` runs the reference's bfloat16 score pipeline:
 scores rounded to bfloat16 before the mask, then x - max, exp, the row sum
 and the divide each rounded to bfloat16, as the plain read's ops round
 them.  Pools hold fp pages, or int8 / packed-int4 codes with float16
-scales per (page slot, KV head), dequantized in registers with the plain
-formula.  The workspace comes from torch's allocator on the current stream.
+scales per (page slot, KV head), dequantized with the plain formula.  The
+kernel keeps nothing in device memory between blocks; only a chunk whose
+scores do not fit a block's shared memory (a long table at a prefill
+width) gets a scratch slice of its own from torch's allocator.
 """
 from __future__ import annotations
 
@@ -45,58 +46,129 @@ _KV_FORMATS = {"fp": 0, "int8": 1, "int4": 2}
 _SOFTMAX_DTYPES = ("float32", "bfloat16")
 #: dynamic shared memory a block may take (H100: 227 KB)
 SMEM_LIMIT = 227 * 1024
-#: the kernel's warps per block and query rows per accumulation chunk
-#: (``NWARPS`` and ``RC`` in the source): its PV partials take
-#: NWARPS * RC * hd doubles of shared memory
-_NWARPS, _RC = 8, 8
-#: blocks per SM the split aims at (about two waves), for _PLAN_ROWS batch
-#: rows (the serving width of every path the split was tuned on); the chunk
-#: is fixed from that width, whatever the batch of the call
-_WAVES, _PLAN_ROWS = 2, 4
-#: key positions a warp loads at once (``U`` in the source); a chunk holds at
-#: most _ROUNDS such loads per warp: past that its serial rounds cost more
-#: than another block's fixed start (H100: 18 pages beat 34 and 10 at W=300)
-_U, _ROUNDS = 8, 4
+#: clusters the kernel takes: at most 8 blocks (the portable limit; its
+#: stats arrays are sized for that, ``NS_MAX`` in the source)
+_CLUSTER_LIMIT = 8
+#: chunks of a row at most: the cluster's size
+_NS_MAX = 8
+#: fewest positions a chunk holds when its row has more: a block's fixed
+#: start (table, q, one round of loads, four cluster barriers) is paid per
+#: chunk, so a chunk below two staged tiles buys no time
+_MIN_CHUNK_POS = 32
+#: batch rows whose clusters the plan fits in one wave (the serving width
+#: of every path the plan was measured on), and the blocks an SM holds for
+#: that: two by the kernel's launch bounds, less what clusters, which must
+#: sit whole in one GPC, cannot use (an H100 held 30 clusters of 8 such
+#: blocks, not 33)
+_PLAN_ROWS, _WAVE_BLOCKS_PER_SM = 4, 1.75
+#: tiles of K and of V a block stages at once (``NBUF`` in the source)
+_NBUF = 2
 
 
 class SplitPlan(NamedTuple):
-    """How a read splits each row's W pages: ``ns`` chunks of ``chunk``
-    pages, and the dynamic shared bytes of the score and PV launches."""
+    """How a read splits each row's W pages: ``ns`` chunks (the cluster's
+    blocks) of ``chunk`` pages."""
     ns: int
     chunk: int
+
+
+class BlockShape(NamedTuple):
+    """A block's dynamic shared bytes, and the float32 words of the
+    scratch area for the scores (0 when they live in shared memory)."""
     smem: int
+    scratch: int
 
 
 def _lib():
-    fn = build.load("paged_attention").paged_attention_run
+    lib = build.load("paged_attention")
+    fn = lib.paged_attention_run
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
                        + [ctypes.c_int] * 9 + [ctypes.c_float] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
-    return fn
+        occ = lib.paged_attention_max_clusters
+        occ.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        occ.restype = ctypes.c_int
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
-def split_plan(t: int, h: int, kv: int, hd: int, ps: int, w: int,
-               sms: int) -> SplitPlan:
-    """Chunks of a row's ``w`` pages on a card of ``sms`` SMs: about
-    ``_WAVES`` blocks per SM over the (kv, row, chunk) grid of ``_PLAN_ROWS``
-    rows, at least two chunks when ``w > 1``, at most ``_ROUNDS`` loads of
-    ``_U`` positions per warp in a chunk.  Only a chunk's ``G*t x chunk*ps``
-    float scores, which must fit the shared memory beside q (score launch)
-    or the PV partials (PV launch), can make it depend on ``t``; no served
-    shape comes near that cap."""
-    gt = (h // kv) * t
-    base = max(4 * (gt * hd + t), 8 * _NWARPS * _RC * hd + 4 * 2 * gt)
-    per_page = 4 * (gt * ps + 1)
-    cap = (SMEM_LIMIT - base) // per_page
-    if cap < 1:
-        raise ValueError(f"paged_attention: {gt} query rows x head_dim {hd} "
-                         f"with page size {ps} exceed the block's shared memory")
-    ns = min(w, max(2, -(-_WAVES * sms // (_PLAN_ROWS * kv))))
-    chunk = min(-(-w // ns), cap, max(1, _ROUNDS * _NWARPS * _U // ps))
-    return SplitPlan(-(-w // chunk), chunk, base + per_page * chunk)
+def split_plan(kv: int, ps: int, w: int, sms: int) -> SplitPlan:
+    """Chunks of a row's ``w`` pages of ``ps`` positions on a card of
+    ``sms`` SMs, for a model of ``kv`` KV heads: as many as the cluster
+    holds (``_NS_MAX``), each at least ``_MIN_CHUNK_POS`` positions unless
+    the row has fewer, and no more than keep the clusters of
+    ``_PLAN_ROWS`` rows in one wave.  Never the batch, T or tpos: a row's
+    chunks, and the order its sums take, are the same in every call."""
+    wave = max(1, int(_WAVE_BLOCKS_PER_SM * sms) // (kv * _PLAN_ROWS))
+    ns = max(1, min(w, _NS_MAX, _CLUSTER_LIMIT, wave, -(-w * ps // _MIN_CHUNK_POS)))
+    chunk = -(-w // ns)
+    return SplitPlan(-(-w // chunk), chunk)
+
+
+def _padded_rows(t: int, h: int, kv: int) -> int:
+    """A block's G*t query rows padded to the MMA's 16."""
+    return -(-(h // kv) * t // 16) * 16
+
+
+def _score_stride(chunk: int, ps: int) -> int:
+    """Floats per score row (``SLD`` in the source): the chunk's positions
+    padded to 32, plus 4 so the MMA's fragment loads hit distinct banks."""
+    return -(-chunk * ps // 32) * 32 + 4
+
+
+def _stage_geometry(hd: int, elem: int, fmt: str) -> tuple:
+    """Bytes of one pool row and positions per staged tile (``Geo`` in the
+    source)."""
+    rb = {"fp": hd * elem, "int8": hd, "int4": hd // 2}[fmt]
+    return rb, min(64, 8192 // rb)
+
+
+def block_smem(t: int, h: int, kv: int, hd: int, ps: int, chunk: int, elem: int,
+               fmt: str, scores_here: bool) -> int:
+    """A block's dynamic shared bytes (``layout`` in the source): query
+    rows as float32 and two staged tiles of K beside them, overlaid by the
+    float64 PV partial; two tiles of V; the cluster's chunk maxima and
+    sums, the row sums, the chunk's pages and tpos; and the chunk's scores
+    (G*t rows padded to 16, ``_score_stride`` floats each) when
+    ``scores_here``."""
+    gtp = _padded_rows(t, h, kv)
+    rb, tp = _stage_geometry(hd, elem, fmt)
+    scales = 0 if fmt == "fp" else _NBUF * tp * 4
+    qk = gtp * (hd + 4) * 4 + _NBUF * tp * (rb + 16) + scales
+    small = -(-(gtp * (_CLUSTER_LIMIT * 12 + 4) + 4 * (chunk + t)) // 16) * 16
+    return (max(qk, gtp * (hd + 8) * 8) + _NBUF * tp * (rb + 32) + scales + small
+            + (gtp * _score_stride(chunk, ps) * 4 if scores_here else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def block_shape(t: int, h: int, kv: int, hd: int, ps: int, chunk: int, elem: int,
+                fmt: str) -> BlockShape:
+    """Scores in shared memory where they fit beside the staged tiles,
+    else in a scratch slice per block; raises when even that does not
+    fit."""
+    here = block_smem(t, h, kv, hd, ps, chunk, elem, fmt, True)
+    if here <= SMEM_LIMIT:
+        return BlockShape(here, 0)
+    smem = block_smem(t, h, kv, hd, ps, chunk, elem, fmt, False)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"paged_attention: {(h // kv) * t} query rows x head_dim "
+                         f"{hd} exceed the block's shared memory")
+    return BlockShape(smem, _padded_rows(t, h, kv) * _score_stride(chunk, ps))
+
+
+@functools.lru_cache(maxsize=None)
+def max_clusters(dtype: torch.dtype, fmt: str, hd: int, ns: int, smem: int,
+                 device: int) -> int:
+    """Clusters of ``ns`` blocks of ``smem`` shared bytes the card holds at
+    once (``cudaOccupancyMaxActiveClusters``)."""
+    clusters = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        build.check(_lib().paged_attention_max_clusters(
+            _DTYPES[dtype], _KV_FORMATS[fmt], hd, ns, smem, ctypes.byref(clusters)),
+            "paged_attention_max_clusters")
+    return clusters.value
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,23 +223,23 @@ def paged_attention_cuda(q, k_pool, v_pool, page_table, tpos, *,
     if hd not in HEAD_DIMS:
         raise ValueError(f"paged_attention_cuda: head_dim {hd} is not one the "
                          f"kernel is built for {HEAD_DIMS}")
-    plan = split_plan(t, h, kv, hd, ps, w, build.sms(q.device.index))
-    # float64 partials [B, KV, NS, G*T, hd], scores [B, KV, G*T, W*ps],
-    # chunk maxima [B, KV, NS, G*T], int32 counters [B, KV], carved by the
-    # kernel in that order (in 4-byte words)
-    workspace = torch.empty(
-        b * kv * ((h // kv) * t * (plan.ns * (2 * hd + 1) + w * ps) + 1),
-        dtype=torch.float32, device=q.device)
+    plan = split_plan(kv, ps, w, build.sms(q.device.index))
+    shape = block_shape(t, h, kv, hd, ps, plan.chunk, q.element_size(), fmt)
+    if max_clusters(q.dtype, fmt, hd, plan.ns, shape.smem, q.device.index) < 1:
+        raise RuntimeError(f"paged_attention_cuda: a cluster of {plan.ns} blocks "
+                           f"of {shape.smem} shared bytes cannot be scheduled")
+    scratch = (torch.empty(b * kv * plan.ns * shape.scratch, dtype=torch.float32,
+                           device=q.device) if shape.scratch else None)
     out = torch.empty_like(q)
     ks, vs = (x.data_ptr() for x in scales) if scales else (None, None)
     queued = ctypes.c_int(0)
-    err = _lib()(_DTYPES[q.dtype], _KV_FORMATS[fmt], q.data_ptr(),
-                 k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
-                 page_table.data_ptr(), tpos.data_ptr(), out.data_ptr(),
-                 workspace.data_ptr(), b, t, h, kv, hd, ps, w, plan.chunk,
-                 plan.ns, _score_divisor(hd, q.dtype), int(mask_mode == "additive"),
-                 int(sm == "bfloat16"), plan.smem, torch.cuda.current_stream(q.device).cuda_stream,
-                 ctypes.byref(queued))
+    err = _lib().paged_attention_run(
+        _DTYPES[q.dtype], _KV_FORMATS[fmt], q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), ks, vs, page_table.data_ptr(), tpos.data_ptr(),
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(), b, t, h,
+        kv, hd, ps, w, plan.chunk, plan.ns, _score_divisor(hd, q.dtype),
+        int(mask_mode == "additive"), int(sm == "bfloat16"), shape.smem,
+        torch.cuda.current_stream(q.device).cuda_stream, ctypes.byref(queued))
     paged_attention_cuda.cuda_launches += queued.value
     build.check(err, "paged_attention_run")
     paged_attention_cuda.launches += 1

@@ -174,13 +174,18 @@ def _in_dtype(value: float, dtype: torch.dtype) -> float:
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor, acc=None) -> torch.Tensor:
     """q: [B,T,H,hd], k: [B,S,Kv,hd] → scores [B,Kv,G,T,S] (H = Kv·G): the
     dot products summed in ``acc`` (q's dtype by default) and rounded to q's
-    dtype, divided by sqrt(hd) in that dtype."""
+    dtype, divided by sqrt(hd) in that dtype.  The divisor is a 0-dim
+    tensor on the scores' device: PyTorch's CUDA divide by a CPU scalar
+    multiplies by its rounded reciprocal, which is not the quotient (in
+    float32, where sqrt(hd) is no power of two, it moves scores by an ulp);
+    on the CPU both forms are the quotient."""
     b, t, h, hd = q.shape
     kv = k.shape[2]
     acc = acc or q.dtype
     qg = q.reshape(b, t, kv, h // kv, hd)
     scores = torch.einsum("btkgd,bskd->bkgts", qg.to(acc), k.to(acc)).to(q.dtype)
-    return scores / _in_dtype(hd ** 0.5, scores.dtype)
+    return scores / torch.full((), _in_dtype(hd ** 0.5, scores.dtype),
+                               dtype=scores.dtype, device=scores.device)
 
 
 def _gqa_out(probs: torch.Tensor, v: torch.Tensor, acc=None) -> torch.Tensor:

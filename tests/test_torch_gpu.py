@@ -7,11 +7,10 @@ so it runs on a machine without JAX:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: the bit-plane and LUT-readout kernels equal their plain versions
-exactly (int32); the paged read, over fp, int8 and int4 pages, is within one
-bf16 ulp at magnitude 1 (2^-7) in bfloat16 and 1e-5 in float32, since both
-round at the same points (the dequantized elements are equal) and differ
-only in float32 summation order and the few-ulp rounding of the per-chunk
-rescale inside the softmax sum.
+exactly (int32); the paged read, over fp, int8 and int4 pages, is EQUAL to
+the plain read (both sum in float64 and round at the same points; the
+dequantized elements are equal), and is also held within one bf16 ulp at
+magnitude 1 (2^-7) in bfloat16 and 1e-5 in float32.
 """
 import numpy as np
 import pytest
@@ -186,9 +185,10 @@ def test_paged_kernel_matches_plain(card, dtype, atol, mask_mode, case):
     assert (out.float() - ref.float()).abs().max().item() <= atol
     # both sum in float64 and round at the same points: the same bits
     assert torch.equal(out, ref)
+    # one cluster launch a read
     assert (paged_attention_cuda.launches, paged_attention_cuda.cuda_launches) == (
-        before[0] + 1, before[1] + 2)
-    # the PV launch's last block sums the chunks in a fixed order: same bits
+        before[0] + 1, before[1] + 1)
+    # the cluster sums the chunks in a fixed order: same bits
     assert torch.equal(paged_attention(*args, mask_mode=mask_mode), out)
 
 
@@ -247,6 +247,41 @@ def test_paged_kernel_bf16_softmax_matches_plain(card, dtype, kv_dtype, case):
     assert paged_attention_cuda.launches_by_softmax["bfloat16"] == before + 2
     with pytest.raises(ValueError, match="softmax_dtype"):
         paged_attention(q, k, v, table, tpos, softmax_dtype="float16", **scales)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("softmax", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("t", [1, 4, 16])
+def test_paged_kernel_qwen3_reads_match_plain(card, t, kv_dtype, softmax, dtype):
+    """qwen3-8b's serve reads (32 query heads over 8 KV heads of 128, page
+    16, batch 4, W = 17 at max_len 256) in its serving dtype, bfloat16, and
+    in float32 (where sqrt(128) is no power of two, so the plain read's
+    divide must be the quotient): decode, verify (its last column a pad
+    query at the garbage position) and a prefill chunk of 16 rows, over fp,
+    int8 and int4 pages, both mask forms and both score pipelines: EQUAL to
+    the plain read, one CUDA launch a read."""
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.models.attention import paged_gather_read
+
+    gen = torch.Generator(device=card).manual_seed(9 + t)
+    q, k, v, table, tpos = _paged_case(gen, card, dtype, t, [200, 150, 90, 250],
+                                       ps=16, n_pages=80, h=32, kv=8, hd=128)
+    if t == 4:
+        tpos[:, -1] = (table.shape[1] - 1) * 16
+    scales = {}
+    if kv_dtype != "fp":
+        (k, ks), (v, vs) = (kv_quant.quantize_kv(x, kv_dtype) for x in (k, v))
+        scales = {"k_scale": ks, "v_scale": vs}
+    before = paged_attention_cuda.launches, paged_attention_cuda.cuda_launches
+    for mode in ("where", "additive"):
+        out = paged_attention(q, k, v, table, tpos, mask_mode=mode,
+                              softmax_dtype=softmax, **scales)
+        ref = paged_gather_read(q, k, v, table, tpos, mask_mode=mode,
+                                softmax_dtype=softmax, **scales)
+        assert torch.equal(out, ref)
+    assert (paged_attention_cuda.launches, paged_attention_cuda.cuda_launches) == (
+        before[0] + 2, before[1] + 2)
 
 
 def test_slot_runtime_serves_on_the_card(card, monkeypatch):

@@ -6,16 +6,18 @@ the bit-plane and LUT-readout VMMs bit-exactly, the paged-attention read in
 float32 to
 atol 1e-5 / rtol 1e-5 (both compute the same roundings; only float32
 summation order differs), over fp, int8 and int4 pools.  The attention
-kernel's split arithmetic (chunk max and exp-sum, their fixed-order combine,
-rounded probabilities, per-chunk PV partials summed in order) is emulated in
-plain torch and held against both, at the card's tolerances: 2^-7 in
-bfloat16, 1e-5 in float32.  The two VMM kernels' splits (group ranges of the
+kernel's cluster order (per-chunk maxima to the row max, per-chunk float64
+exp-sums and PV partials added in chunk order, rounded probabilities) is
+emulated in plain torch, held against both at the card's tolerances (2^-7
+in bfloat16, 1e-5 in float32) and EQUAL to the plain read.  The two VMM kernels' splits (group ranges of the
 LUT readout, K ranges of the bit-plane kernel, each from the wrapper's plan)
 are emulated the same way and held bit-exactly against both; the plans
 themselves are checked for coverage, grid size and shared memory.
 
 The kernels themselves are tested on the card by ``tests/test_torch_gpu.py``.
 """
+import inspect
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -31,7 +33,8 @@ from repro_torch.core.da import DAConfig, bit_planes, build_luts, group_addresse
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.bitplane_vmm import bitplane_plan
 from repro_torch.kernels.da_vmm import lut_plan
-from repro_torch.kernels.paged_attention import paged_attention, split_plan
+from repro_torch.kernels.paged_attention import (block_shape, block_smem, paged_attention,
+                                                 split_plan)
 from repro_torch.models import kv_quant as tkvq
 
 
@@ -283,53 +286,57 @@ def test_kv_quant_codes_bit_exact(kv_dtype):
 
 
 def _split_read(q, k, v, table, tpos, chunk, mask_mode, k_scale=None,
-                v_scale=None):
-    """Plain-torch emulation of the CUDA kernel's arithmetic with the
-    positions of each row split into chunks of ``chunk`` pages: (a, score
-    launch) rounded, masked scores and each chunk's max m_s and l_s = sum
-    exp(x - m_s); (b, PV launch) m = max m_s and L = sum l_s exp(m_s - m) in
-    chunk order, probabilities exp(x - m) / L rounded to q's dtype, a
-    float32 PV partial per chunk; (c, the PV launch's last block) the
-    partials summed in chunk order and rounded.  Chunks wholly past the
+                v_scale=None, softmax_dtype="float32"):
+    """Plain-torch emulation of the CUDA kernel's cluster order, with the
+    positions of each row split into chunks of ``chunk`` pages, one block of
+    the row's cluster each: (a) rounded, masked scores (the float64 dot
+    rounded through float32 to q's dtype, divided by sqrt(hd) in that
+    dtype) and each chunk's max; the row max over the chunk maxima; (b)
+    each chunk's float64 sum of exp(x - max); (c) L = the chunk sums added
+    in chunk order, rounded to the softmax dtype, probabilities exp(x -
+    max) / L rounded to q's dtype, a float64 PV partial per chunk; (d) the
+    partials added in chunk order and rounded.  A chunk wholly past the
     row's live end (its largest tpos + 1, or all S if every query is
-    masked) are skipped."""
+    masked) contributes max -1e30, sum 0 and a zero partial.  The bfloat16
+    score pipeline rounds the scores before the mask, and x - max, exp,
+    L and the divide, to bfloat16."""
     dt = q.dtype
+    sd = getattr(torch, softmax_dtype)
     b, t, h, hd = q.shape
     _, ps, kv, _ = k.shape
-    g, s_len, cp = h // kv, table.shape[1] * ps, chunk * ps
+    g, w = h // kv, table.shape[1]
+    s_len, cp = w * ps, chunk * ps
     fmt = tkvq.kv_format(k, k_scale, hd)
     kg, vg = k[table.long()], v[table.long()]
     if fmt != "fp":
         kg = tkvq.dequantize_kv(kg, k_scale[table.long()], fmt, dt)
         vg = tkvq.dequantize_kv(vg, v_scale[table.long()], fmt, dt)
-    kg = kg.reshape(b, s_len, kv, hd).float()
-    vg = vg.reshape(b, s_len, kv, hd).float()
-    div = torch.tensor(hd ** 0.5, dtype=dt).float()
-    dot = torch.einsum("btkgd,bskd->bkgts", q.float().reshape(b, t, kv, g, hd), kg)
-    x = (dot.to(dt).float() / div).to(dt).float()
+    kg = kg.reshape(b, s_len, kv, hd).double()
+    vg = vg.reshape(b, s_len, kv, hd).double()
+    div = torch.tensor(hd ** 0.5, dtype=dt).item()
+    dot = torch.einsum("btkgd,bskd->bkgts", q.double().reshape(b, t, kv, g, hd), kg)
+    x = (dot.float().to(dt) / div).to(sd)
     valid = (torch.arange(s_len)[None, None] <= tpos.long()[:, :, None])[:, None, None]
-    neg = torch.tensor(-1e30)
-    x = (x + torch.where(valid, torch.tensor(0.0), neg) if mask_mode == "additive"
+    neg = torch.tensor(-1e30, dtype=sd)
+    x = (x + torch.where(valid, torch.zeros((), dtype=sd), neg) if mask_mode == "additive"
          else torch.where(valid, x, neg))
-    out = torch.empty(b, kv, g, t, hd)
+    out = torch.empty(b, kv, g, t, hd, dtype=torch.float64)
     for i in range(b):
         tmax = int(tpos[i].max())
         s_end = min(s_len, tmax + 1) if tmax >= 0 else s_len
-        chunks = [(c, min(c + cp, s_end)) for c in range(0, s_end, cp)]
-        stats = []
-        for c0, c1 in chunks:                                        # (a)
-            m_s = x[i, ..., c0:c1].amax(-1)
-            stats.append((m_s, torch.exp(x[i, ..., c0:c1] - m_s[..., None]).sum(-1)))
-        m = stats[0][0]
-        for m_s, _ in stats[1:]:
-            m = torch.maximum(m, m_s)
-        big_l = torch.zeros_like(m)
-        for m_s, l_s in stats:
-            big_l = big_l + l_s * torch.exp(m_s - m)
-        acc = torch.zeros(kv, g, t, hd)
-        for c0, c1 in chunks:                                        # (b), (c)
-            p = (torch.exp(x[i, ..., c0:c1] - m[..., None]) / big_l[..., None]).to(dt)
-            acc = acc + torch.einsum("kgts,skd->kgtd", p.float(), vg[i, c0:c1])
+        chunks = [(c, max(c, min(c + cp, s_end))) for c in range(0, s_len, cp)]
+        m = torch.full(x.shape[1:4], -1e30, dtype=sd)                # (a)
+        for c0, c1 in chunks:
+            m = torch.maximum(m, x[i, ..., c0:c1].amax(-1) if c1 > c0 else neg)
+        e = [torch.exp(x[i, ..., c0:c1] - m[..., None]) for c0, c1 in chunks]   # (b)
+        big_l = torch.zeros(m.shape, dtype=torch.float64)            # (c)
+        for e_j in e:
+            big_l = big_l + e_j.sum(-1, dtype=torch.float64)
+        big_l = big_l.to(sd)
+        acc = torch.zeros(kv, g, t, hd, dtype=torch.float64)         # (d)
+        for (c0, c1), e_j in zip(chunks, e):
+            p = (e_j / big_l[..., None]).to(dt)
+            acc = acc + torch.einsum("kgts,skd->kgtd", p.double(), vg[i, c0:c1])
         out[i] = acc
     return out.to(dt).permute(0, 3, 1, 2, 4).reshape(b, t, h, hd)
 
@@ -370,25 +377,64 @@ def test_split_arithmetic_matches_plain_and_pallas_interpret(ns, kv_dtype, dtype
                                np.asarray(ref.astype(jnp.float32)), rtol=0, atol=atol)
 
 
-@pytest.mark.parametrize("b,t,w", [(4, 1, 17), (4, 16, 17), (2, 16, 300),
-                                   (2, 16, 2560), (4, 1, 1)])
-def test_split_plan_fills_the_card_and_fits_shared_memory(b, t, w):
+@pytest.mark.parametrize("softmax", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [1, 3, 7])
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cluster_order_equals_plain_read(chunk, kv_dtype, dtype, softmax):
+    """The kernel's cluster order in float64 (per-chunk max to the row max,
+    per-chunk exp-sums added in chunk order, per-chunk PV partials added in
+    chunk order), emulated in torch, is EQUAL to the plain read: W = 7
+    pages in 7, 3 or 1 chunks, both mask forms, a pad lane at the garbage
+    position, a row whose live end leaves chunks empty, and a row whose
+    every query is masked (uniform over all S)."""
+    rng = np.random.default_rng(chunk + {"fp": 0, "int8": 10, "int4": 20}[kv_dtype]
+                                + (dtype == "float32") * 40)
+    q, k, v, table, tpos, (ks, vs) = _paged_case(rng, 3, [5, 22, 8, 6], kv_dtype,
+                                                 n_pages=16)
+    tpos[3] = -1
+    tdt = getattr(torch, dtype)
+    pools = [_t(x) if kv_dtype != "fp" else _t(x).to(tdt) for x in (k, v)]
+    tkw = {} if ks is None else {"k_scale": _t(ks), "v_scale": _t(vs)}
+    args = (_t(q).to(tdt), *pools, _t(table), _t(tpos))
+    for mode in ("where", "additive"):
+        got = _split_read(*args, chunk, mode, softmax_dtype=softmax, **tkw)
+        plain = paged_attention(*args, mask_mode=mode, softmax_dtype=softmax, **tkw)
+        assert torch.equal(got, plain), (mode, (got.float() - plain.float()).abs().max())
+
+
+@pytest.mark.parametrize("w", [1, 9, 17, 300, 2560])
+def test_split_plan_fills_the_card_and_fits_shared_memory(w):
     """qwen3-8b heads (32 over 8 KV heads of 128), page 16, an H100's 132
-    SMs: every page in one chunk of whole pages, at least two chunks unless
-    W = 1, at least 132 blocks at decode, and a chunk's scores within a
-    block's shared memory.  The chunk does not depend on the batch (the
-    plan has no batch argument) nor, below the shared-memory cap, on T: a
-    row's sums round the same in a decode, a verify and a prefill call."""
-    plan = split_plan(t, h=32, kv=8, hd=128, ps=16, w=w, sms=132)
-    for other_t in (1, 3, 4, 16):
-        assert split_plan(other_t, h=32, kv=8, hd=128, ps=16, w=w,
-                          sms=132).chunk == plan.chunk
-    assert plan.ns == -(-w // plan.chunk)
-    assert plan.smem <= 227 * 1024 and 4 * 4 * t * plan.chunk * 16 < plan.smem
-    if w == 1:
-        assert plan.ns == 1
-    else:
-        assert plan.ns >= 2 and 8 * b * plan.ns >= 132
+    SMs: every page in one chunk of whole pages, one cluster of at most 8
+    blocks (the portable size) per (KV head, row), more than one chunk once
+    the row holds two chunks' worth of positions, and the clusters of 4
+    rows within one wave of 1.75 blocks an SM (qwen2-moe's 16 KV heads get
+    fewer chunks).  The plan takes the KV heads, the page size, the table
+    width and the SM count only: the chunk cannot follow T, B or tpos, so
+    a row's sums round the same in a decode, a verify and a prefill call of
+    any batch.  At T = 1, 4 and 16, bfloat16 and float32, over fp, int8 and
+    int4 pages, a block's shared memory fits the card's 227 KB, the scores
+    moving to a scratch slice only where they cannot sit beside the staged
+    tiles; W = 2560 (40960 positions) at T = 16 reads in one launch."""
+    assert set(inspect.signature(split_plan).parameters) == {"kv", "ps", "w", "sms"}
+    for kv in (8, 16):
+        plan = split_plan(kv, 16, w, 132)
+        assert 1 <= plan.ns <= 8 and plan.ns == -(-w // plan.chunk)
+        assert (plan.ns - 1) * plan.chunk < w <= plan.ns * plan.chunk
+        assert plan.ns == 1 if w * 16 < 64 else plan.ns >= 2
+        assert kv * 4 * plan.ns <= 1.75 * 132
+    plan = split_plan(8, 16, w, 132)
+    for t in (1, 4, 16):
+        for elem, fmt in ((2, "fp"), (4, "fp"), (2, "int8"), (2, "int4")):
+            shape = block_shape(t, 32, 8, 128, 16, plan.chunk, elem, fmt)
+            assert shape.smem <= 227 * 1024
+            here = block_smem(t, 32, 8, 128, 16, plan.chunk, elem, fmt, True)
+            assert (shape.scratch == 0) == (here <= 227 * 1024)
+            if shape.scratch:  # G*T rows padded to 16, each a chunk's scores
+                assert shape.scratch >= 32 // 8 * t * plan.chunk * 16
+    if w == 2560:
+        assert block_shape(16, 32, 8, 128, 16, plan.chunk, 2, "fp").scratch > 0
 
 
 def test_build_key_tracks_sources():
