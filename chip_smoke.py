@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phase auto       # build, then phase 13 alone
     python3 chip_smoke.py --phase dense      # build, then phases 14-15 alone
     python3 chip_smoke.py --phase families   # build, then phases 16-19 alone
+    python3 chip_smoke.py --phase analysis   # build, phase 6, then phase 20
     python3 chip_smoke.py --out FILE         # every JSON line also to FILE
     python3 chip_smoke.py --phase attention --src OTHER/src
     python3 chip_smoke.py --phase vmm --src OTHER/src
@@ -179,7 +180,22 @@ Phases, one JSON line each:
    3, 5 and 7; initialised and frozen block by block, since its bf16
    weights do not fit the card beside its codes) and moonshot-v1-16b-a3b at
    4 of 48 layers: a 16-row prefill into ``init_caches`` (KVCache and
-   MambaCache) and 4 decode steps, kernels against plain logits EQUAL.
+   MambaCache) and 4 decode steps, kernels against plain logits EQUAL;
+20. the static-analysis layer (``analysis``, run after phase 12 while phase
+   6's weights are on the card): qwen3-8b's serving steps at phase 6's
+   shapes (decode, 16-row prefill, the fused spec draft at gamma 2 and 4
+   bits; fused and gather) traced with ``repro_torch.analysis.graph``, each
+   kernel's custom-op nodes EQUAL to the launches of a real step on the same
+   arguments, the four passes with no error (the port's allowlist; the
+   counts under the reference's alone are printed); phase 6's requests
+   served with ``analysis_debug=True`` (every launch plan through the race
+   checker), tokens EQUAL to phase 6's, and the host ms of a width-4 decode
+   step with the check on and off (on, off, off, on); ``python -m
+   repro_torch.analysis.check --artifact`` on the CI smoke's artifact as a
+   subprocess (exit 0, ``analysis.ok`` in its manifest); the host µs of a
+   call through each custom op against the bare ``ctypes`` wrapper at the
+   decode shape.  Phase 10 traces its booted LUT artifact's decode step the
+   same way (one LUT-kernel node per call of a forward).
 
 ``--phase plans`` runs none of these after the build: it times each
 constant of the two VMM plans (kernels/bitplane_vmm.py, kernels/da_vmm.py)
@@ -188,8 +204,8 @@ plain version, and the attention plan's cluster-size cap ``_NS_MAX``
 (kernels/paged_attention.py) at decode and verify reads of batch 1-4, each
 EQUAL to the plain read, in two passes of opposite order.
 
-Each path (6-15 and 17-19, each leg of 10 and 11, each run of 12 and 14,
-each model of 15 and 19) sets the kernels' launch counts
+Each path (6-15, 17-19 and 20's serve, each leg of 10 and 11, each run of
+12 and 14, each model of 15 and 19) sets the kernels' launch counts
 to 0 just before it runs and reads them just after, and fails if an
 attention read of this port queued other than one CUDA launch.  Then the
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and last
@@ -272,7 +288,7 @@ ATTN_MASKED = {"bfloat16": (4, 16, 17), "float32": (4, 1, 9)}
 #: the activation dtype each path hands the attention kernel
 PATH_DTYPE = {"serve": "bfloat16", "serve_int8kv": "bfloat16",
               "serve_prefix": "bfloat16", "serve_spec": "bfloat16",
-              "serve_obs": "bfloat16",
+              "serve_obs": "bfloat16", "analysis": "bfloat16",
               "artifact_lut": "float32", "artifact_lut_spec": "float32",
               "artifact_ci": "float32", "artifact_auto": "float32",
               "serve_dense": "bfloat16", "dense_variants": "bfloat16",
@@ -1767,7 +1783,16 @@ def phase_artifact_lut():
                     "itl_p50_ms": sm["itl_p50_ms"],
                     **{k: sm["spec"][k] for k in ("acceptance_rate", "rounds",
                                                   "draft_steps", "verify_steps")}}
+    # the booted artifact's decode step traced: one LUT-kernel node per call
+    # of a forward, one attention node per layer, no finding
+    _, rows, _ = _traced_steps(art.params, art.model_cfg, batch_size=4, max_len=128,
+                               page_size=16, prefill_chunk=1, backends=("fused",))
+    nodes = rows[0]["op_nodes"]
+    line["analysis"] = rows[0]
     emit(line)
+    if rows[0]["errors"] or nodes != {"da_vmm": line["da_vmm_per_forward"],
+                                      "paged_attention": cfg.n_layers}:
+        raise AssertionError(f"the LUT artifact's traced decode step: {rows[0]}")
     if not same:
         raise AssertionError("LUT kernel boot and its plain side disagree on tokens")
     if plain_counts["da_vmm"] or plain_counts["bitplane_vmm"]:
@@ -1776,7 +1801,7 @@ def phase_artifact_lut():
         raise AssertionError("the LUT spec serve and the LUT serve disagree on tokens")
     if spec_counts["da_vmm_by_bits"].get(DRAFT_X_BITS, 0) <= 0:
         raise AssertionError(f"the LUT spec serve never ran the 4-bit draft: {spec_counts}")
-    return counts, spec_counts
+    return counts, spec_counts, nodes
 
 
 def _ci_requests(n, shared_len, vocab):
@@ -2783,6 +2808,205 @@ def phase_families(flush):
     return stacked, paths
 
 
+#: the kernels' custom ops (``kernels/ops.py``), by count name
+KERNEL_OPS = {"bitplane_vmm": "repro_torch::bitplane_vmm",
+              "paged_attention": "repro_torch::paged_attention",
+              "da_vmm": "repro_torch::da_vmm"}
+#: the serve phase's shapes, traced by the analysis phase
+SERVE_SHAPES = dict(batch_size=4, max_len=256, page_size=16, prefill_chunk=16)
+
+
+def _step_launches(params, cfg, backend: str, t: int) -> dict:
+    """Kernel launches of one real step of the serve's paged step function
+    on the traced arguments (zero tokens, the garbage page's table)."""
+    import torch
+
+    from repro_torch.serve.kvcache import init_paged_caches, pages_for, table_width
+    from repro_torch.spec.decode import make_paged_step, mk_positions
+
+    b, ps, max_len = (SERVE_SHAPES[k] for k in ("batch_size", "page_size", "max_len"))
+    cfg_b = dataclasses.replace(cfg, paged_attn=backend)
+    caches = init_paged_caches(cfg_b, 1 + b * pages_for(max_len, ps), ps,
+                               cfg_b.dtype(), device="cuda")
+    z = torch.zeros((b, t), dtype=torch.int32, device="cuda")
+    args = (params, caches, z, mk_positions(cfg_b, z),
+            torch.zeros((b, table_width(max_len, ps)), dtype=torch.int32,
+                        device="cuda"),
+            torch.zeros((b,), dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    _reset_counts()
+    with torch.inference_mode():
+        make_paged_step(cfg_b)(*args)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    del caches
+    return {k: counts[k] for k in ("bitplane_vmm", "paged_attention", "da_vmm")
+            if counts[k]}
+
+
+def _traced_steps(params, cfg, **kw):
+    """Trace the serve's steps (``repro_torch.analysis.graph``) and run the
+    passes: one row per step with its trace seconds, its op nodes and its
+    findings by pass (the port's allowlist, and the reference's alone)."""
+    from repro_torch.analysis.findings import errors
+    from repro_torch.analysis.graph import trace_serving_steps
+    from repro_torch.analysis.passes import REFERENCE_ALLOWLIST, run_passes
+
+    t0 = time.perf_counter()
+    steps = trace_serving_steps(params, cfg, **kw)
+    rows = []
+    for s in steps:
+        t1 = time.perf_counter()
+        found = run_passes([s])
+        by_pass: dict = {}
+        for f in found:
+            by_pass[f.pass_name] = by_pass.get(f.pass_name, 0) + 1
+        ref_only: dict = {}
+        for f in run_passes([s], allow=REFERENCE_ALLOWLIST):
+            ref_only[f.pass_name] = ref_only.get(f.pass_name, 0) + 1
+        rows.append({"step": s.name, "trace_s": s.trace_s,
+                     "passes_s": time.perf_counter() - t1,
+                     "graph_nodes": len(s.gm.graph.nodes), "op_nodes": s.op_counts(),
+                     "errors": len(errors(found)), "findings_by_pass": by_pass,
+                     "findings_reference_allowlist": ref_only,
+                     "first_findings": [f.to_json() for f in found[:3]]})
+    return steps, rows, time.perf_counter() - t0
+
+
+def _analysis_cli(directory) -> dict:
+    """``python -m repro_torch.analysis.check --artifact DIR`` as a
+    subprocess: its exit code, seconds, last lines and the verdict it
+    stamped into the manifest."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis.check",
+                           "--artifact", directory], env=env, capture_output=True,
+                          text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    with open(os.path.join(directory, "manifest.json")) as f:
+        verdict = json.load(f).get("analysis")
+    return {"rc": proc.returncode, "seconds": secs, "verdict": verdict,
+            "stdout_tail": proc.stdout.strip().splitlines()[-4:],
+            "stderr_tail": proc.stderr.strip().splitlines()[-4:]}
+
+
+def _dispatch_us() -> dict:
+    """Host µs per call of each kernel at the qwen3-8b decode shape: through
+    its custom op (the entry the model calls) against the bare ``ctypes``
+    wrapper, in the order op, wrapper, wrapper, op."""
+    import torch
+
+    from repro_torch.core.da import DAConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cfg = DAConfig(x_signed=True)
+    xq = torch.randint(-128, 128, (4, 4096), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    wq = torch.randint(-128, 128, (4096, 12288), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    q, kp, vp, table, tpos = _paged_case(gen, 4, 1, 17, 4 * 17 + 1, torch.bfloat16)
+    kw = dict(softmax_dtype="float32", mask_mode="where")
+    pairs = {"bitplane_vmm": (lambda: ops.bitplane_vmm(xq, wq, cfg),
+                              lambda: bitplane_vmm_cuda(xq, wq, cfg)),
+             "paged_attention": (lambda: ops.paged_attention(q, kp, vp, table, tpos, **kw),
+                                 lambda: paged_attention_cuda(q, kp, vp, table, tpos, **kw))}
+    out = {}
+    for name, (op, bare) in pairs.items():
+        if not torch.equal(op(), bare()):
+            raise AssertionError(f"{name}: the custom op and the ctypes launch differ")
+        runs = [host_us(fn, 200)["idle"] for fn in (op, bare, bare, op)]
+        out[name] = {"op_us": [runs[0], runs[3]], "ctypes_us": [runs[1], runs[2]],
+                     "added_us": (runs[0] + runs[3] - runs[1] - runs[2]) / 2,
+                     "shape": ("M=4 K=4096 N=12288" if name == "bitplane_vmm"
+                               else "B=4 T=1 W=17 H=32 kv=8 hd=128 bf16")}
+    return out
+
+
+def phase_analysis(params, plain_tokens):
+    """The static-analysis layer on the card: the serve's qwen3-8b steps
+    (decode, prefill, spec draft; fused and gather) traced at full size,
+    each kernel op's nodes EQUAL to a real step's launches, the passes with
+    no error; the serve again with ``analysis_debug=True`` (every launch
+    plan checked), tokens EQUAL to the serve's and host ms of a width-4
+    decode step with the check on and off; the checker's CLI on the CI
+    smoke's artifact; the custom ops' dispatch cost against ``ctypes``."""
+    import torch
+
+    from repro_torch.configs.registry import get
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get("qwen3-8b")
+    steps, rows, trace_s = _traced_steps(params, cfg, spec_gamma=GAMMA,
+                                         spec_x_bits=DRAFT_X_BITS, **SERVE_SHAPES)
+    real = {(backend, t): _step_launches(params, cfg, backend, t)
+            for backend in ("gather", "fused")
+            for t in (1, SERVE_SHAPES["prefill_chunk"])}
+    for row in rows:
+        backend = row["step"].split("[")[1].rstrip("]")
+        t = 1 if row["step"].startswith(("decode", "spec_draft")) else \
+            SERVE_SHAPES["prefill_chunk"]
+        forwards = GAMMA if row["step"].startswith("spec_draft") else 1
+        row["launches_per_forward"] = real[(backend, t)]
+        row["nodes_equal_launches"] = row["op_nodes"] == {
+            k: forwards * n for k, n in real[(backend, t)].items()}
+    del steps
+    gc.collect()
+    # the serve again, every launch plan checked before the device call
+    eng = ServeEngine(cfg, params, batch_size=4, max_len=256, page_size=16,
+                      paged_attn="fused", analysis_debug=True, device="cuda")
+    submit, spent = eng._rt._submit_plan, []
+
+    def timed_submit(*a):  # the check's own host time, plan by plan
+        t0 = time.perf_counter()
+        submit(*a)
+        spent.append(time.perf_counter() - t0)
+
+    eng._rt._submit_plan = timed_submit
+    reqs, done, counts = _serve_requests(eng, cfg.vocab, 8)
+    plans = eng._rt.plans_checked
+    check_us = {"mean": sum(spent) / max(len(spent), 1) * 1e6,
+                "max": max(spent, default=0.0) * 1e6, "calls": len(spent)}
+    itl = eng.metrics()["itl_p50_ms"]
+    same = _tokens(done, reqs) == plain_tokens
+    host = {}
+    for on in (True, False, False, True):
+        eng._rt.analysis_debug = on
+        host.setdefault("on" if on else "off", []).append(
+            _host_step_ms(eng, cfg.vocab))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = _analysis_cli(_ci_artifact(tmp))
+    dispatch = _dispatch_us()
+    emit({"phase": "analysis", "model": cfg.name, "layers": cfg.n_layers,
+          "shapes": SERVE_SHAPES, "gamma": GAMMA, "draft_x_bits": DRAFT_X_BITS,
+          "trace_s": trace_s, "steps": rows,
+          "serve": {"plans_checked": plans, "tokens_equal_serve": same,
+                    "check_us_per_plan": check_us,
+                    "launches": counts, "host_ms_per_decode_step": host,
+                    "itl_p50_ms": itl},
+          "cli": cli, "dispatch_us": dispatch})
+    bad = [r["step"] for r in rows if r["errors"] or not r["nodes_equal_launches"]]
+    if bad:
+        raise AssertionError(f"traced steps with errors or node counts unequal "
+                             f"to the launches: {bad}")
+    if not same or plans <= 0:
+        raise AssertionError(f"analysis_debug serve: tokens equal {same}, "
+                             f"{plans} plans checked")
+    if min(counts["bitplane_vmm"], counts["paged_attention"]) <= 0:
+        raise AssertionError(f"the analysis_debug serve missed a kernel: {counts}")
+    if cli["rc"] != 0 or not (cli["verdict"] or {}).get("ok"):
+        raise AssertionError(f"the analysis CLI failed: {cli}")
+    decode = next(r for r in rows if r["step"] == "decode[fused]")
+    return counts, decode["op_nodes"], dispatch
+
+
 def decode_window(eng, vocab: int, steps: int = 4):
     """Where a full-width decode step spends its time: host wall of
     ``steps`` batch-4 decode ticks, then the same number of ticks under
@@ -2822,10 +3046,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase", choices=("all", "attention", "vmm", "plans",
                                             "ci_boot", "serve", "obs", "auto",
-                                            "dense", "families"),
+                                            "dense", "families", "analysis"),
                         default="all",
                         help="'attention', 'vmm', 'plans', 'ci_boot', 'serve', "
-                             "'obs', 'auto', 'dense' or 'families': build the "
+                             "'obs', 'auto', 'dense', 'families' or 'analysis': "
+                             "build the "
                              "kernels and run only "
                              "the attention phase, only the bit-plane, int8, "
                              "LUT and stacked-expert phases, only the plans' "
@@ -2835,8 +3060,9 @@ def main() -> int:
                              "the traced qwen3-8b serves, only the planned "
                              "freeze and serve, only the dense variants "
                              "(minitron-8b on both runtimes, musicgen-large, "
-                             "qwen2-vl-72b), or only the MoE / Mamba / hybrid "
-                             "phases (no result line)")
+                             "qwen2-vl-72b), only the MoE / Mamba / hybrid "
+                             "phases, or only the qwen3-8b serve and the "
+                             "static-analysis phase (no result line)")
     parser.add_argument("--src", help="import the port from this directory "
                         "(another checkout's src/) instead of this one's; "
                         "only with --phase attention, vmm, ci_boot or serve")
@@ -2846,7 +3072,7 @@ def main() -> int:
     if args.out:
         _OUT.append(args.out)
     if args.src:
-        if args.phase in ("all", "plans", "obs", "auto"):
+        if args.phase in ("all", "plans", "obs", "auto", "analysis"):
             parser.error("--src needs --phase attention, vmm, ci_boot or serve")
         sys.path.insert(0, os.path.abspath(args.src))
     elif not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
@@ -2862,6 +3088,11 @@ def main() -> int:
     if args.phase in ("ci_boot", "serve", "obs", "auto"):
         {"ci_boot": phase_ci_boot, "serve": phase_serve,
          "obs": phase_serve_obs, "auto": phase_artifact_auto}[args.phase]()
+        print(smi_line(), flush=True)
+        return 0
+    if args.phase == "analysis":
+        params, _, plain_tokens, _ = phase_serve()
+        phase_analysis(params, plain_tokens)
         print(smi_line(), flush=True)
         return 0
     if args.phase == "dense":
@@ -2909,10 +3140,12 @@ def main() -> int:
     prefix_counts = timed("serve_prefix", phase_serve_prefix, params)
     spec_counts = timed("serve_spec", phase_serve_spec, params, plain_tokens)
     obs_counts = timed("serve_obs", phase_serve_obs, params, plain_tokens)
+    analysis_counts, serve_nodes, dispatch = timed("analysis", phase_analysis, params,
+                                                   plain_tokens)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    lut_counts, lut_spec_counts = timed("artifact_lut", phase_artifact_lut)
+    lut_counts, lut_spec_counts, lut_nodes = timed("artifact_lut", phase_artifact_lut)
     ci_counts = timed("artifact_ci", phase_artifact_ci)
     auto_counts = timed("artifact_auto", phase_artifact_auto, serve_shapes)
     dense_counts = timed("serve_dense", phase_serve_dense)
@@ -2923,7 +3156,8 @@ def main() -> int:
     emit({"phase": "phase_seconds", **secs})
     paths = {"serve": fp_counts, "serve_int8kv": int8_counts,
              "serve_prefix": prefix_counts, "serve_spec": spec_counts,
-             "serve_obs": obs_counts, "artifact_lut": lut_counts, "artifact_lut_spec": lut_spec_counts,
+             "serve_obs": obs_counts, "analysis": analysis_counts,
+             "artifact_lut": lut_counts, "artifact_lut_spec": lut_spec_counts,
              "artifact_ci": ci_counts, "artifact_auto": auto_counts,
              "serve_dense": dense_counts, "dense_variants": variant_counts,
              "serve_ssm": ssm_counts, "serve_moe": moe_counts,
@@ -3022,6 +3256,9 @@ def main() -> int:
     lut_total, lut_paths, lut_entries = entries("da_vmm")
     emit({"kernels": [
         {"name": "bitplane_vmm", "route": "cuda",
+         "op": KERNEL_OPS["bitplane_vmm"], "nodes": serve_nodes["bitplane_vmm"],
+         "nodes_step": "qwen3-8b decode[fused]",
+         "dispatch_us": dispatch["bitplane_vmm"],
          "source": "src/repro_torch/kernels/csrc/bitplane_vmm.cu",
          "replaces": "src/repro/kernels/bitplane_vmm.py:33",
          "launches": bp_total, "launches_by_path": bp_paths,
@@ -3035,6 +3272,9 @@ def main() -> int:
          + [stacked_row("bitplane_vmm", c, one) for one in (True, False)
             for c in STACKED_BITPLANE[3]]},
         {"name": "paged_attention", "route": "cuda",
+         "op": KERNEL_OPS["paged_attention"], "nodes": serve_nodes["paged_attention"],
+         "nodes_step": "qwen3-8b decode[fused]",
+         "dispatch_us": dispatch["paged_attention"],
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:66",
          "launches": sum(f["launches"] for f in formats),
@@ -3045,6 +3285,8 @@ def main() -> int:
                                        "library_ms", "shape")},
          "formats": formats, "variants": verify + [bf16_softmax]},
         {"name": "da_vmm", "route": "cuda",
+         "op": KERNEL_OPS["da_vmm"], "nodes": lut_nodes["da_vmm"],
+         "nodes_step": "LUT artifact decode[fused]",
          "source": "src/repro_torch/kernels/csrc/da_vmm.cu",
          "replaces": "src/repro/kernels/da_vmm.py:33",
          "launches": lut_total, "launches_by_path": lut_paths,

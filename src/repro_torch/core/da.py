@@ -12,9 +12,9 @@ inputs into the PMA address.  ``coef(b) = 2^b`` except the sign bit of
 two's-complement inputs, which carries ``-2^(B-1)``.  Every form returns the
 exact int32 accumulator (== X @ W).
 
-Matrix products run as float64 matmuls: every partial is an integer far
-below 2^53, so the product is exact on any device (CUDA has no int32
-``matmul``).
+Matrix products run as int32 matmuls on the CPU (integer dots, as the
+reference's) and as float64 matmuls on CUDA, which has no int32 ``matmul``:
+every partial is an integer far below 2^53, so the product is exact.
 """
 from __future__ import annotations
 
@@ -141,16 +141,23 @@ def da_vmm_lut(xq: torch.Tensor, luts: torch.Tensor,
 def da_vmm_onehot(xq: torch.Tensor, luts: torch.Tensor,
                   cfg: DAConfig) -> torch.Tensor:
     """The address decoder as a one-hot [M·B, G·2^L] contracted against the
-    tables in one product (exact in float64: entries stay far below 2^53)."""
+    tables in one exact product (:func:`_product_dtype`)."""
     g, r, n = luts.shape
     addr = group_addresses(xq, cfg).long()                 # [M, B, G]
     onehot = torch.nn.functional.one_hot(addr, r).to(torch.int32)
     m = xq.shape[0]
     flat = onehot.reshape(m * cfg.x_bits, g * r)
-    per_cycle = torch.matmul(flat.to(torch.float64),
-                             luts.reshape(g * r, n).to(torch.float64))
+    dt = _product_dtype(xq.device)
+    per_cycle = torch.matmul(flat.to(dt), luts.reshape(g * r, n).to(dt))
     per_cycle = per_cycle.to(torch.int32).reshape(m, cfg.x_bits, n)
     return (per_cycle * _coefs(cfg, xq.device)[:, None]).sum(1, dtype=torch.int32)
+
+
+def _product_dtype(device: torch.device) -> torch.dtype:
+    """The dtype an exact integer product runs in: int32 on the CPU (an
+    integer dot, as the reference's), float64 on CUDA, which has no int32
+    ``matmul`` (every partial an integer far below 2^53, so exact)."""
+    return torch.float64 if device.type == "cuda" else torch.int32
 
 
 def bit_planes(xq: torch.Tensor, cfg: DAConfig) -> torch.Tensor:
@@ -163,8 +170,8 @@ def bit_planes(xq: torch.Tensor, cfg: DAConfig) -> torch.Tensor:
 
 def plane_products(planes: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """Exact ``planes [B, M, K] @ wq [K, N]`` → int32 ``[B, M, N]``."""
-    mr = torch.matmul(planes.to(torch.float64), wq.to(torch.float64))
-    return mr.to(torch.int32)
+    dt = _product_dtype(planes.device)
+    return torch.matmul(planes.to(dt), wq.to(dt)).to(torch.int32)
 
 
 def da_vmm_bitplane(xq: torch.Tensor, wq: torch.Tensor,

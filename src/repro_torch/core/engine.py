@@ -837,7 +837,7 @@ def _merged_codes(packs) -> torch.Tensor:
     w0 = ws[0]
     adjacent = all(
         w.stride(1) == 1 and w.stride(0) == w0.stride(0)
-        and w.untyped_storage().data_ptr() == w0.untyped_storage().data_ptr()
+        and torch._C._is_alias_of(w, w0)  # one storage (a fake one when traced)
         for w in ws)
     off = w0.storage_offset()
     for w in ws:
@@ -960,6 +960,6 @@ def _gather_attn_backend(q, k_pool, v_pool, page_table, tpos, **kw):
 @register_attn_backend("fused",
                        "CUDA page-walk kernel (plain version on CPU)")
 def _fused_attn_backend(q, k_pool, v_pool, page_table, tpos, **kw):
-    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ops import paged_attention
 
     return paged_attention(q, k_pool, v_pool, page_table, tpos, **kw)

@@ -484,6 +484,28 @@ def load_artifact(directory: str, device="cuda") -> DAArtifact:
                       hwcost=hwcost, analysis=manifest.get("analysis"))
 
 
+def record_analysis(directory: str, verdict: Dict[str, Any]) -> None:
+    """Stamp a ``repro_torch.analysis.check`` verdict into an artifact's
+    manifest, under the reference's ``"analysis"`` key and in its format
+    (``json.dump`` with ``indent=1``, sorted keys).
+
+    Read-modify-write of ``manifest.json``, written atomically (tmp file +
+    fsync + rename) so a crashed checker never leaves a truncated
+    manifest.  The verdict is the checker's summary (counts per pass,
+    error / warning totals, the ``ok`` bit, the schema version), not the
+    findings list."""
+    path = os.path.join(directory, "manifest.json")
+    with open(path) as f:
+        manifest = json.load(f)
+    manifest["analysis"] = verdict
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
 # ---------------------------------------------------------------------------
 # Reporting: the Table-I trade-off, per layer
 # ---------------------------------------------------------------------------

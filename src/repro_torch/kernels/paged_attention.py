@@ -261,10 +261,9 @@ paged_attention_cuda.cuda_launches = 0
 
 
 def paged_attention(q, k_pool, v_pool, page_table, tpos, **kw) -> torch.Tensor:
-    """Paged-attention read over an already-written pool.  A CUDA tensor
-    launches the kernel; a CPU tensor runs the plain gather read."""
-    if q.device.type == "cuda":
-        return paged_attention_cuda(q, k_pool, v_pool, page_table, tpos, **kw)
-    from repro_torch.models.attention import paged_gather_read
+    """Paged-attention read over an already-written pool, through the
+    ``repro_torch::paged_attention`` op: a CUDA tensor launches the kernel,
+    a CPU tensor runs the plain gather read."""
+    from repro_torch.kernels.ops import paged_attention as op
 
-    return paged_gather_read(q, k_pool, v_pool, page_table, tpos, **kw)
+    return op(q, k_pool, v_pool, page_table, tpos, **kw)

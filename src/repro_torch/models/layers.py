@@ -47,14 +47,18 @@ def _mean_square(xf: torch.Tensor) -> torch.Tensor:
                       keepdim=True).to(torch.float32)
 
 
+def _row_mean(xf: torch.Tensor) -> torch.Tensor:
+    """Float32 mean over the last dim, summed in float64 as the sum of
+    squares is (:func:`_mean_square`), for the same row invariance."""
+    return torch.mean(xf.to(torch.float64), dim=-1, keepdim=True).to(torch.float32)
+
+
 def apply_norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """RMS norm, or LayerNorm (mean removed first, then a bias), in
-    float32; the LayerNorm mean is summed in float64 as the sum of squares
-    is, for the same row invariance."""
+    float32."""
     xf = x.to(torch.float32)
     if cfg.norm_type == "layernorm":
-        xf = xf - torch.mean(xf.to(torch.float64), dim=-1,
-                             keepdim=True).to(torch.float32)
+        xf = xf - _row_mean(xf)
     y = xf * torch.rsqrt(_mean_square(xf) + cfg.norm_eps)
     y = y * p["scale"].to(torch.float32)
     if cfg.norm_type == "layernorm":

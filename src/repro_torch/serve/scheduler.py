@@ -48,6 +48,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.races import PageWrite, TickPlan, assert_plan_ok
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import Observability
@@ -241,10 +242,6 @@ class PagedScheduler:
                  obs: Optional[Observability] = None,
                  hw: Optional[HardwareCostModel] = None,
                  analysis_debug: bool = False, device="cuda"):
-        if analysis_debug:
-            raise NotImplementedError(
-                "analysis_debug is not ported yet (ROADMAP Queue 1, "
-                "'Static analysis')")
         if admission not in ("reserve", "optimistic"):
             raise ValueError(f"unknown admission policy {admission!r}")
         # the runtime knobs override the model config; baked into cfg before
@@ -285,6 +282,13 @@ class PagedScheduler:
         self.done: Dict[int, Request] = {}
         self._preempted: set = set()  # uids waiting on a full-ctx re-admit
         self.prefix = PrefixCache(page_size) if prefix_cache else None
+        # analysis_debug: every launch's (page, offset) write plan goes
+        # through repro_torch.analysis.races before the device call; a
+        # violated aliasing invariant raises PageRaceError instead of
+        # corrupting KV.  plans_checked is a plain attribute, not a registry
+        # counter: a debug-only metric would change the exported schema.
+        self.analysis_debug = bool(analysis_debug)
+        self.plans_checked = 0
         # counters, gauges and histograms live in the registry, so metrics(),
         # the Prometheus export and snapshots read one source
         self.obs = obs if obs is not None else Observability.make()
@@ -659,12 +663,42 @@ class PagedScheduler:
         return (tokens, mk_positions(cfg or self.cfg, positions), table,
                 last_idx)
 
-    def _run_batch(self, rows, plan, n_rows: int, t_step: int) -> np.ndarray:
+    def _submit_plan(self, phase: str, rows, poss) -> None:
+        """analysis_debug gate: prove the page-aliasing invariants of one
+        launch before it reaches the device.  ``rows`` = [(batch_row,
+        lane_idx, lane)]; ``poss`` maps a lane index to the positions this
+        launch writes for it.  A position past the lane's page table (the
+        pad position) lands in the garbage page, whose aliasing the checker
+        exempts.  Warmup's pad-only batches (no rows) write only there and
+        are not submitted."""
+        if not rows:
+            return
+        ps = self.page_size
+        writes = []
+        for _, i, l in rows:
+            for pos in poss[i]:
+                pi = pos // ps
+                page = l.pages[pi] if 0 <= pi < len(l.pages) else GARBAGE_PAGE
+                writes.append(PageWrite(lane=i, uid=l.req.uid, page=page,
+                                        offset=pos % ps))
+        touched = {w.page for w in writes}
+        assert_plan_ok(TickPlan.build(
+            phase=phase, page_size=ps, writes=writes,
+            refcounts={p: self.pool.refcount(p) for p in touched
+                       if 0 <= p < self.pool.n_pages},
+            trie_pages=self.prefix.pages() if self.prefix is not None else (),
+            free_pages=self.pool.free_page_ids(), garbage_page=GARBAGE_PAGE))
+        self.plans_checked += 1
+
+    def _run_batch(self, rows, plan, n_rows: int, t_step: int,
+                   phase: str = "step") -> np.ndarray:
         """One call of the step for ``rows`` = [(batch_row, lane_idx, lane)],
         lane i feeding its next ``plan[i]`` context tokens; returns the last
         real token's logits [n_rows, V] on the host."""
         toks = {i: l.ctx[l.pos: l.pos + plan[i]] for _, i, l in rows}
         poss = {i: range(l.pos, l.pos + plan[i]) for _, i, l in rows}
+        if self.analysis_debug:
+            self._submit_plan(phase, rows, poss)
         tokens, positions, table, last_idx = self._pack_rows(
             rows, toks, poss, n_rows, t_step)
         with self._issue("step", n_rows, t_step), torch.inference_mode():
@@ -711,7 +745,8 @@ class PagedScheduler:
         t_step = min(pow2_bucket(max(plan[i] for _, i, _ in rows)),
                      self.prefill_chunk)
         t0 = time.perf_counter()
-        logits = self._run_batch(rows, plan, self.prefill_lanes, t_step)
+        logits = self._run_batch(rows, plan, self.prefill_lanes, t_step,
+                                 phase="prefill")
         now = time.perf_counter()
         if self._tr.enabled:
             for r, i, l in rows:
@@ -753,7 +788,8 @@ class PagedScheduler:
         width = width_bucket(len(live), self.b)
         rows = [(r, i, l) for r, (i, l) in enumerate(live)]
         t0 = time.perf_counter()
-        logits = self._run_batch(rows, {i: 1 for i, _ in live}, width, 1)
+        logits = self._run_batch(rows, {i: 1 for i, _ in live}, width, 1,
+                                 phase="decode")
         now = time.perf_counter()
         if self._tr.enabled:
             extra = ({"est_pj": self._hw_prices["decode"][0] * len(live)}
@@ -811,6 +847,14 @@ class PagedScheduler:
     def _run_draft(self, rows, toks, poss, width: int,
                    t_step: int) -> np.ndarray:
         """One fused draft call → all gamma proposals [width, gamma]."""
+        if self.analysis_debug and self._provider.shared_cache:
+            # the fused call feeds poss[i], then gamma - 1 single-token steps
+            # each write the next position.  An own-cache provider writes
+            # its own pool, which the target pool's ledger does not govern.
+            g = self.spec.gamma
+            self._submit_plan("spec_draft", rows, {
+                i: list(poss[i]) + [poss[i][-1] + 1 + k for k in range(g - 1)]
+                for _, i, _ in rows})
         batch = self._pack_rows(rows, toks, poss, width, t_step,
                                 self._provider.cfg)
         shared = self._provider.shared_cache
@@ -857,6 +901,8 @@ class PagedScheduler:
                     t_step: int) -> np.ndarray:
         """One full-precision verify call over the windows; returns the
         greedy token at every position, [width, t_step], on the host."""
+        if self.analysis_debug:
+            self._submit_plan("spec_verify", rows, poss)
         tokens, positions, table, _ = self._pack_rows(rows, toks, poss, width,
                                                       t_step)
         with self._issue("verify", width, t_step), torch.inference_mode():

@@ -849,3 +849,105 @@ def test_mamba_slot_serve_on_the_card(card, monkeypatch):
     monkeypatch.setattr(ops, "bitplane_vmm", ref.bitplane_vmm_ref)
     plain, none = serve()
     assert none == (0, 0) and plain == kernels
+
+
+# ---------------------------------------------------------------------------
+# the kernels as custom ops (kernels/ops.py), and a traced step on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name", ["bitplane_vmm", "bitplane_vmm_experts", "da_vmm",
+                                  "da_vmm_experts"])
+def test_vmm_custom_op_equals_the_direct_kernel_call(card, name):
+    """Each VMM op on CUDA is the kernel's launch: the same bits as the
+    ``ctypes`` wrapper called directly, one launch counted per call."""
+    from repro_torch.kernels import bitplane_vmm as bp
+    from repro_torch.kernels import da_vmm as dv
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=card).manual_seed(5)
+    cfg = DAConfig(x_signed=True)
+    lead = (3,) if name.endswith("experts") else ()
+    xq = torch.randint(-128, 128, lead + (4, 300), generator=g, device=card,
+                       dtype=torch.int32)
+    wq = torch.randint(-128, 128, lead + (300, 264), generator=g, device=card,
+                       dtype=torch.int8)
+    if name.startswith("da_vmm"):
+        w = (torch.stack([build_luts(x, 8) for x in wq]) if lead
+             else build_luts(wq, 8)).contiguous()
+    else:
+        w = wq
+    direct = {"bitplane_vmm": bp.bitplane_vmm_cuda,
+              "bitplane_vmm_experts": bp.bitplane_vmm_experts_cuda,
+              "da_vmm": dv.da_vmm_cuda, "da_vmm_experts": dv.da_vmm_experts_cuda}[name]
+    want = direct(xq, w, cfg)
+    before = direct.launches
+    got = getattr(ops, name)(xq, w, cfg)
+    torch.cuda.synchronize()
+    assert direct.launches == before + 1
+    assert torch.equal(got, want) and got.dtype == torch.int32
+    with pytest.raises((TypeError, RuntimeError)):
+        getattr(ops, name)(xq, w.to(torch.int16), cfg)
+
+
+@pytest.mark.parametrize("fmt", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("softmax", ["float32", "bfloat16"])
+def test_attention_custom_op_equals_the_direct_kernel_call(card, fmt, softmax):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    g = torch.Generator(device=card).manual_seed(6)
+    b, t, h, kv, hd, ps, w = 4, 1, 32, 8, 128, 16, 17
+    q = torch.randn(b, t, h, hd, generator=g, device=card).to(torch.bfloat16)
+    kp = torch.randn(1 + b * w, ps, kv, hd, generator=g, device=card).to(torch.bfloat16)
+    vp = torch.randn(1 + b * w, ps, kv, hd, generator=g, device=card).to(torch.bfloat16)
+    scales = {}
+    if fmt != "fp":
+        kp, scales["k_scale"] = kv_quant.quantize_kv(kp, fmt)
+        vp, scales["v_scale"] = kv_quant.quantize_kv(vp, fmt)
+    table = torch.arange(1, 1 + b * w, dtype=torch.int32, device=card).reshape(b, w)
+    tpos = torch.tensor([[40], [3], [200], [255]], dtype=torch.int32, device=card)
+    kw = dict(softmax_dtype=softmax, mask_mode="where", **scales)
+    want = paged_attention_cuda(q, kp, vp, table, tpos, **kw)
+    before = paged_attention_cuda.launches
+    got = ops.paged_attention(q, kp, vp, table, tpos, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention_cuda.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(paged_attention(q, kp, vp, table, tpos, **kw), want)
+
+
+def test_traced_decode_step_holds_one_node_per_kernel_call(card):
+    """qwen3-8b at full width and 2 layers, frozen with the bit-plane
+    kernel: the decode step traced on the card holds one op node per kernel
+    launch of a real decode step (5 VMMs a layer and the LM head; one
+    attention read a layer), and the passes find nothing."""
+    import dataclasses
+
+    from repro_torch.analysis.graph import trace_serving_steps
+    from repro_torch.analysis.passes import run_passes
+    from repro_torch.configs.registry import get
+    from repro_torch.core.freeze import freeze_model_da
+    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.models.model import init_model
+    from repro_torch.serve.kvcache import init_paged_caches
+    from repro_torch.spec.decode import make_paged_step
+
+    cfg = dataclasses.replace(get("qwen3-8b"), n_layers=2, paged_attn="fused")
+    frozen = freeze_model_da(init_model(cfg, seed=0, device=card),
+                             mode="pallas_bitplane", device=card)
+    steps = trace_serving_steps(frozen, cfg, batch_size=4, max_len=256, page_size=16,
+                                prefill_chunk=1, backends=("fused",))
+    caches = init_paged_caches(cfg, 1 + 4 * 16, 16, cfg.dtype(), device=card)
+    z = torch.zeros((4, 1), dtype=torch.int32, device=card)
+    before = bitplane_vmm_cuda.launches, paged_attention_cuda.launches
+    with torch.inference_mode():
+        make_paged_step(cfg)(frozen, caches, z, z,
+                             torch.zeros((4, 17), dtype=torch.int32, device=card),
+                             torch.zeros((4,), dtype=torch.int32, device=card))
+    torch.cuda.synchronize()
+    launched = {"bitplane_vmm": bitplane_vmm_cuda.launches - before[0],
+                "paged_attention": paged_attention_cuda.launches - before[1]}
+    assert launched == {"bitplane_vmm": 5 * cfg.n_layers + 1,
+                        "paged_attention": cfg.n_layers}
+    assert steps[0].name == "decode[fused]" and steps[0].op_counts() == launched
+    assert run_passes(steps) == []

@@ -1,7 +1,8 @@
 """PyTorch port vs the JAX reference: the scheduler's knobs — optimistic
 admission with preemption (prefix cache on and off), prefill chunking and
 lanes, the token budget, warmup, the metrics surface, sampling, and the
-knob not ported yet (``analysis_debug``).
+knobs' checks (``analysis_debug`` is ported: ``test_torch_analysis.py``
+serves with it).
 
 Both packages serve the same frozen weights (the reference's
 ``bitplane_stacked`` freeze of ``reduce_for_smoke(qwen3-8b)``, carried across
@@ -177,9 +178,9 @@ def test_metrics_keys_match_reference(setup):
 
 def test_knobs_not_yet_ported_raise_and_the_card_is_the_default(setup):
     _, tcfg, _, tparams, _ = setup
-    with pytest.raises(NotImplementedError, match="Static analysis"):
-        ServeEngine(tcfg, tparams, batch_size=2, max_len=16, device="cpu",
-                    analysis_debug=True)
+    eng = ServeEngine(tcfg, tparams, batch_size=2, max_len=16, device="cpu",
+                      analysis_debug=True)
+    assert eng._rt.analysis_debug and eng._rt.plans_checked == 0
     with pytest.raises(ValueError, match="admission"):
         PagedScheduler(tcfg, tparams, batch_size=2, max_len=16,
                        admission="eager", device="cpu")
