@@ -13,6 +13,8 @@
     python3 chip_smoke.py --phase dense      # build, then phases 14-15 alone
     python3 chip_smoke.py --phase families   # build, then phases 16-19 alone
     python3 chip_smoke.py --phase analysis   # build, phase 6, then phase 20
+    python3 chip_smoke.py --phase launch     # build, then phase 21 alone
+    python3 chip_smoke.py --phase train      # build, then phase 22 alone
     python3 chip_smoke.py --out FILE         # every JSON line also to FILE
     python3 chip_smoke.py --phase attention --src OTHER/src
     python3 chip_smoke.py --phase vmm --src OTHER/src
@@ -62,7 +64,11 @@ Phases, one JSON line each:
    holds at once) and its CUDA launches per read (one, checked), the read's time on
    two event timers (device spin before the start event or not), its device
    time per kernel from ``torch.profiler`` and its host time to enqueue;
-   then each query of a verify-shaped read (T = 3, and T = 4 with a pad
+   the reduced configs' head widths 16 and 32 (ATTN_SMALL: 4 heads over 2
+   KV heads, float32 and bfloat16, decode timed, verify and prefill, an
+   all-masked row and the bfloat16 score pipeline), EQUAL the same way, and
+   an int4 read at head width 16 (no instance) must raise and launch
+   nothing; then each query of a verify-shaped read (T = 3, and T = 4 with a pad
    column at the garbage position) must EQUAL the T = 1 read of its row at
    its position, at batch 4 and batch 1, a decode row at batch 2-4 must
    EQUAL the row read alone, and the RMS norm's sum of squares of a row
@@ -195,7 +201,41 @@ Phases, one JSON line each:
    subprocess (exit 0, ``analysis.ok`` in its manifest); the host µs of a
    call through each custom op against the bare ``ctypes`` wrapper at the
    decode shape.  Phase 10 traces its booted LUT artifact's decode step the
-   same way (one LUT-kernel node per call of a forward).
+   same way (one LUT-kernel node per call of a forward);
+21. the entry points (``launch``, after phase 20 once phase 6's weights are
+   freed): ``repro_torch.launch.serve.main`` in process at full size
+   (LAUNCH_SERVE: qwen3-8b, ``--quant da8``, 8 requests at batch 4): 8
+   requests / 128 tokens served, bit-plane calls and attention reads above
+   0, each read one CUDA launch; the launcher at ``--smoke --quant
+   da8-lut`` (the reduced config: head width 16, float32) in process with
+   its own counts: 8 requests served, LUT calls and attention reads above
+   0; then as subprocesses of this interpreter
+   (``PYTHONPATH=src``, the kernels' git-ignored build reused), started
+   together where they do not depend on each other: the CI serve smoke's
+   five commands through ``python -m repro_torch.examples.serve_da``
+   (freeze with ``bitplane_stacked`` and save, then spec, prefix cache,
+   fused attention and int8 pages from the artifact), the observability
+   smoke (a traced serve, then ``python -m repro_torch.obs.check`` on its
+   three files), the quickstart and both LeNet examples.  Every command must exit 0; the spec
+   leg's ``req`` lines (tokens) must equal the plain leg's, the prefix
+   leg's those of the same requests served in process without the cache;
+   the quickstart's verified backends must name ``pallas_bitplane`` and
+   ``pallas_lut`` (unsigned codes, K = 25);
+22. training (``train``, last, with no serve weights resident), with the
+   launch counts read around it (0 expected: training runs no hand-written
+   kernel): (a) ``examples/train_lm``'s qwen3-100m in float32, TF32 off,
+   3 ``make_train_step`` steps at batch 2 x seq 64, 2 microbatches, on the
+   card and on the CPU from the same params in this process: loss, grad
+   norm and lr within TRAIN_RTOL; (b) qwen3-8b at full width and TRAIN_FULL
+   depth (4 of 36 layers; bf16 params, remat on), batch 4 x seq 512, 2
+   microbatches, warmup 2, 8 steps: every loss finite, no step skipped, the
+   last loss below the first; ms per step, tokens/s, 6·N·tokens over time
+   against the bf16 peak, peak memory, and a ninth step traced with
+   ``torch.profiler`` for its device busy time; (c) ``python -m
+   repro_torch.launch.train --smoke`` to 4 steps with checkpoints every 2,
+   resumed to 6 (its first step 4, its losses within RESUME_ATOL of a
+   straight 6-step run's), and ``python -m repro_torch.examples.train_lm
+   --steps 20``.
 
 ``--phase plans`` runs none of these after the build: it times each
 constant of the two VMM plans (kernels/bitplane_vmm.py, kernels/da_vmm.py)
@@ -204,8 +244,8 @@ plain version, and the attention plan's cluster-size cap ``_NS_MAX``
 (kernels/paged_attention.py) at decode and verify reads of batch 1-4, each
 EQUAL to the plain read, in two passes of opposite order.
 
-Each path (6-15, 17-19 and 20's serve, each leg of 10 and 11, each run of
-12 and 14, each model of 15 and 19) sets the kernels' launch counts
+Each path (6-15, 17-19, 20's serve, 21's in-process serve and 22, each
+leg of 10 and 11, each run of 12 and 14, each model of 15 and 19) sets the kernels' launch counts
 to 0 just before it runs and reads them just after, and fails if an
 attention read of this port queued other than one CUDA launch.  Then the
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and last
@@ -285,6 +325,15 @@ ATTN_HEADS = (("bfloat16", dict(h=32, kv=8, hd=128),
               ("bfloat16", dict(h=16, kv=16, hd=128), ((4, 1, 17), (4, 16, 17))))
 #: the case of each head shape run again with one row's queries all masked
 ATTN_MASKED = {"bfloat16": (4, 16, 17), "float32": (4, 1, 9)}
+#: the reduced configs' head widths (``reduce_for_smoke``: 4 heads over 2 KV
+#: heads of 16, of 32 under M-RoPE), which the launcher's ``--smoke`` serves:
+#: checked at decode (timed), verify and prefill (W = 17) over the page
+#: formats built for them (packed int4 from head width 32), the first also
+#: with one row all masked and under the bfloat16 score pipeline
+ATTN_SMALL = tuple((dname, dict(h=4, kv=2, hd=hd), fmts)
+                   for hd, fmts in ((16, ("fp", "int8")), (32, ("fp", "int8", "int4")))
+                   for dname in ("float32", "bfloat16"))
+ATTN_SMALL_SHAPES = ((4, 1, 17), (4, VERIFY_T, 17), (4, 16, 17))
 #: the activation dtype each path hands the attention kernel
 PATH_DTYPE = {"serve": "bfloat16", "serve_int8kv": "bfloat16",
               "serve_prefix": "bfloat16", "serve_spec": "bfloat16",
@@ -293,7 +342,8 @@ PATH_DTYPE = {"serve": "bfloat16", "serve_int8kv": "bfloat16",
               "artifact_ci": "float32", "artifact_auto": "float32",
               "serve_dense": "bfloat16", "dense_variants": "bfloat16",
               "serve_ssm": "bfloat16", "serve_moe": "bfloat16",
-              "family_variants": "bfloat16"}
+              "family_variants": "bfloat16", "launch": "bfloat16",
+              "launch_smoke": "float32", "train": "bfloat16"}
 
 
 #: a file that receives every emitted line too (``--out``), for lines the
@@ -854,11 +904,47 @@ def phase_attention(flush):
                                         softmax="bfloat16")
         rows += _attention_case(gen, *ATTN_MASKED[dname], "additive", dname,
                                 heads, None, masked_row=1, softmax="bfloat16")
-    exact = _exact_read(importlib.import_module("repro_torch.kernels.paged_attention"))
+    pa = importlib.import_module("repro_torch.kernels.paged_attention")
+    if 16 in getattr(pa, "HEAD_DIMS", ()):  # an older checkout's (--src) has none
+        for dname, heads, fmts in ATTN_SMALL:
+            for b, t, w in ATTN_SMALL_SHAPES:
+                for mode in ("where", "additive"):
+                    rows += _attention_case(gen, b, t, w, mode, dname, heads,
+                                            flush if t == 1 else None,
+                                            formats=fmts)
+            b, t, w = ATTN_SMALL_SHAPES[0]
+            rows += _attention_case(gen, b, t, w, "where", dname, heads, None,
+                                    masked_row=1, formats=fmts)
+            rows += _attention_case(gen, b, t, w, "additive", dname, heads, None,
+                                    softmax="bfloat16", formats=fmts)
+        _refuses_narrow_int4(gen)
+    exact = _exact_read(pa)
     emit({"phase": "paged_attention", "atol": 0.0 if exact else ATTN_ATOL,
           "bf16_softmax_reference_atol": ATTN_BF16_SOFTMAX_ATOL, "cases": rows})
     _row_invariance(gen)
     return rows
+
+
+def _refuses_narrow_int4(gen):
+    """Packed int4 pages of head width 16 have no instance: the read
+    raises, and launches nothing."""
+    import torch
+
+    from repro_torch.models import kv_quant
+
+    pa = importlib.import_module("repro_torch.kernels.paged_attention")
+    q, kp, vp, table, tpos = _paged_case(gen, 4, 1, 17, 4 * 17 + 8, torch.float32,
+                                         h=4, kv=2, hd=16)
+    (kc, ks), (vc, vs) = (kv_quant.quantize_kv(x, "int4") for x in (kp, vp))
+    before = pa.paged_attention_cuda.cuda_launches
+    try:
+        pa.paged_attention_cuda(q, kc, vc, table, tpos, k_scale=ks, v_scale=vs)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("an int4 read at head width 16 did not raise")
+    if pa.paged_attention_cuda.cuda_launches != before:
+        raise AssertionError("a refused int4 read launched the kernel")
 
 
 def _row_invariance(gen):
@@ -975,7 +1061,7 @@ def _split_fields(pa, b, t, w, ps, heads, dtype, fmt="fp") -> dict:
 
 
 def _attention_case(gen, b, t, w, mode, dname, heads, flush, masked_row=None,
-                    softmax="float32"):
+                    softmax="float32", formats=("fp", "int8", "int4")):
     import torch
 
     from repro_torch.models import kv_quant
@@ -989,7 +1075,7 @@ def _attention_case(gen, b, t, w, mode, dname, heads, flush, masked_row=None,
                                          getattr(torch, dname), **heads)
     if masked_row is not None:
         tpos[masked_row] = -1
-    for fmt in ("fp", "int8", "int4"):
+    for fmt in formats:
         split = _split_fields(pa, b, t, w, kp.shape[1], heads, q.dtype, fmt)
         if fmt == "fp":
             kc, vc, scales = kp, vp, {}
@@ -3007,6 +3093,338 @@ def phase_analysis(params, plain_tokens):
     return counts, decode["op_nodes"], dispatch
 
 
+# ---------------------------------------------------------------------------
+# 21: the entry points
+# ---------------------------------------------------------------------------
+#: the launcher's full-size serve (``python -m repro_torch.launch.serve``)
+LAUNCH_SERVE = ["--arch", "qwen3-8b", "--quant", "da8", "--requests", "8",
+                "--batch", "4", "--max-len", "256", "--max-new", "16",
+                "--hw-metrics"]
+#: the launcher's LUT path, only at the reduced size (at full qwen3-8b
+#: size the tables would be 128x the codes)
+LUT_SMOKE = ["--arch", "qwen3-8b", "--smoke", "--quant", "da8-lut"]
+#: the CI serve smoke (.github/workflows/ci.yml "Serve smoke") through the
+#: port's serve_da: the freeze-and-save leg, then the legs that boot its
+#: artifact
+SERVE_DA = "repro_torch.examples.serve_da"
+CI_SAVE = ["-m", SERVE_DA, "--requests", "2", "--mode", "bitplane_stacked",
+           "--save-artifact", "smoke_da"]
+CI_LEGS = {
+    "ci_spec": ["--requests", "2", "--artifact", "smoke_da", "--spec",
+                "bitplane", "--spec-gamma", "2"],
+    "ci_prefix": ["--requests", "4", "--batch", "2", "--artifact", "smoke_da",
+                  "--prefix-cache"],
+    "ci_fused": ["--requests", "2", "--batch", "2", "--artifact", "smoke_da",
+                 "--paged-attn", "fused"],
+    "ci_int8": ["--requests", "2", "--batch", "2", "--artifact", "smoke_da",
+                "--kv-dtype", "int8"],
+    # "Observability smoke": a traced serve, its three files checked after
+    "obs_smoke": ["--requests", "4", "--batch", "2", "--artifact", "smoke_da",
+                  "--trace-out", "obs/trace.json", "--metrics-out",
+                  "obs/metrics.prom", "--hw-metrics", "obs/hw.json"],
+}
+#: each subprocess's time limit (s)
+SUBPROCESS_TIMEOUT = 300
+_REQ = re.compile(r"^  req (\d+): (\d+) tokens -> \[([\d, ]*)\]\.\.\.$")
+
+
+def _run_together(cmds: dict, cwd: str) -> dict:
+    """Run each command (its arguments after ``python``) as a subprocess of
+    this interpreter with ``PYTHONPATH=src``, all started together in
+    ``cwd``; wait for all.  Returns ``{name: {"rc", "stdout", "stderr"}}``
+    and the wall seconds; raises naming every command that exited other
+    than 0.  No process outlives the call."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs, files = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for name, argv in cmds.items():
+            files[name] = (open(os.path.join(cwd, f"{name}.out"), "w+"),
+                           open(os.path.join(cwd, f"{name}.err"), "w+"))
+            procs[name] = subprocess.Popen([sys.executable, *argv], cwd=cwd,
+                                           env=env, stdout=files[name][0],
+                                           stderr=files[name][1])
+        deadline = time.perf_counter() + SUBPROCESS_TIMEOUT
+        for p in procs.values():
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = {}
+    for name, (fo, fe) in files.items():
+        fo.seek(0)
+        fe.seek(0)
+        out[name] = {"rc": procs[name].returncode, "stdout": fo.read(),
+                     "stderr": fe.read()}
+        fo.close()
+        fe.close()
+    failed = [f"{n} ({' '.join(cmds[n])}) exited {r['rc']}: {r['stderr'][-1500:]}"
+              for n, r in out.items() if r["rc"] != 0]
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out, time.perf_counter() - t0
+
+
+def _req_lines(stdout: str) -> list:
+    """serve_da's ``req`` lines as (uid, tokens generated, first 8 tokens)."""
+    return [(int(m[1]), int(m[2]), [int(t) for t in m[3].split(", ") if t])
+            for m in map(_REQ.match, stdout.splitlines()) if m]
+
+
+def _prefix_plain(directory: str) -> list:
+    """The prefix leg's requests (4 at batch 2 on a 32-token shared prefix)
+    served in process from the same artifact without the cache, as
+    ``req`` tuples."""
+    import torch
+
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine.from_artifact(directory, batch_size=2, max_len=96,
+                                    device="cuda")
+    reqs, done, _ = _run_requests(eng, _ci_requests(4, 32, eng.cfg.vocab),
+                                  eng.cfg.vocab)
+    del eng
+    torch.cuda.empty_cache()
+    return [(r.uid, len(done[r.uid].generated),
+             [int(t) for t in done[r.uid].generated[:8]]) for r in reqs]
+
+
+def _launcher_run(argv):
+    """``repro_torch.launch.serve.main(argv)`` in process, the launch counts
+    set to 0 just before and read just after: (printed lines, seconds,
+    counts)."""
+    import io
+
+    import torch
+
+    from repro_torch.launch import serve as launcher
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        launcher.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _read_counts()  # raises unless each attention read was 1 launch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return buf.getvalue().splitlines(), seconds, counts
+
+
+def phase_launch():
+    """The launcher at full size and at ``--smoke --quant da8-lut`` (the
+    reduced config: head width 16, float32) in process, each with its own
+    counts; then the examples and the CI / observability smokes as
+    subprocesses.  Returns the two runs' counts."""
+    lines, serve_s, counts = _launcher_run(LAUNCH_SERVE)
+    served = next((re.match(r"served (\d+) requests / (\d+) tokens in ([\d.]+)s "
+                            r"\(([\d.]+) tok/s\)", line) for line in lines
+                   if line.startswith("served")), None)
+    if not served or (int(served[1]), int(served[2])) != (8, 128):
+        raise AssertionError(f"the launcher did not serve 8 requests / 128 "
+                             f"tokens: {lines}")
+    if min(counts["bitplane_vmm"], counts["paged_attention"]) <= 0:
+        raise AssertionError(f"the launcher's serve missed a kernel: {counts}")
+    smoke_lines, smoke_s, smoke_counts = _launcher_run(LUT_SMOKE)
+    if min(smoke_counts["da_vmm"], smoke_counts["paged_attention"]) <= 0:
+        raise AssertionError(f"the launcher's LUT smoke missed a kernel: "
+                             f"{smoke_counts}")
+    line = {"phase": "launch", "launcher": {
+        "argv": LAUNCH_SERVE, "stdout": lines, "seconds": serve_s,
+        "serve_s": float(served[3]), "tok_s": float(served[4]),
+        "launches": counts}, "lut_smoke": {
+        "argv": LUT_SMOKE, "stdout": smoke_lines[-4:], "seconds": smoke_s,
+        "launches": smoke_counts}}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "obs"))
+        first, wave1_s = _run_together({
+            "ci_plain": CI_SAVE,
+            "quickstart": ["-m", "repro_torch.examples.quickstart"],
+            "lenet_da_inference": ["-m", "repro_torch.examples.lenet_da_inference"],
+            "lenet_full_da": ["-m", "repro_torch.examples.lenet_full_da"]}, tmp)
+        second, wave2_s = _run_together(
+            {n: ["-m", SERVE_DA] + a for n, a in CI_LEGS.items()}, tmp)
+        plain_prefix = _prefix_plain(os.path.join(tmp, "smoke_da"))
+        third, wave3_s = _run_together({"obs_check": [
+            "-m", "repro_torch.obs.check", "obs/trace.json", "obs/metrics.prom",
+            "obs/hw.json"]}, tmp)
+    runs = {**first, **second, **third}
+    out = {n: r["stdout"].splitlines() for n, r in runs.items()}
+    verified = next((ln for ln in out["quickstart"] if "every eligible" in ln), "")
+    checks = {
+        "spec_tokens_equal_plain": (_req_lines(runs["ci_spec"]["stdout"])
+                                    == _req_lines(runs["ci_plain"]["stdout"])
+                                    and len(_req_lines(runs["ci_plain"]["stdout"])) == 2),
+        "prefix_tokens_equal_plain": (_req_lines(runs["ci_prefix"]["stdout"])
+                                      == plain_prefix),
+        "prefix_hits": bool(re.search(r"hits=[1-9]\d*/", runs["ci_prefix"]["stdout"])),
+        "int8_pages": "kv_dtype=int8" in runs["ci_int8"]["stdout"],
+        "quickstart_kernels": "pallas_bitplane" in verified and "pallas_lut" in verified,
+        "bit_exact": all("✓" in runs[n]["stdout"] for n in
+                         ("quickstart", "lenet_da_inference", "lenet_full_da")),
+        "lut_smoke_served": any(ln.startswith("served 8 requests")
+                                for ln in smoke_lines),
+        "obs_check": runs["obs_check"]["rc"] == 0,
+    }
+    line.update(commands={n: out[n][-6:] for n in out}, checks=checks,
+                wave_seconds=[wave1_s, wave2_s, wave3_s])
+    emit(line)
+    if not all(checks.values()):
+        raise AssertionError(f"an entry-point check failed: {checks}")
+    return counts, smoke_counts
+
+
+# ---------------------------------------------------------------------------
+# 22: training
+# ---------------------------------------------------------------------------
+#: the card against the CPU, float32 with TF32 off: loss, grad norm and lr
+TRAIN_RTOL = 1e-4
+#: qwen3-8b at full width: the depth kept (of 36 layers) and the run
+TRAIN_FULL = dict(layers=4, batch=4, seq=512, microbatches=2, warmup=2, steps=8)
+#: resumed against straight losses as the launcher prints them (4
+#: decimals); the card's embedding backward adds with atomics, in any order
+RESUME_ATOL = 2e-3
+_STEP = re.compile(r"^step\s+(\d+) loss ([\d.]+) ")
+
+
+def _train_card_vs_cpu() -> dict:
+    import torch
+
+    from repro_torch.data.pipeline import batch_at, for_model
+    from repro_torch.device import resolve_device
+    from repro_torch.examples.train_lm import build_cfg
+    from repro_torch.train.trainer import (TrainConfig, init_state,
+                                           make_train_step, state_from_params)
+    from repro_torch.tree import tree_map
+
+    cfg = build_cfg()
+    cpu = init_state(cfg, seed=0, device="cpu")
+    dev = resolve_device("cuda")
+    card = state_from_params(tree_map(lambda t: t.to(dev, copy=True), cpu.params))
+    step = make_train_step(cfg, TrainConfig(warmup_steps=1, total_steps=10,
+                                            microbatches=2))
+    dc = for_model(cfg, seq_len=64, global_batch=2, packed=True)
+    rows, worst = [], 0.0
+    for s in range(3):
+        batch = batch_at(dc, s)
+        cpu, mc = step(cpu, batch)
+        card, md = step(card, batch)
+        row = {k: [float(mc[k]), float(md[k])] for k in ("loss", "grad_norm", "lr")}
+        worst = max([worst] + [abs(c - d) / max(abs(c), 1e-30)
+                               for c, d in row.values()])
+        rows.append(row)
+    del cpu, card
+    torch.cuda.empty_cache()
+    out = {"model": cfg.name, "steps": rows, "max_rel_err": worst,
+           "rtol": TRAIN_RTOL}
+    if worst > TRAIN_RTOL:
+        raise AssertionError(f"training on the card left the CPU's by {worst}: {rows}")
+    return out
+
+
+def _train_full_width() -> dict:
+    import torch
+
+    from repro_torch.configs.registry import get
+    from repro_torch.data.pipeline import batch_at, for_model
+    from repro_torch.models.model import count_params
+    from repro_torch.train.trainer import TrainConfig, init_state, make_train_step
+
+    f = TRAIN_FULL
+    cfg = dataclasses.replace(get("qwen3-8b"), n_layers=f["layers"])
+    assert cfg.remat and cfg.param_dtype == "bfloat16"
+    dc = for_model(cfg, seq_len=f["seq"], global_batch=f["batch"], packed=True)
+    batches = [batch_at(dc, s) for s in range(f["steps"])]
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(cfg, seed=0, device="cuda")
+    step = make_train_step(cfg, TrainConfig(warmup_steps=f["warmup"],
+                                            total_steps=f["steps"],
+                                            microbatches=f["microbatches"]))
+    hist = []
+    for s in range(f["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[s])
+        vals = dict(zip(m, torch.stack([v.float() for v in m.values()]).tolist()))
+        hist.append({**vals, "ms": (time.perf_counter() - t0) * 1e3})
+    n = count_params(cfg)
+    tokens = f["batch"] * f["seq"]
+    steady_ms = sum(h["ms"] for h in hist[1:]) / (len(hist) - 1)
+    out = {"model": f"{cfg.name} full width, {f['layers']} of 36 layers",
+           "reduced": {"n_layers": [36, f["layers"]]}, **f, "params": n,
+           "remat": cfg.remat, "param_dtype": cfg.param_dtype,
+           "losses": [h["loss"] for h in hist], "grad_norms": [h["grad_norm"] for h in hist],
+           "step_ms": [h["ms"] for h in hist], "steady_ms": steady_ms,
+           "tokens_per_s": tokens / (steady_ms / 1e3),
+           "mfu_6n": 6 * n * tokens / (steady_ms / 1e3) / BF16_FLOPS_PER_S,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "reckoned_state_gb": n * 20 / 1e9}
+    # one more step under torch.profiler: device time against the untraced
+    # step's wall says whether the host holds the card back
+    traced = _device_ms(lambda: step(state, batches[-1]), 1)
+    out["traced_step"] = {"wall_ms": traced["wall_ms"],
+                          "device_busy_ms": traced["device_busy_ms"],
+                          "busy_share": traced["device_busy_ms"] / steady_ms}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"a non-finite loss: {out['losses']}")
+    if any(h["skipped"] for h in hist):
+        raise AssertionError(f"a step was skipped: {hist}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"the loss did not fall: {out['losses']}")
+    return out
+
+
+def _train_resume() -> dict:
+    def steps(stdout):
+        return [(int(m[1]), float(m[2])) for m in map(_STEP.match, stdout.splitlines())
+                if m]
+
+    base = ["-m", "repro_torch.launch.train", "--arch", "qwen3-8b", "--smoke",
+            "--batch", "4", "--seq", "128", "--ckpt-every", "2"]
+    with tempfile.TemporaryDirectory() as tmp:
+        first, _ = _run_together({
+            "first": base + ["--steps", "4", "--ckpt-dir", "resume"],
+            "straight": base + ["--steps", "6", "--ckpt-dir", "straight"],
+            "train_lm": ["-m", "repro_torch.examples.train_lm", "--steps", "20",
+                         "--ckpt-dir", "train_lm"]}, tmp)
+        second, _ = _run_together(
+            {"resumed": base + ["--steps", "6", "--ckpt-dir", "resume"]}, tmp)
+    resumed, straight = steps(second["resumed"]["stdout"]), steps(first["straight"]["stdout"])
+    out = {"first": steps(first["first"]["stdout"]), "resumed": resumed,
+           "straight": straight, "atol": RESUME_ATOL,
+           "train_lm": first["train_lm"]["stdout"].splitlines()[-3:]}
+    if [s for s, _ in resumed] != [4, 5]:
+        raise AssertionError(f"the resumed run did not start at step 4: {resumed}")
+    if any(abs(loss - dict(straight)[s]) > RESUME_ATOL for s, loss in resumed):
+        raise AssertionError(f"resumed losses left the straight run's: {out}")
+    return out
+
+
+def phase_train():
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    line = {"phase": "train", "card_vs_cpu": _train_card_vs_cpu(),
+            "full_width": _train_full_width()}
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    line["resume"] = _train_resume()
+    line["launches"] = {k: counts[k] for k in KERNEL_COUNTS}
+    emit(line)
+    if any(counts[k] for k in KERNEL_COUNTS):
+        raise AssertionError(f"training launched a hand-written kernel: {counts}")
+    return counts
+
+
 def decode_window(eng, vocab: int, steps: int = 4):
     """Where a full-width decode step spends its time: host wall of
     ``steps`` batch-4 decode ticks, then the same number of ticks under
@@ -3046,7 +3464,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase", choices=("all", "attention", "vmm", "plans",
                                             "ci_boot", "serve", "obs", "auto",
-                                            "dense", "families", "analysis"),
+                                            "dense", "families", "analysis",
+                                            "launch", "train"),
                         default="all",
                         help="'attention', 'vmm', 'plans', 'ci_boot', 'serve', "
                              "'obs', 'auto', 'dense', 'families' or 'analysis': "
@@ -3061,8 +3480,10 @@ def main() -> int:
                              "freeze and serve, only the dense variants "
                              "(minitron-8b on both runtimes, musicgen-large, "
                              "qwen2-vl-72b), only the MoE / Mamba / hybrid "
-                             "phases, or only the qwen3-8b serve and the "
-                             "static-analysis phase (no result line)")
+                             "phases, only the qwen3-8b serve and the "
+                             "static-analysis phase, only the entry points "
+                             "(launch) or only training (train) (no result "
+                             "line)")
     parser.add_argument("--src", help="import the port from this directory "
                         "(another checkout's src/) instead of this one's; "
                         "only with --phase attention, vmm, ci_boot or serve")
@@ -3072,7 +3493,8 @@ def main() -> int:
     if args.out:
         _OUT.append(args.out)
     if args.src:
-        if args.phase in ("all", "plans", "obs", "auto", "analysis"):
+        if args.phase in ("all", "plans", "obs", "auto", "analysis", "launch",
+                          "train"):
             parser.error("--src needs --phase attention, vmm, ci_boot or serve")
         sys.path.insert(0, os.path.abspath(args.src))
     elif not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
@@ -3085,9 +3507,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t_start = time.perf_counter()
     phase_device()
-    if args.phase in ("ci_boot", "serve", "obs", "auto"):
+    if args.phase in ("ci_boot", "serve", "obs", "auto", "launch", "train"):
         {"ci_boot": phase_ci_boot, "serve": phase_serve,
-         "obs": phase_serve_obs, "auto": phase_artifact_auto}[args.phase]()
+         "obs": phase_serve_obs, "auto": phase_artifact_auto,
+         "launch": phase_launch, "train": phase_train}[args.phase]()
         print(smi_line(), flush=True)
         return 0
     if args.phase == "analysis":
@@ -3145,6 +3568,7 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    launch_counts, launch_smoke_counts = timed("launch", phase_launch)
     lut_counts, lut_spec_counts, lut_nodes = timed("artifact_lut", phase_artifact_lut)
     ci_counts = timed("artifact_ci", phase_artifact_ci)
     auto_counts = timed("artifact_auto", phase_artifact_auto, serve_shapes)
@@ -3153,6 +3577,9 @@ def main() -> int:
     ssm_counts = timed("serve_ssm", phase_serve_ssm)
     moe_counts = timed("serve_moe", phase_serve_moe)
     family_counts = timed("family_variants", phase_family_variants)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_counts = timed("train", phase_train)
     emit({"phase": "phase_seconds", **secs})
     paths = {"serve": fp_counts, "serve_int8kv": int8_counts,
              "serve_prefix": prefix_counts, "serve_spec": spec_counts,
@@ -3161,7 +3588,8 @@ def main() -> int:
              "artifact_ci": ci_counts, "artifact_auto": auto_counts,
              "serve_dense": dense_counts, "dense_variants": variant_counts,
              "serve_ssm": ssm_counts, "serve_moe": moe_counts,
-             "family_variants": family_counts}
+             "family_variants": family_counts, "launch": launch_counts,
+             "launch_smoke": launch_smoke_counts, "train": train_counts}
 
     def launches(name, fmt=None, dtype=None, key=None):
         """Launches over the paths (that run ``dtype``): of ``name``, of its

@@ -15,10 +15,11 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     one period of layers (2 for a homogeneous stack), d_model 64, 4 heads
     over 2 KV heads of 16 (32 under M-RoPE, sections (4, 6, 6)), d_ff 128,
     6 experts, top-2, expert d_ff 32 (2 shared when the config shares),
-    SSM state 16, SSM head dim 8, SSD chunk 8, vocab 97, float32."""
+    SSM state 16, SSM head dim 8, SSD chunk 8, vocab 97, float32, no
+    remat."""
     changes: dict = dict(n_layers=cfg.period if cfg.period > 1 else 2,
                          d_model=64, vocab=97, param_dtype="float32",
-                         compute_dtype="float32")
+                         compute_dtype="float32", remat=False)
     if cfg.n_heads:
         changes.update(n_heads=4,
                        n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads else 4,

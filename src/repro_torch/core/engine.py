@@ -386,7 +386,17 @@ def _stacked_backend(xq, packed, cfg):
 def _kernel_bitplane_backend(xq, packed, cfg):
     from repro_torch.kernels.ops import bitplane_vmm
 
-    return bitplane_vmm(xq, packed.wq, cfg)
+    return bitplane_vmm(xq, _int8_codes(xq, packed.wq), cfg)
+
+
+def _int8_codes(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The weight codes as the bit-plane kernel reads them on CUDA: int8.
+    :func:`pack_quantized` keeps the caller's dtype (int32 codes of int8
+    range, e.g. ``quantize_weights(w).q``), as the reference does; the
+    plain versions on the CPU take them as they are."""
+    if xq.device.type != "cuda" or wq.dtype == torch.int8:
+        return wq
+    return wq.to(torch.int8)
 
 
 def _each_expert(fn, xq, packed, cfg):
@@ -404,7 +414,7 @@ def _kernel_lut_experts(xq, packed, cfg):
 def _kernel_bitplane_experts(xq, packed, cfg):
     from repro_torch.kernels.ops import bitplane_vmm_experts
 
-    return bitplane_vmm_experts(xq, packed.wq, cfg)
+    return bitplane_vmm_experts(xq, _int8_codes(xq, packed.wq), cfg)
 
 
 def _batched(kernel_experts, plain=None):

@@ -62,3 +62,12 @@ def quantize_acts_unsigned(x: torch.Tensor, bits: int = 8,
     scale = torch.clamp(amax, min=eps) / qmax
     q = torch.clamp(torch.round(x / scale), 0, qmax).to(torch.int32)
     return QTensor(q=q, scale=scale.to(torch.float32), bits=bits, signed=False)
+
+
+def int_matmul(xq: QTensor, wq: QTensor) -> torch.Tensor:
+    """Exact integer reference matmul; dequantized float32 output.  The
+    int32 accumulation is formed in int64 on the CPU and in float64 on CUDA
+    (which has no integer matmul; exact below 2^53)."""
+    dt = torch.float64 if xq.q.device.type == "cuda" else torch.int64
+    acc = (xq.q.to(dt) @ wq.q.to(dt)).to(torch.int32)
+    return acc.to(torch.float32) * xq.scale * wq.scale

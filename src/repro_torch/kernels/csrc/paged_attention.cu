@@ -562,6 +562,17 @@ paged_attn_kernel(const T* __restrict__ q, const uint8_t* __restrict__ kpool,
   cluster.sync();  // no block leaves while a peer reads its partial
 }
 
+// Index of a head width the kernel is built for (16, 32, 64, 128), or -1.
+int head_index(int HD) {
+  switch (HD) {
+    case 16: return 0;
+    case 32: return 1;
+    case 64: return 2;
+    case 128: return 3;
+    default: return -1;
+  }
+}
+
 // The kernel instance of (dtype, kv_fmt, HD) and its layout function, or
 // null for one that is not built.
 struct Instance {
@@ -575,15 +586,22 @@ Instance instance(int dtype, int kv_fmt, int HD) {
 #define PA_FMTS(T, H) \
   {PA_I(T, H, KV_FP), PA_I(T, H, KV_I8), PA_I(T, H, KV_I4)}
   // the head widths a registered config serves (the LUT-serving model's 64,
-  // qwen3-8b's 128); widen the set when a config needs another
-  static const Instance table[2][2][3] = {
-      {PA_FMTS(float, 64), PA_FMTS(float, 128)},
-      {PA_FMTS(__nv_bfloat16, 64), PA_FMTS(__nv_bfloat16, 128)}};
+  // qwen3-8b's 128) and the reduced configs' 16 and 32 (32 under M-RoPE);
+  // packed int4 rows of head width 16 are 8 bytes, less than one cp.async
+  // copy, so that instance is not built
+#define PA_FMTS16(T) \
+  {PA_I(T, 16, KV_FP), PA_I(T, 16, KV_I8), Instance{nullptr, nullptr}}
+  static const Instance table[2][4][3] = {
+      {PA_FMTS16(float), PA_FMTS(float, 32), PA_FMTS(float, 64), PA_FMTS(float, 128)},
+      {PA_FMTS16(__nv_bfloat16), PA_FMTS(__nv_bfloat16, 32), PA_FMTS(__nv_bfloat16, 64),
+       PA_FMTS(__nv_bfloat16, 128)}};
+#undef PA_FMTS16
 #undef PA_FMTS
 #undef PA_I
-  if (dtype < 0 || dtype > 1 || kv_fmt < 0 || kv_fmt > 2 || (HD != 64 && HD != 128))
+  const int hdi = head_index(HD);
+  if (dtype < 0 || dtype > 1 || kv_fmt < 0 || kv_fmt > 2 || hdi < 0)
     return Instance{nullptr, nullptr};
-  return table[dtype][HD == 128][kv_fmt];
+  return table[dtype][hdi][kv_fmt];
 }
 
 // the kernel's dynamic shared-memory limit, raised to the most any plan
@@ -593,7 +611,7 @@ cudaError_t raise_smem_limit(int dtype, int kv_fmt, int HD, const void* fn) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const unsigned bit = 1u << ((dtype * 2 + (HD == 128)) * 3 + kv_fmt);
+  const unsigned bit = 1u << ((dtype * 4 + head_index(HD)) * 3 + kv_fmt);
   if (dev < 32 && (raised[dev].load() & bit)) return cudaSuccess;
   err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
   if (err == cudaSuccess && dev < 32) raised[dev].fetch_or(bit);
@@ -648,9 +666,10 @@ int paged_attention_max_clusters(int dtype, int kv_fmt, int HD, int NS, int smem
   return (int)cudaOccupancyMaxActiveClusters(clusters, in.fn, &cfg);
 }
 
-// dtype: 0 float32, 1 bfloat16 (of q and out).  HD: 64 or 128.  kv_fmt: 0
-// fp pools [P,PS,KV,HD] of that dtype; 1 int8 codes [P,PS,KV,HD]; 2 int4 codes
-// [P,PS,KV,HD/2] (HD % 64 == 0); quantized pools with float16 scales
+// dtype: 0 float32, 1 bfloat16 (of q and out).  HD: 16, 32, 64 or 128.
+// kv_fmt: 0 fp pools [P,PS,KV,HD] of that dtype; 1 int8 codes [P,PS,KV,HD];
+// 2 int4 codes [P,PS,KV,HD/2] (HD >= 32: a row is whole 16-byte copies);
+// quantized pools with float16 scales
 // ks / vs [P,PS,KV,1], null for fp.  q [B,Tq,H,HD], table int32 [B,W], tpos
 // int32 [B,Tq], out [B,Tq,H,HD], all contiguous and 16-byte aligned.  The
 // positions of a row are split into NS chunks of CW pages (NS = ceil(W / CW)

@@ -39,8 +39,12 @@ from repro_torch.kernels import build
 from repro_torch.models import kv_quant
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head widths the kernel is built for (the registered configs' 64 and 128)
-HEAD_DIMS = (64, 128)
+#: head widths the kernel is built for: the registered configs' 64 and 128,
+#: the reduced configs' 16 and 32 (``configs/registry.py: reduce_for_smoke``)
+HEAD_DIMS = (16, 32, 64, 128)
+#: narrowest head width of packed int4 pages: a row must be whole 16-byte
+#: copies (``cp.async`` in the source)
+_INT4_MIN_HD = 32
 _KV_FORMATS = {"fp": 0, "int8": 1, "int4": 2}
 #: the score pipelines the kernel runs (``ModelConfig.softmax_dtype``)
 _SOFTMAX_DTYPES = ("float32", "bfloat16")
@@ -220,9 +224,10 @@ def paged_attention_cuda(q, k_pool, v_pool, page_table, tpos, *,
         raise ValueError(f"paged_attention_cuda: inconsistent shapes q "
                          f"{tuple(q.shape)} pool {tuple(k_pool.shape)} table "
                          f"{tuple(page_table.shape)} tpos {tuple(tpos.shape)}")
-    if hd not in HEAD_DIMS:
+    if hd not in HEAD_DIMS or (fmt == "int4" and hd < _INT4_MIN_HD):
         raise ValueError(f"paged_attention_cuda: head_dim {hd} is not one the "
-                         f"kernel is built for {HEAD_DIMS}")
+                         f"kernel is built for {HEAD_DIMS} (int4 pages: "
+                         f"{_INT4_MIN_HD} and wider)")
     plan = split_plan(kv, ps, w, build.sms(q.device.index))
     shape = block_shape(t, h, kv, hd, ps, plan.chunk, q.element_size(), fmt)
     if max_clusters(q.dtype, fmt, hd, plan.ns, shape.smem, q.device.index) < 1:

@@ -1,0 +1,2 @@
+"""Command-line entry points: ``python -m repro_torch.launch.serve`` and
+``python -m repro_torch.launch.train``."""

@@ -22,14 +22,13 @@ import torch
 #: The reference's fields that the port's config does not carry, with their
 #: reference defaults.  A manifest may hold them at these values.
 _REFERENCE_ONLY: Dict[str, Any] = {
-    "remat": True, "remat_policy": "nothing",
     "tie_embeddings": False, "scan_unroll": False, "prefill_last_only": False,
 }
 
 #: Of those, the ones that do not change what a model computes, at any value:
-#: training and compile knobs, and the prefill head slice (serving always
-#: slices the last token).
-_INERT = {"remat", "remat_policy", "scan_unroll", "prefill_last_only"}
+#: a compile knob, and the prefill head slice (serving always slices the
+#: last token).
+_INERT = {"scan_unroll", "prefill_last_only"}
 
 #: the families the reference defines
 FAMILIES = ("dense", "moe", "ssm", "hybrid")
@@ -91,6 +90,8 @@ class ModelConfig:
     norm_eps: float = 1e-5
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    remat: bool = True                # recompute each block in the backward
+    remat_policy: str = "nothing"     # nothing | dots: what a block saves
     attn_chunk_q: int = 0             # 0 → naive attention; else KV chunk of
                                       # the online-softmax prefill
     attn_mask_mode: str = "where"     # where | additive

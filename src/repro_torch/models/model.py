@@ -9,13 +9,25 @@ mixer (attention or Mamba-2) and FFN (MLP, MoE or none) the config names.
 Configs with ``modality`` audio or vlm have no ``embed`` table: their
 frontends are stubs, and the backbone takes precomputed frame or patch
 embeddings ``[B, T, d_model]`` in place of token ids.
+
+``cfg.remat`` recomputes each block in the backward pass when the forward
+records a graph (training: no cache, grad enabled), as the reference's
+``jax.checkpoint`` around each period does: ``torch.utils.checkpoint``
+without reentrancy, saving nothing inside a block (``remat_policy=
+"nothing"``) or the outputs of its matrix products (``"dots"``, the
+counterpart of ``checkpoint_policies.checkpoint_dots``: every ``mm``,
+``bmm``, ``addmm`` and ``baddbmm``, which is what a matmul or einsum
+becomes under autograd).  Serving runs under ``inference_mode`` and never
+checkpoints.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (
@@ -37,6 +49,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.mamba2 import MambaCache, init_mamba, mamba_forward
 from repro_torch.models.moe import init_moe, moe_forward, padded_experts
+from repro_torch.tree import leaves
 
 Params = Dict[str, Any]
 
@@ -72,6 +85,23 @@ def block_forward(p, x: torch.Tensor, cfg: ModelConfig, pos: int, positions,
     h = apply_norm(p["norm_ffn"], x, cfg)
     return x + (moe_forward(p["ffn"], h, cfg) if ffn == "moe"
                 else apply_mlp(p["ffn"], h, cfg))
+
+
+#: what the backward of a ``remat_policy="dots"`` block finds saved
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_REMAT_CONTEXT = {
+    "nothing": _ckpt.noop_context_fn,
+    "dots": functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                              _save_dots),
+}
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
@@ -136,12 +166,18 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
                                  device=h.device)[None].expand(b, t)
     attn_bias = (causal_bias(t, device=h.device)
                  if cfg.attn_impl == "lean" and t > 1 else None)
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
     for layer, bp in enumerate(params["blocks"]):
         pos, cache = layer % cfg.period, None
         if caches is not None:
             cache = caches[f"pos_{pos}"].layer(layer // cfg.period)
-        h = block_forward(bp, h, cfg, pos, positions, cache, page_table,
-                          update_cache=update_cache, attn_bias=attn_bias)
+        if remat:
+            h = _ckpt.checkpoint(block_forward, bp, h, cfg, pos, positions,
+                                 attn_bias=attn_bias, use_reentrant=False,
+                                 context_fn=_REMAT_CONTEXT[cfg.remat_policy])
+        else:
+            h = block_forward(bp, h, cfg, pos, positions, cache, page_table,
+                              update_cache=update_cache, attn_bias=attn_bias)
     if last_idx is not None:
         rows = torch.arange(h.shape[0], device=h.device)
         h = h[rows, last_idx.long()][:, None]
@@ -169,16 +205,6 @@ class _ShapeGen:
 def count_params(cfg: ModelConfig) -> int:
     """Parameters of :func:`init_model`'s tree for ``cfg``, counted from the
     tree's shapes (built on the meta device, no bytes)."""
-    def leaves(tree):
-        if isinstance(tree, dict):
-            for v in tree.values():
-                yield from leaves(v)
-        elif isinstance(tree, list):
-            for v in tree:
-                yield from leaves(v)
-        else:
-            yield tree
-
     return sum(math.prod(x.shape) for x in leaves(_init_tree(_ShapeGen(), cfg)))
 
 

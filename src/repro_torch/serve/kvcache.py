@@ -26,6 +26,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import PagedKVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.kv_quant import KV_DTYPES, KV_SCALE_DTYPE
+from repro_torch.tree import leaves as tree_leaves
 
 #: Physical page reserved for pad-token writes and unallocated table slots.
 GARBAGE_PAGE = 0
@@ -100,15 +101,12 @@ def kv_page_bytes(cfg: ModelConfig, page_size: int, kv_dtypes=None,
 def _leaves(tree) -> Iterator[torch.Tensor]:
     """Every pool tensor of a cache tree (dicts of :class:`PagedKVCache`,
     scales included)."""
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, PagedKVCache):
-        for x in (tree.k, tree.v, tree.k_scale, tree.v_scale):
-            if x is not None:
-                yield x
-    elif isinstance(tree, torch.Tensor):
-        yield tree
+    for node in tree_leaves(tree):
+        if isinstance(node, PagedKVCache):
+            yield from (x for x in (node.k, node.v, node.k_scale, node.v_scale)
+                        if x is not None)
+        elif isinstance(node, torch.Tensor):
+            yield node
 
 
 def kv_cache_nbytes(caches) -> int:

@@ -158,9 +158,9 @@ PAGED_CASES = {"short": (3, [5, 11, 8], 4, 12, None),
                "all_masked": (3, [5, 11, 8], 4, 12, 1)}
 
 
-def _paged_args(gen, dev, dtype, case):
+def _paged_args(gen, dev, dtype, case, hd=64):
     t, lens, ps, n_pages, masked = PAGED_CASES[case]
-    q, k, v, table, tpos = _paged_case(gen, dev, dtype, t, lens, ps=ps,
+    q, k, v, table, tpos = _paged_case(gen, dev, dtype, t, lens, hd=hd, ps=ps,
                                        n_pages=n_pages)
     if masked is not None:
         tpos[masked] = -1
@@ -210,12 +210,37 @@ def test_paged_kernel_reads_quantized_pools(card, kv_dtype, dtype, atol, case):
     assert torch.equal(out, ref)
     assert paged_attention_cuda.launches_by_format[kv_dtype] == before + 1
     with pytest.raises(ValueError, match="head_dim"):
-        paged_attention(*_paged_case(gen, card, torch.float32, 1, [5], hd=16))
-    if kv_dtype == "int4":  # a lane's codes would split a byte
-        q, k, v, table, tpos = _paged_case(gen, card, dtype, 1, [5], hd=32)
+        paged_attention(*_paged_case(gen, card, torch.float32, 1, [5], hd=48))
+    if kv_dtype == "int4":  # a packed row of 8 bytes: less than one copy
+        q, k, v, table, tpos = _paged_case(gen, card, dtype, 1, [5], hd=16)
         (kc, ks), (vc, vs) = (kv_quant.quantize_kv(x, kv_dtype) for x in (k, v))
         with pytest.raises(ValueError, match="head_dim"):
             paged_attention(q, kc, vc, table, tpos, k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.parametrize("case", ["short", "verify", "long_t1", "all_masked"])
+@pytest.mark.parametrize("hd,kv_dtype", [(16, "fp16"), (16, "int8"), (32, "fp16"),
+                                         (32, "int8"), (32, "int4")])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("softmax", ["float32", "bfloat16"])
+def test_paged_kernel_reads_the_reduced_head_widths(card, dtype, hd, kv_dtype,
+                                                    case, softmax):
+    """The reduced configs' head widths (16; 32 under M-RoPE), which the
+    launcher's ``--smoke`` serves: EQUAL to the plain read, one launch."""
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.models.attention import paged_gather_read
+
+    gen = torch.Generator(device=card).manual_seed(8)
+    q, k, v, table, tpos = _paged_args(gen, card, dtype, case, hd=hd)
+    scales = {}
+    if kv_dtype != "fp16":
+        (k, ks), (v, vs) = (kv_quant.quantize_kv(x, kv_dtype) for x in (k, v))
+        scales = {"k_scale": ks, "v_scale": vs}
+    before = paged_attention_cuda.cuda_launches
+    out = paged_attention(q, k, v, table, tpos, softmax_dtype=softmax, **scales)
+    ref = paged_gather_read(q, k, v, table, tpos, softmax_dtype=softmax, **scales)
+    assert torch.equal(out, ref)
+    assert paged_attention_cuda.cuda_launches == before + 1
 
 
 @pytest.mark.parametrize("case", ["short", "verify", "long_t1", "all_masked"])
@@ -951,3 +976,73 @@ def test_traced_decode_step_holds_one_node_per_kernel_call(card):
                         "paged_attention": cfg.n_layers}
     assert steps[0].name == "decode[fused]" and steps[0].op_counts() == launched
     assert run_passes(steps) == []
+
+
+# the quickstart's CONV1 call and the LeNet layers' VMM shapes (M, K, N):
+# unsigned 8-bit codes, K not a multiple of the group (25 = 3 * 8 + 1)
+LENET_SHAPES = [(1, 25, 6), (784, 25, 6), (100, 150, 16), (1, 400, 120),
+                (1, 120, 84), (1, 84, 10)]
+
+
+@pytest.mark.parametrize("m,k,n", LENET_SHAPES)
+def test_unsigned_codes_at_the_examples_shapes(card, m, k, n):
+    """Both VMM kernels on unsigned codes at the examples' shapes, against
+    their plain versions; and every eligible engine backend on a
+    ``pack_quantized`` pack of int32 codes (the quickstart's), which the
+    storage-free modes hand the bit-plane kernel as int8."""
+    from repro_torch.core.engine import da_vmm, pack_quantized, registered_backends
+    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
+    from repro_torch.kernels.da_vmm import da_vmm_cuda
+    from repro_torch.kernels.ref import bitplane_vmm_ref, da_vmm_ref
+
+    g = torch.Generator(device=card).manual_seed(m * k + n)
+    xq = torch.randint(0, 256, (m, k), generator=g, device=card, dtype=torch.int32)
+    w32 = torch.randint(-128, 128, (k, n), generator=g, device=card, dtype=torch.int32)
+    cfg = DAConfig(group_size=8, x_bits=8, x_signed=False)
+    exact = (xq.double() @ w32.double()).to(torch.int32)
+    assert torch.equal(bitplane_vmm_cuda(xq, w32.to(torch.int8), cfg),
+                       bitplane_vmm_ref(xq, w32, cfg))
+    luts = build_luts(w32, 8)
+    assert torch.equal(da_vmm_cuda(xq, luts, cfg), da_vmm_ref(xq, luts, cfg))
+    packed = pack_quantized(w32, cfg=cfg)
+    assert packed.wq.dtype == torch.int32
+    seen = []
+    for name, spec in sorted(registered_backends().items()):
+        if spec.supports(cfg, packed.has_luts):
+            before = bitplane_vmm_cuda.launches + da_vmm_cuda.launches
+            assert torch.equal(da_vmm(xq, packed, mode=name), exact), name
+            assert bitplane_vmm_cuda.launches + da_vmm_cuda.launches == before + 1
+            seen.append(name)
+    assert {"pallas_bitplane", "pallas_lut", "bitplane", "lut"} <= set(seen)
+
+
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """Three train steps of a tiny float32 model at two microbatches on the
+    card and on the CPU from the same params: loss and grad norm within
+    1e-4 relative (TF32 off: float32 products on both)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get, reduce_for_smoke
+    from repro_torch.data.pipeline import batch_at, for_model
+    from repro_torch.train.trainer import (TrainConfig, init_state,
+                                           make_train_step, state_from_params)
+    from repro_torch.tree import tree_map
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = dataclasses.replace(reduce_for_smoke(get("qwen3-8b")), remat=True)
+        cpu = init_state(cfg, seed=0, device="cpu")
+        dev = state_from_params(tree_map(lambda t: t.to(card, copy=True), cpu.params))
+        step = make_train_step(cfg, TrainConfig(warmup_steps=1, total_steps=10,
+                                                microbatches=2))
+        dc = for_model(cfg, seq_len=32, global_batch=4, packed=True)
+        for s in range(3):
+            cpu, mc = step(cpu, batch_at(dc, s))
+            dev, md = step(dev, batch_at(dc, s))
+            for k in ("loss", "grad_norm", "lr"):
+                a, b = float(mc[k]), float(md[k])
+                assert abs(a - b) <= 1e-4 * abs(a), (s, k, a, b)
+            assert float(md["skipped"]) == 0.0 and int(dev.step) == s + 1
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
