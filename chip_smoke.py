@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phase analysis   # build, phase 6, then phase 20
     python3 chip_smoke.py --phase launch     # build, then phase 21 alone
     python3 chip_smoke.py --phase train      # build, then phase 22 alone
+    python3 chip_smoke.py --phase distributed  # build, then phase 23 alone
     python3 chip_smoke.py --out FILE         # every JSON line also to FILE
     python3 chip_smoke.py --phase attention --src OTHER/src
     python3 chip_smoke.py --phase vmm --src OTHER/src
@@ -235,7 +236,26 @@ Phases, one JSON line each:
    repro_torch.launch.train --smoke`` to 4 steps with checkpoints every 2,
    resumed to 6 (its first step 4, its losses within RESUME_ATOL of a
    straight 6-step run's), and ``python -m repro_torch.examples.train_lm
-   --steps 20``.
+   --steps 20``;
+23. the distributed slice (``distributed``, last): (a) a one-rank NCCL
+   group in this process: the LUT-serving model's ``pallas_lut`` freeze
+   served under the rules on a 1×1 ``cuda`` mesh, tokens EQUAL to the
+   same freeze unsharded (the LUT and attention kernels counted over the
+   sharded serve), and the launcher's ``--smoke`` training on the mesh
+   against one device (|Δloss| within DIST_LOSS_ATOL); (b) qwen3-8b at
+   full size, ``pallas_bitplane``, on two gloo ranks of the card (NCCL
+   refuses two ranks of one card), mesh TP_MESH: phase 6's requests
+   served tensor-parallel (each rank's PMAs and KV pools its half of the
+   columns and KV heads), tokens EQUAL to rank 0's unsharded serve of the
+   same freeze; each rank's bit-plane calls and attention reads per
+   forward, codes GB, peak GB, ITL p50 and its collectives staged through
+   host memory; (c) ``python -m repro_torch.launch.train --smoke --mesh
+   2x2 --fake-devices 4`` on the card against ``--mesh 1x1``, and qwen3-8b
+   at full width (DIST_FULL: 4 of 36 layers) on the (1, 2) mesh against
+   one device: losses within DIST_LOSS_ATOL, ms a step and peak GB per
+   rank; (d) on four ranks, the compressed all-reduce (codes, mean and
+   error EQUAL to the same ranks' CPU run) and GPipe (output and weight
+   gradient within PIPE_ATOL of the CPU's).
 
 ``--phase plans`` runs none of these after the build: it times each
 constant of the two VMM plans (kernels/bitplane_vmm.py, kernels/da_vmm.py)
@@ -244,7 +264,8 @@ plain version, and the attention plan's cluster-size cap ``_NS_MAX``
 (kernels/paged_attention.py) at decode and verify reads of batch 1-4, each
 EQUAL to the plain read, in two passes of opposite order.
 
-Each path (6-15, 17-19, 20's serve, 21's in-process serve and 22, each
+Each path (6-15, 17-19, 20's serve, 21's in-process serve, 22 and 23's
+serves, each
 leg of 10 and 11, each run of 12 and 14, each model of 15 and 19) sets the kernels' launch counts
 to 0 just before it runs and reads them just after, and fails if an
 attention read of this port queued other than one CUDA launch.  Then the
@@ -343,7 +364,9 @@ PATH_DTYPE = {"serve": "bfloat16", "serve_int8kv": "bfloat16",
               "serve_dense": "bfloat16", "dense_variants": "bfloat16",
               "serve_ssm": "bfloat16", "serve_moe": "bfloat16",
               "family_variants": "bfloat16", "launch": "bfloat16",
-              "launch_smoke": "float32", "train": "bfloat16"}
+              "launch_smoke": "float32", "train": "bfloat16",
+              "distributed": "float32", "distributed_tp": "bfloat16",
+              "distributed_tp_lut": "float32"}
 
 
 #: a file that receives every emitted line too (``--out``), for lines the
@@ -3425,6 +3448,537 @@ def phase_train():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 23: distributed
+# ---------------------------------------------------------------------------
+#: the mesh of the tensor-parallel serve and of the full-width training run
+TP_MESH = (1, 2)
+#: the reference's bound on a sharded loss against the one-device loss
+DIST_LOSS_ATOL = 1e-3
+#: GPipe on the card against the CPU (float32 tanh / matmul round apart)
+PIPE_ATOL = 1e-5
+#: qwen3-8b at full width, phase 22's cut and recipe (TRAIN_FULL's warmup,
+#: total steps and microbatches) at half its sequence: the depth kept and
+#: the steps run.  The schedule's first step has lr 0, so the first update
+#: that moves the params is the second step's; the loss leaps after it
+#: (PERF.md §6), and from there two bf16 runs of other GEMM shapes part by
+#: more than DIST_LOSS_ATOL
+DIST_FULL = dict(layers=4, batch=4, seq=256, steps=4)
+#: the (1, 2) run against one device, each step: |Δ grad_norm| / grad_norm
+#: (an H100 read at most 2.3e-4, PERF.md §6; a gradient reduced twice or
+#: not at all moves it by O(1))
+DIST_GRAD_NORM_RTOL = 2e-3
+#: the first moving update of each param leaf, (1, 2) against one device:
+#: |<Δ_mesh - Δ_one, z>| / ||Δ_one|| for a normal probe z drawn per leaf
+#: (an estimate of the leaves' relative L2 distance).  Adam's first update
+#: is lr · sign(g) nearly everywhere, so each entry whose tiny gradient
+#: changes sign between the runs moves by 2 lr: an H100 read 0.043 at the
+#: worst leaf (PERF.md §6), where an update on a misplaced gradient slice
+#: is O(1) away
+DIST_UPDATE_RTOL = 0.2
+DIST_SMOKE = ["--arch", "qwen3-8b", "--smoke", "--batch", "8", "--seq", "64",
+              "--device", "cuda"]
+
+
+def _dist_engine(cfg, params, **kw):
+    from repro_torch.serve.engine import ServeEngine
+
+    return ServeEngine(cfg, params, batch_size=4, max_len=256, page_size=16,
+                       paged_attn="fused", device="cuda", **kw)
+
+
+def _counted_forwards(eng) -> list:
+    """Count the paged runtime's forward calls (one element per call)."""
+    calls, step = [], eng._rt._step
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return step(*a, **kw)
+
+    eng._rt._step = counted
+    return calls
+
+
+def _local_codes_gb(tree) -> float:
+    from repro_torch.core.engine import PackedWeights
+    from repro_torch.launch.sharding import local_of
+
+    if isinstance(tree, PackedWeights):
+        return sum(local_of(t).numel() * local_of(t).element_size()
+                   for t in (tree.wq, tree.w_scale, tree.luts) if t is not None) / 1e9
+    if isinstance(tree, dict):
+        return sum(_local_codes_gb(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_local_codes_gb(v) for v in tree)
+    return 0.0
+
+
+def _dist_one_rank() -> dict:
+    """(a) A one-rank NCCL group: the LUT-serving model's ``pallas_lut``
+    freeze served under the rules on a 1×1 ``cuda`` mesh against the same
+    freeze unsharded (tokens EQUAL; the LUT and attention kernels counted
+    over the sharded serve), and the launcher's ``--smoke`` training on the
+    mesh against one device."""
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import init_model
+
+    argv = DIST_SMOKE + ["--steps", "2"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, one = launcher.main(argv)
+    cfg = lut_model_cfg()
+    eng = _dist_engine(cfg, init_model(cfg, seed=0, device="cuda"),
+                       da_mode="pallas_lut")
+    reqs, done, _ = _serve_requests(eng, cfg.vocab, 8)
+    plain, frozen = _tokens(done, reqs), eng.params
+    del eng
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            mesh = make_test_mesh((1, 1), ("data", "model"), device_type="cuda")
+            with shd.use_mesh_rules(mesh):
+                eng = _dist_engine(cfg, shd.shard_frozen_params(frozen))
+                reqs, done, counts = _serve_requests(eng, cfg.vocab, 8)
+            with contextlib.redirect_stdout(io.StringIO()):
+                lines, meshed = launcher.main(argv)
+        finally:
+            dist.destroy_process_group()
+    tokens = _tokens(done, reqs)
+    out = {"backend": "nccl", "world": 1, "mesh": [1, 1],
+           "serve": {"model": cfg.name, "mode": "pallas_lut",
+                     "tokens_equal": tokens == plain, "launches": counts},
+           "train": {"argv": argv, "devices_line": lines[0],
+                     "losses_1x1_mesh": [h["loss"] for h in meshed],
+                     "losses_one_device": [h["loss"] for h in one],
+                     "max_abs_dloss": max(abs(a["loss"] - b["loss"])
+                                          for a, b in zip(meshed, one))}}
+    if tokens != plain:
+        raise AssertionError(f"the 1x1 NCCL mesh's tokens left the plain serve's: {out}")
+    if min(counts["da_vmm"], counts["paged_attention"]) <= 0:
+        raise AssertionError(f"the 1x1 mesh serve missed a kernel: {counts}")
+    if out["train"]["max_abs_dloss"] > DIST_LOSS_ATOL:
+        raise AssertionError(f"the 1x1 mesh's losses left one device's: {out}")
+    return out, counts
+
+
+@contextlib.contextmanager
+def _kernel_operands():
+    """Record, while the block runs, the first call of each kernel op at
+    each shape of its tensor operands: ``{(op, shapes): (args, kwargs)}``
+    as the op received them (DTensors on a mesh)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    seen, orig = {}, {n: getattr(ops, n) for n in ("bitplane_vmm", "da_vmm",
+                                                  "paged_attention")}
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            shapes = tuple(tuple(t.shape) for t in args if isinstance(t, torch.Tensor))
+            seen.setdefault((name, shapes), (args, kwargs))
+            return orig[name](*args, **kwargs)
+        return call
+
+    for name in orig:
+        setattr(ops, name, recorder(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in orig.items():
+            setattr(ops, name, fn)
+
+
+def _local_kernels_vs_plain(seen) -> list:
+    """Each recorded kernel call's wrapper on this rank's local operands
+    (the slices the op's sharding rule hands the kernel) against its plain
+    version on the same tensors: EQUAL (both VMMs are exact int32; the
+    attention kernel is bitwise the plain gather read).  Launches made here
+    are not counted: the caller read its counts before."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import PLAIN
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.launch.sharding import local_of
+
+    wrappers = _vmm_wrappers()
+    plains = {"bitplane_vmm": ref.bitplane_vmm_ref, "da_vmm": ref.da_vmm_ref}
+    rows = []
+    for (name, _), (args, kwargs) in sorted(seen.items(), key=lambda kv: str(kv[0])):
+        local = [local_of(a) for a in args]
+        if name == "paged_attention":
+            scales = [local_of(kwargs.get(k)) for k in ("k_scale", "v_scale")]
+            sm = str(kwargs.get("softmax_dtype", "float32")).replace("torch.", "")
+            mask = kwargs.get("mask_mode", "where")
+            y = paged_attention_cuda(*local, softmax_dtype=sm, mask_mode=mask,
+                                     k_scale=scales[0], v_scale=scales[1])
+            plain = PLAIN[name](*local, *scales, sm, mask)
+        else:  # the op hands the kernel contiguous codes
+            local[0] = local[0].contiguous()
+            y, plain = wrappers[name](*local), plains[name](*local)
+        torch.cuda.synchronize()
+        rows.append({"kernel": name, "local_shapes": [list(t.shape) for t in local
+                                                      if isinstance(t, torch.Tensor)],
+                     "equal": torch.equal(y, plain),
+                     "max_abs_err": float((y.double() - plain.double()).abs().max())})
+    return rows
+
+
+def _tp_serve(cfg, mode, mesh) -> dict:
+    """One rank's leg of (b): ``cfg`` frozen with ``mode`` (rank 0 serves
+    the freeze unsharded first), then its PMAs and KV pools sharded over
+    the model axis of ``mesh`` and phase 6's requests served
+    tensor-parallel, each kernel call's local operands recorded and held
+    against the plain versions after the counts are read."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import HOST_STAGED
+    from repro_torch.models.model import init_model
+
+    rank = dist.get_rank()
+    eng = _dist_engine(cfg, init_model(cfg, seed=0, device="cuda"), da_mode=mode)
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = None
+    if rank == 0:
+        reqs, done, _ = _serve_requests(eng, cfg.vocab, 8)
+        plain = _tokens(done, reqs)
+    frozen, full_gb = eng.params, _local_codes_gb(eng.params)
+    del eng
+    dist.barrier()
+    with shd.use_mesh_rules(mesh):
+        sharded = shd.shard_frozen_params(frozen)
+        del frozen
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = _dist_engine(cfg, sharded)
+        forwards = _counted_forwards(eng)
+        staged = dict(HOST_STAGED)
+        with _kernel_operands() as seen:
+            reqs, done, counts = _serve_requests(eng, cfg.vocab, 8)
+        m = eng.metrics()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        checked = _local_kernels_vs_plain(seen)
+    vmm = "bitplane_vmm" if mode == "pallas_bitplane" else "da_vmm"
+    out = {"rank": rank, "model": cfg.name, "mode": mode,
+           "tokens": _tokens(done, reqs), "plain": plain,
+           "launches": counts, "forwards": len(forwards),
+           f"{vmm}_calls_per_forward": counts[vmm] / len(forwards),
+           "attention_reads_per_forward": counts["paged_attention"] / len(forwards),
+           "codes_gb": _local_codes_gb(sharded), "codes_gb_unsharded": full_gb,
+           "peak_gb": peak, "itl_p50_ms": m["itl_p50_ms"],
+           "ttft_p50_ms": m["ttft_p50_ms"], "tokens_per_s": m["tokens_per_s"],
+           "host_staged": {k: v - staged.get(k, 0) for k, v in HOST_STAGED.items()},
+           "local_vs_plain": checked}
+    del eng, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_serve_rank() -> list:
+    """(b), one rank of two on the (1, 2) mesh: qwen3-8b at full size from
+    a ``pallas_bitplane`` freeze, then the LUT-serving model from a
+    ``pallas_lut`` freeze."""
+    from repro_torch.configs.registry import get
+    from repro_torch.launch.mesh import make_test_mesh
+
+    mesh = make_test_mesh(TP_MESH, ("data", "model"), device_type="cuda")
+    return [_tp_serve(get("qwen3-8b"), "pallas_bitplane", mesh),
+            _tp_serve(lut_model_cfg(), "pallas_lut", mesh)]
+
+
+def _full_width_cfg():
+    from repro_torch.configs.registry import get
+
+    return dataclasses.replace(get("qwen3-8b"), n_layers=DIST_FULL["layers"])
+
+
+def _update_probes(before, after) -> list:
+    """Per leaf of two trees of float32 master params (the same leaves,
+    one device or placed on a mesh): the update's L2 norm and its dot
+    product with a normal probe drawn per leaf from a fixed seed on the
+    leaf's device (placed as the leaf, so each rank keeps its slice)."""
+    import torch
+
+    from repro_torch.launch import sharding as shd
+    from repro_torch.tree import leaves
+
+    out = []
+    for i, (p0, p1) in enumerate(zip(leaves(before), leaves(after))):
+        gen = torch.Generator(device=p1.device.type).manual_seed(1000 + i)
+        z = torch.randn(tuple(p1.shape), generator=gen, device=p1.device.type)
+        if isinstance(p1, shd.DTensor):
+            z = shd.distribute(z, shd.NamedSharding(p1.device_mesh, shd.spec_of(p1)))
+        d = p1 - p0
+        out.append({"shape": list(p1.shape),
+                    "norm": float(shd.full(torch.linalg.vector_norm(d))),
+                    "probe": float(shd.full((d * z).sum()))})
+        del z, d
+    return out
+
+
+def _full_width_steps(mesh=None) -> dict:
+    """DIST_FULL's steps of qwen3-8b at full width on one device, or placed
+    on ``mesh`` (state by tree_pspecs, batch by batch_pspecs): each step's
+    loss, grad norm, lr and ms, and the probes of the first update that
+    moves the params (:func:`_update_probes`)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import batch_at, for_model
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import specs as SP
+    from repro_torch.models.model import init_model
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.train.trainer import TrainConfig, make_train_step, state_from_params
+    from repro_torch.tree import tree_map
+
+    f, cfg, t = DIST_FULL, _full_width_cfg(), TRAIN_FULL
+    dc = for_model(cfg, seq_len=f["seq"], global_batch=f["batch"], packed=True)
+    step = make_train_step(cfg, TrainConfig(warmup_steps=t["warmup"],
+                                            total_steps=t["steps"],
+                                            microbatches=t["microbatches"]))
+    moving = next(s for s in range(f["steps"])
+                  if float(warmup_cosine(s, t["warmup"], t["steps"])) > 0)
+    torch.cuda.reset_peak_memory_stats()
+    rules = shd.use_mesh_rules(mesh) if mesh is not None else contextlib.nullcontext()
+    hist, probes = [], None
+    with rules:
+        params = init_model(cfg, seed=0, device="cuda")
+        if mesh is not None:
+            params = SP.place(params, SP.tree_pspecs(params), mesh)
+        state = state_from_params(params)
+        del params
+        for s in range(f["steps"]):
+            batch = {k: torch.as_tensor(np.asarray(v), device="cuda")
+                     for k, v in batch_at(dc, s).items()}
+            if mesh is not None:
+                batch = SP.place(batch, SP.batch_pspecs(batch), mesh)
+            before = (tree_map(lambda x: x.clone(), state.opt.master)
+                      if s == moving else None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            vals = {k: float(shd.full(m[k])) for k in ("loss", "grad_norm", "lr")}
+            torch.cuda.synchronize()
+            hist.append({**vals, "ms": (time.perf_counter() - t0) * 1e3})
+            if before is not None:
+                probes = _update_probes(before, state.opt.master)
+                del before
+    del state
+    out = {"losses": [h["loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "lrs": [h["lr"] for h in hist], "step_ms": [h["ms"] for h in hist],
+           "moving_step": moving, "update_probes": probes,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _full_width_rank() -> dict:
+    """(c), one rank of two: DIST_FULL on the (1, 2) mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import HOST_STAGED, make_test_mesh
+
+    mesh = make_test_mesh(TP_MESH, ("data", "model"), device_type="cuda")
+    out = _full_width_steps(mesh)
+    return {"rank": dist.get_rank(), **out, "host_staged": dict(HOST_STAGED)}
+
+
+def _collectives_rank() -> dict:
+    """(d), one rank of four: the compressed all-reduce (two rounds of
+    error feedback) and GPipe (4 stages, M 8, mb 4, D 16, forward and
+    weight gradient), each on CUDA tensors and on CPU tensors from the same
+    numpy draws, over the one gloo group."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import HOST_STAGED, make_test_mesh, shard_map_compat
+    from repro_torch.launch.sharding import NamedSharding, P, distribute
+    from repro_torch.optim.compress import allreduce_compressed
+    from repro_torch.train.pipeline import make_pipelined_apply
+
+    rng = np.random.default_rng(0)
+    gs = [rng.standard_normal((4, 4096)).astype(np.float32),
+          (rng.standard_normal((4, 4096)) * 3).astype(np.float32)]
+    ws = (rng.standard_normal((4, 16, 16)) * 0.3).astype(np.float32)
+    x = rng.standard_normal((32, 16)).astype(np.float32)
+    dmesh = {d: make_test_mesh((4,), ("data",), device_type=d) for d in ("cuda", "cpu")}
+    smesh = {d: make_test_mesh((4,), ("stage",), device_type=d) for d in ("cuda", "cpu")}
+
+    def f(g_local, err):
+        mean, new_err = allreduce_compressed({"w": g_local}, err, "data")
+        return mean["w"], new_err["w"]
+
+    res = {}
+    for dev in ("cuda", "cpu"):
+        f_sh = shard_map_compat(f, dmesh[dev], in_specs=(P("data"), {"w": P("data")}),
+                                out_specs=(P(), P("data")))
+        err, rows = torch.zeros(4, 4096, device=dev), []
+        for g in gs:
+            mean, err_dt = f_sh(torch.from_numpy(g).to(dev), {"w": err})
+            err = err_dt.full_tensor()
+            rows.append((mean.to_local().cpu(), err.cpu()))
+        stage_fn = lambda w, h: torch.tanh(h @ w)  # noqa: E731
+        apply = make_pipelined_apply(smesh[dev], "stage", stage_fn, n_microbatches=8)
+        sw = distribute(torch.from_numpy(ws).to(dev),
+                        NamedSharding(smesh[dev], P("stage"))).requires_grad_(True)
+        y = apply(sw, torch.from_numpy(x).to(dev)).to_local()
+        g, = torch.autograd.grad((y * y).sum(), [sw])
+        res[dev] = {"allreduce": rows, "y": y.detach().cpu(), "g": g.full_tensor().cpu()}
+    c, h = res["cuda"], res["cpu"]
+    ar_equal = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                   for a, b in zip(c["allreduce"], h["allreduce"]))
+    true = gs[0].mean(axis=0)
+    return {"rank": dist.get_rank(), "allreduce_equal_cpu": ar_equal,
+            "allreduce_rel_err": float(np.abs(c["allreduce"][0][0][0].numpy() - true).max()
+                                       / np.abs(true).max()),
+            "gpipe_y_max_abs_err": float((c["y"] - h["y"]).abs().max()),
+            "gpipe_grad_max_abs_err": float((c["g"] - h["g"]).abs().max()),
+            "host_staged": dict(HOST_STAGED)}
+
+
+def phase_distributed():
+    """Phase 23: (a) a one-rank NCCL mesh; (b) qwen3-8b and the LUT-serving
+    model served tensor-parallel on two gloo ranks of the card; (c) training on a 2×2
+    mesh (four ranks) and qwen3-8b at full width on (1, 2); (d) the
+    compressed all-reduce and GPipe on four ranks, CUDA against CPU.
+    Returns the counts of (a) and of (b)'s two legs (the bit-plane and the
+    LUT serve), each summed over the ranks."""
+    import io
+
+    import torch
+
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.mesh import spawn
+
+    t0 = time.perf_counter()
+    secs = {}
+    line = {"phase": "distributed", "smi": smi_line(),
+            "two_ranks_one_card": "NCCL refuses them (tools/gloo_cuda_probe.py): "
+                                  "(b)-(d) run on gloo"}
+    line["one_rank_nccl"], one_counts = _dist_one_rank()
+    secs["a"] = time.perf_counter() - t0
+    emit({"phase": "distributed_a", **line["one_rank_nccl"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    legs = list(zip(*spawn(_tp_serve_rank, 2, device="cuda", backend="gloo")))
+    secs["b"] = time.perf_counter() - t
+    line["tensor_parallel_serve"] = []
+    for ranks, vmm in zip(legs, ("bitplane_vmm", "da_vmm")):
+        plain = ranks[0]["plain"]
+        line["tensor_parallel_serve"].append({
+            "model": ranks[0]["model"], "mode": ranks[0]["mode"],
+            "mesh": list(TP_MESH), "ranks": 2, "backend": "gloo",
+            "requests": 8, "batch": 4, "new_tokens": 16,
+            "tokens_equal": all(r["tokens"] == plain for r in ranks),
+            "local_vs_plain_atol": 0,
+            "per_rank": [{k: v for k, v in r.items()
+                          if k not in ("tokens", "plain", "model", "mode")}
+                         for r in ranks]})
+        for r in ranks:
+            if r["tokens"] != plain:
+                raise AssertionError(f"rank {r['rank']}'s tensor-parallel tokens left "
+                                     f"the unsharded serve's: {line}")
+            if min(r["launches"][vmm], r["launches"]["paged_attention"]) <= 0:
+                raise AssertionError(f"rank {r['rank']} missed a kernel: {r['launches']}")
+            kernels = {c["kernel"] for c in r["local_vs_plain"]}
+            if kernels != {vmm, "paged_attention"} or not all(
+                    c["equal"] for c in r["local_vs_plain"]):
+                raise AssertionError(f"rank {r['rank']}: a kernel on its slice left "
+                                     f"the plain version: {r['local_vs_plain']}")
+    emit({"phase": "distributed_b", "legs": line["tensor_parallel_serve"]})
+
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, one = launcher.main(DIST_SMOKE + ["--steps", "3"])
+        lines, mesh2x2 = launcher.main(DIST_SMOKE + ["--steps", "3", "--mesh", "2x2",
+                                                     "--fake-devices", "4"])
+    smoke = {"argv": DIST_SMOKE + ["--steps", "3", "--mesh", "2x2", "--fake-devices", "4"],
+             "devices_line": lines[0],
+             "losses_2x2": [h["loss"] for h in mesh2x2],
+             "losses_1x1": [h["loss"] for h in one],
+             "max_abs_dloss": max(abs(a["loss"] - b["loss"]) for a, b in zip(mesh2x2, one))}
+    secs["c_smoke"] = time.perf_counter() - t
+    emit({"phase": "distributed_c_smoke", **smoke})
+    t = time.perf_counter()
+    single = _full_width_steps()
+    meshed = spawn(_full_width_rank, 2, device="cuda", backend="gloo")
+    secs["c_full"] = time.perf_counter() - t
+    mine = meshed[0]
+    moving = single["moving_step"]
+    def rel(diff, norm):
+        return abs(diff) / norm if norm > 0 else math.inf
+
+    update = [{"leaf": i, "shape": a["shape"],
+               "rel_probe": rel(a["probe"] - b["probe"], b["norm"]),
+               "rel_norm": rel(a["norm"] - b["norm"], b["norm"])}
+              for i, (a, b) in enumerate(zip(mine["update_probes"],
+                                             single.pop("update_probes")))]
+    worst = max(update, key=lambda u: (not math.isfinite(u["rel_probe"]), u["rel_probe"]))
+    full = {"model": "qwen3-8b full width, "
+                     f"{DIST_FULL['layers']} of 36 layers", **DIST_FULL,
+            "recipe": {k: TRAIN_FULL[k] for k in ("warmup", "steps", "microbatches")},
+            "mesh": list(TP_MESH), "one_device": single, "per_rank": meshed,
+            "moving_step": moving,
+            "abs_dloss": [abs(a - b) for a, b in zip(mine["losses"], single["losses"])],
+            "rel_dgrad_norm": [rel(a - b, b) for a, b in zip(mine["grad_norms"],
+                                                            single["grad_norms"])],
+            "update_worst_leaf": worst,
+            "update_max_rel_norm": max(u["rel_norm"] for u in update),
+            "limits": {"loss_atol_to_moving_step": DIST_LOSS_ATOL,
+                       "grad_norm_rtol": DIST_GRAD_NORM_RTOL,
+                       "update_rtol": DIST_UPDATE_RTOL},
+            "steady_ms_mesh": sum(mine["step_ms"][1:]) / (len(mine["step_ms"]) - 1),
+            "steady_ms_one_device": sum(single["step_ms"][1:]) / (len(single["step_ms"]) - 1)}
+    full["max_abs_dloss_to_moving_step"] = max(full["abs_dloss"][:moving + 1])
+    for r in meshed:
+        r.pop("update_probes")
+    full["update_per_leaf"] = [[u["leaf"], u["rel_probe"], u["rel_norm"]] for u in update]
+    line["training"] = {"smoke_2x2": smoke, "full_width_1x2": full,
+                        "atol": DIST_LOSS_ATOL}
+    emit({"phase": "distributed_c_full", **full})
+
+    t = time.perf_counter()
+    coll = spawn(_collectives_rank, 4, device="cuda", backend="gloo")
+    secs["d"] = time.perf_counter() - t
+    line["collectives"] = {"ranks": 4, "backend": "gloo", "per_rank": coll,
+                           "atol": PIPE_ATOL}
+    line["seconds"] = {**secs, "total": time.perf_counter() - t0}
+    emit(line)
+    if not (smoke["max_abs_dloss"] <= DIST_LOSS_ATOL
+            and full["max_abs_dloss_to_moving_step"] <= DIST_LOSS_ATOL):
+        raise AssertionError(f"a sharded loss left one device's: {line['training']}")
+    if not all(r <= DIST_GRAD_NORM_RTOL for r in full["rel_dgrad_norm"]):
+        raise AssertionError(f"a sharded grad norm left one device's: {full}")
+    if not worst["rel_probe"] <= DIST_UPDATE_RTOL:
+        raise AssertionError(f"a sharded update left one device's: {worst}")
+    for r in coll:
+        if not (r["allreduce_equal_cpu"] and r["allreduce_rel_err"] < 0.05
+                and r["gpipe_y_max_abs_err"] <= PIPE_ATOL
+                and r["gpipe_grad_max_abs_err"] <= PIPE_ATOL):
+            raise AssertionError(f"a collective left the CPU's: {r}")
+    return (one_counts, _merge_counts([r["launches"] for r in legs[0]]),
+            _merge_counts([r["launches"] for r in legs[1]]))
+
+
 def decode_window(eng, vocab: int, steps: int = 4):
     """Where a full-width decode step spends its time: host wall of
     ``steps`` batch-4 decode ticks, then the same number of ticks under
@@ -3465,7 +4019,7 @@ def main() -> int:
     parser.add_argument("--phase", choices=("all", "attention", "vmm", "plans",
                                             "ci_boot", "serve", "obs", "auto",
                                             "dense", "families", "analysis",
-                                            "launch", "train"),
+                                            "launch", "train", "distributed"),
                         default="all",
                         help="'attention', 'vmm', 'plans', 'ci_boot', 'serve', "
                              "'obs', 'auto', 'dense', 'families' or 'analysis': "
@@ -3482,7 +4036,8 @@ def main() -> int:
                              "qwen2-vl-72b), only the MoE / Mamba / hybrid "
                              "phases, only the qwen3-8b serve and the "
                              "static-analysis phase, only the entry points "
-                             "(launch) or only training (train) (no result "
+                             "(launch), only training (train) or only the "
+                             "distributed slice (distributed) (no result "
                              "line)")
     parser.add_argument("--src", help="import the port from this directory "
                         "(another checkout's src/) instead of this one's; "
@@ -3494,7 +4049,7 @@ def main() -> int:
         _OUT.append(args.out)
     if args.src:
         if args.phase in ("all", "plans", "obs", "auto", "analysis", "launch",
-                          "train"):
+                          "train", "distributed"):
             parser.error("--src needs --phase attention, vmm, ci_boot or serve")
         sys.path.insert(0, os.path.abspath(args.src))
     elif not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
@@ -3507,10 +4062,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t_start = time.perf_counter()
     phase_device()
-    if args.phase in ("ci_boot", "serve", "obs", "auto", "launch", "train"):
+    if args.phase in ("ci_boot", "serve", "obs", "auto", "launch", "train",
+                      "distributed"):
         {"ci_boot": phase_ci_boot, "serve": phase_serve,
          "obs": phase_serve_obs, "auto": phase_artifact_auto,
-         "launch": phase_launch, "train": phase_train}[args.phase]()
+         "launch": phase_launch, "train": phase_train,
+         "distributed": phase_distributed}[args.phase]()
         print(smi_line(), flush=True)
         return 0
     if args.phase == "analysis":
@@ -3580,6 +4137,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_counts = timed("train", phase_train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_counts, tp_counts, tp_lut_counts = timed("distributed", phase_distributed)
     emit({"phase": "phase_seconds", **secs})
     paths = {"serve": fp_counts, "serve_int8kv": int8_counts,
              "serve_prefix": prefix_counts, "serve_spec": spec_counts,
@@ -3589,7 +4149,9 @@ def main() -> int:
              "serve_dense": dense_counts, "dense_variants": variant_counts,
              "serve_ssm": ssm_counts, "serve_moe": moe_counts,
              "family_variants": family_counts, "launch": launch_counts,
-             "launch_smoke": launch_smoke_counts, "train": train_counts}
+             "launch_smoke": launch_smoke_counts, "train": train_counts,
+             "distributed": dist_counts, "distributed_tp": tp_counts,
+             "distributed_tp_lut": tp_lut_counts}
 
     def launches(name, fmt=None, dtype=None, key=None):
         """Launches over the paths (that run ``dtype``): of ``name``, of its

@@ -21,6 +21,13 @@ keys, a list its indices, and a port param tree (a dict holding
 ``blocks``, one dict per layer) is written in the reference's stacked
 ``periods/pos_<i>`` layout (``period`` is its layer pattern's period), so a
 checkpoint written by either package restores in the other.
+
+On a mesh (a state of DTensor leaves) every rank gathers each leaf to its
+full value on the main thread — collectives never run in the writer
+thread — and rank 0 alone writes; :func:`restore` places each leaf by the
+target shardings (the template's placements, or a ``shardings`` tree), so
+a checkpoint written on one mesh resumes on another: the reference's
+elastic restart.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ import torch
 from repro_torch.convert import params_from_jax, params_to_ref
 from repro_torch.core.da import DAConfig
 from repro_torch.core.engine import PackedWeights
+from repro_torch.launch.sharding import DTensor, NamedSharding, distribute, full, spec_of
 from repro_torch.tree import tree_map
 
 _SEP = "/"
@@ -144,13 +152,24 @@ def _load_array(data, manifest: dict, key: str, path: str) -> torch.Tensor:
     return t.reshape(meta["shape"])
 
 
-def load_tree(path: str) -> Dict[str, Any]:
+def load_tree(path: str, template: Any = None, shardings: Any = None,
+              period: int = 1) -> Any:
     """Read a tree written by :func:`save_tree` (or the reference's
-    ``save_tree``) without a template: nested string-keyed dicts of CPU
-    tensors, with the manifest's ``"packed"`` paths reassembled into
-    PackedWeights.  Every array's crc32 is verified."""
+    ``save_tree``), verifying every array's crc32.
+
+    With a ``template``: restore into its structure (a tree as :func:`save`
+    takes; ``period`` its layer pattern's), each leaf cast to its template
+    leaf's dtype and placed with the matching ``shardings`` entry (a
+    :class:`~repro_torch.launch.sharding.NamedSharding`), else as its
+    template leaf is (a DTensor's placements, else its device) — the
+    elastic-restart path.
+
+    Without a template: nested string-keyed dicts of CPU tensors, with the
+    manifest's ``"packed"`` paths reassembled into PackedWeights."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
+    if template is not None:
+        return _load_into(path, manifest, template, shardings, period)
     root: Dict[str, Any] = {}
 
     def insert(key: str, value) -> None:
@@ -199,29 +218,81 @@ def _to_ref(tree, period: int):
     return tree
 
 
-def _from_ref(node, template):
+def _place(t: torch.Tensor, tm, sh) -> torch.Tensor:
+    """Loaded ``t`` placed by ``sh``, else like its template leaf ``tm``."""
+    if sh is None and isinstance(tm, DTensor):
+        sh = NamedSharding(tm.device_mesh, spec_of(tm))
+    if sh is not None:
+        return distribute(t.to(tm.device), sh)
+    return t.to(tm.device)
+
+
+def _sub(sh, key):
+    return None if sh is None else sh[key]
+
+
+def _placed(template, loaded, sh):
+    """``loaded`` (``template``'s structure) with every leaf placed."""
+    if isinstance(template, dict):
+        return {k: _placed(v, loaded[k], _sub(sh, k)) for k, v in template.items()}
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(*(
+            _placed(getattr(template, f), getattr(loaded, f),
+                    None if sh is None else getattr(sh, f))
+            for f in template._fields))
+    if isinstance(template, (list, tuple)):
+        return type(template)(_placed(v, loaded[i], _sub(sh, i))
+                              for i, v in enumerate(template))
+    return _place(loaded, template, sh)
+
+
+def _from_ref(node, template, sh=None):
     """The inverse of :func:`_to_ref` into ``template``'s structure, each
-    tensor moved to its template leaf's device."""
+    tensor placed by ``sh`` (a tree like ``template`` of NamedShardings),
+    else like its template leaf."""
     if isinstance(template, dict):
         if "blocks" in template:
-            params = params_from_jax(node, device="cpu")
-            return tree_map(lambda tm, t: t.to(tm.device), template, params)
-        return {k: _from_ref(node[k], v) for k, v in template.items()}
+            return _placed(template, params_from_jax(node, device="cpu"), sh)
+        return {k: _from_ref(node[k], v, _sub(sh, k)) for k, v in template.items()}
     if isinstance(template, tuple) and hasattr(template, "_fields"):
-        return type(template)(*(_from_ref(node[f], getattr(template, f))
-                                for f in template._fields))
+        return type(template)(*(
+            _from_ref(node[f], getattr(template, f),
+                      None if sh is None else getattr(sh, f))
+            for f in template._fields))
     if isinstance(template, (list, tuple)):
-        return type(template)(_from_ref(node[str(i)], v)
+        return type(template)(_from_ref(node[str(i)], v, _sub(sh, i))
                               for i, v in enumerate(template))
-    return node.to(template.device)
+    return _place(node, template, sh)
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a started
+    process group, or the only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def _on_host(tree, copy: bool):
-    """Every tensor of ``tree`` in host memory; ``copy`` copies host tensors
-    too (an async writer must not read tensors the train step goes on
-    updating in place)."""
-    return tree_map(lambda t: t.detach().to("cpu", copy=copy)
-                    if isinstance(t, torch.Tensor) else t, tree)
+    """Every tensor of ``tree`` in host memory, a DTensor gathered to its
+    full value (a collective: every rank calls this, on its main thread);
+    ``copy`` copies host tensors too (an async writer must not read tensors
+    the train step goes on updating in place)."""
+    def one(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        if isinstance(t, DTensor):
+            t = full(t)  # a replicated leaf's full value is its live local tensor
+        return t.detach().to("cpu", copy=copy)
+
+    return tree_map(one, tree)
 
 
 def _step_dir(directory: str, step: int) -> str:
@@ -232,8 +303,12 @@ def save(directory: str, step: int, tree: Any, keep: int = 3,
          period: int = 1) -> str:
     """Synchronous atomic save of ``tree`` (tensors, dicts, lists,
     NamedTuples) as step ``step``; keeps the last ``keep`` steps.  Returns
-    the checkpoint path."""
-    return _write(directory, step, _on_host(tree, copy=False), keep, period)
+    the checkpoint path.  On a mesh every rank calls it; rank 0 writes."""
+    host = _on_host(tree, copy=False)
+    path = (_write(directory, step, host, keep, period) if _writes()
+            else _step_dir(directory, step))
+    _barrier()
+    return path
 
 
 def _write(directory: str, step: int, host_tree: Any, keep: int,
@@ -266,13 +341,17 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(directory: str, step: int, template: Any, period: int = 1) -> Any:
+def restore(directory: str, step: int, template: Any, period: int = 1,
+            shardings: Any = None) -> Any:
     """Restore step ``step`` into ``template``'s structure (a tree as
     :func:`save` takes), each leaf cast to its template leaf's dtype and
-    placed on its device; every checksum is verified."""
-    path = _step_dir(directory, step)
-    with open(os.path.join(path, "manifest.json")) as f:
-        manifest = json.load(f)
+    placed by ``shardings`` or like its template leaf (see
+    :func:`load_tree`); every checksum is verified."""
+    return load_tree(_step_dir(directory, step), template, shardings, period)
+
+
+def _load_into(path: str, manifest: dict, template: Any, shardings: Any,
+               period: int) -> Any:
     shapes = _to_ref(tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
                                                     device="meta"), template),
                      period)
@@ -284,7 +363,7 @@ def restore(directory: str, step: int, template: Any, period: int = 1) -> Any:
             for p in parts[:-1]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = _load_array(data, manifest, key, path).to(meta.dtype)
-    return _from_ref(root, template)
+    return _from_ref(root, template, shardings)
 
 
 class AsyncCheckpointer:
@@ -314,12 +393,18 @@ class AsyncCheckpointer:
                 self._q.task_done()
 
     def submit(self, step: int, tree: Any) -> None:
+        """Gather ``tree`` to the host now (every rank, on this thread);
+        rank 0 queues the write."""
         if self._exc:
             raise self._exc
-        self._q.put((step, _on_host(tree, copy=True)))  # device→host now
+        host = _on_host(tree, copy=True)  # device→host now
+        if _writes():
+            self._q.put((step, host))
 
     def wait(self) -> None:
+        """Every submitted checkpoint on disk, on every rank."""
         self._q.join()
+        _barrier()
         if self._exc:
             raise self._exc
 

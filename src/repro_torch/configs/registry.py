@@ -1,11 +1,42 @@
 """Registry of the port's model configurations (public-literature sources
-inline in each config module)."""
+inline in each config module) and the reference's input-shape sets:
+
+  train_4k     seq 4096,   global batch 256  (train_step)
+  prefill_32k  seq 32768,  global batch 32   (prefill)
+  decode_32k   seq 32768,  global batch 128  (single-token decode, KV cache)
+  long_500k    seq 524288, global batch 1    (long-context decode; only for
+               sub-quadratic mixers: ssm / hybrid)
+"""
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
 from repro_torch.models.config import ModelConfig
+
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+LM_SHAPES = (
+    ShapeSpec("train_4k", 4_096, 256, "train"),
+    ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    ShapeSpec("long_500k", 524_288, 1, "decode"),
+)
+
+
+def shapes_for(cfg: ModelConfig):
+    """long_500k only for sub-quadratic mixers (ssm / hybrid)."""
+    return tuple(s for s in LM_SHAPES
+                 if s.name != "long_500k" or cfg.family in ("ssm", "hybrid"))
+
 
 ARCHS: Dict[str, ModelConfig] = {}
 

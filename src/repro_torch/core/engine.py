@@ -88,6 +88,7 @@ import zlib
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.da import (
     MAX_GROUP_SIZE,
@@ -442,6 +443,26 @@ for _name, _kernel, _plain in (
 del _name, _kernel, _plain
 
 
+def backend_fn(spec: BackendSpec, packed: PackedWeights, experts: bool = False):
+    """The function that runs ``spec`` on ``packed``: its own ``fn`` (or
+    ``experts_fn``), or, for a pack placed on a mesh, the kernel op of its
+    family — the LUT readout for a LUT mode, the bit-plane VMM for a
+    storage-free one.  The ops carry DTensor sharding rules
+    (:mod:`repro_torch.kernels.ops`): each rank runs the kernel (its plain
+    version on the CPU) on its own column slice, and every mode gives the
+    same exact integers.  ``int8`` has no rule and raises."""
+    if isinstance(packed.wq, DTensor):  # placed by shard_frozen_params
+        if not spec.is_da:
+            raise ValueError(f"backend {spec.name!r} has no sharding rule; a "
+                             "pack placed on a mesh runs a DA mode")
+        if spec.needs_luts:
+            return _kernel_lut_experts if experts else _kernel_lut_backend
+        return _kernel_bitplane_experts if experts else _kernel_bitplane_backend
+    if experts:
+        return spec.experts_fn or functools.partial(_each_expert, spec.fn)
+    return spec.fn
+
+
 #: torch._int_mm's shape rule on CUDA: M above 16, K and N multiples of 8
 _INT_MM_MIN_M, _INT_MM_ALIGN = 17, 8
 
@@ -768,9 +789,27 @@ def da_vmm(xq: torch.Tensor, packed: PackedWeights, mode: Optional[str] = None,
     spec = _resolve_spec(mode, _rows(lead), packed.k, packed.n, ecfg,
                          packed.has_luts, default_mode=packed.mode)
     _check_lut_shape(spec, packed, ecfg)
-    acc = _truncated_acc(spec.fn, xq.reshape(-1, xq.shape[-1]).to(torch.int32),
+    acc = _truncated_acc(backend_fn(spec, packed),
+                         xq.reshape(-1, xq.shape[-1]).to(torch.int32),
                          packed, cfg, eff)
     return acc.reshape(lead + (packed.n,))
+
+
+def _whole_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its last dim (the contraction) gathered, when it is a
+    DTensor sharded there (the attention output and the FFN's inner
+    activations under tensor parallelism): the per-token quantization then
+    reads whole rows on every rank, one gather of the activations where a
+    sharded row would take an all-reduce of its amax and a gather of its
+    codes.  Any other ``x`` as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    last = x.ndim - 1
+    if not any(isinstance(p, Shard) and p.dim == last for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if isinstance(p, Shard) and p.dim == last else p
+        for p in x.placements])
 
 
 def da_matmul(x: torch.Tensor, weights: PackedWeights,
@@ -787,9 +826,9 @@ def da_matmul(x: torch.Tensor, weights: PackedWeights,
     spec = _resolve_spec(mode, _rows(lead), weights.k, weights.n, rcfg,
                          weights.has_luts, default_mode=weights.mode)
     _check_lut_shape(spec, weights, rcfg)
-    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    x2 = _whole_rows(x).reshape(-1, x.shape[-1]).to(torch.float32)
     xqt = quantize_acts_signed(x2, bits=scfg.x_bits)
-    acc = _truncated_acc(spec.fn, xqt.q, weights, scfg, eff)
+    acc = _truncated_acc(backend_fn(spec, weights), xqt.q, weights, scfg, eff)
     y = acc.to(torch.float32) * xqt.scale * weights.w_scale
     return y.reshape(lead + (weights.n,))
 
@@ -808,13 +847,13 @@ def da_matmul_experts(x: torch.Tensor, weights: PackedWeights) -> torch.Tensor:
     eff = effective_x_bits(cfg, None)
     rcfg = dataclasses.replace(cfg, x_bits=eff)  # dispatch sees draft cycles
     lead, (e, c, k) = x.shape[:-3], x.shape[-3:]
-    xe = x.movedim(-3, 0).reshape(e, -1, k)                # [E, rows, K]
+    xe = _whole_rows(x).movedim(-3, 0).reshape(e, -1, k)   # [E, rows, K]
     spec = _resolve_spec(None, xe.shape[1], weights.k, weights.n, rcfg,
                          weights.has_luts, default_mode=weights.mode)
     _check_lut_shape(spec, weights, rcfg)
     xqt = quantize_acts_signed(xe.to(torch.float32), bits=cfg.x_bits)
-    run = spec.experts_fn or functools.partial(_each_expert, spec.fn)
-    acc = _truncated_acc(run, xqt.q, weights, cfg, eff)
+    acc = _truncated_acc(backend_fn(spec, weights, experts=True), xqt.q,
+                         weights, cfg, eff)
     y = acc.to(torch.float32) * xqt.scale * weights.w_scale  # [E, rows, N]
     return y.reshape((e,) + tuple(lead) + (c, weights.n)).movedim(0, -3)
 
@@ -830,8 +869,46 @@ def dense(x: torch.Tensor, w) -> torch.Tensor:
             return da_matmul_experts(x, w).to(x.dtype)
         return w(x).to(x.dtype)
     if w.ndim == 3:
+        if isinstance(w, DTensor):
+            return _expert_parallel(x, w)
         return torch.einsum("...ecd,edf->...ecf", x, w)
+    if _row_sharded(w) and x.dtype in (torch.bfloat16, torch.float16):
+        return _row_parallel(x, w)
     return x @ w
+
+
+def _expert_parallel(x: torch.Tensor, w: DTensor) -> torch.Tensor:
+    """Stacked experts ``w`` [E, K, N] placed on a mesh: each rank applies
+    its own experts to their rows of ``x`` [.., E, C, K], the expert axis
+    sharded alike on both (every other dim gathered), and the result is
+    sharded on the expert axis as ``x``'s rows are."""
+    mesh, e_dim = w.device_mesh, x.ndim - 3
+    on_e = [isinstance(p, Shard) and p.dim == 0 for p in w.placements]
+    xp = [Shard(e_dim) if e else Replicate() for e in on_e]
+    wp = [Shard(0) if e else Replicate() for e in on_e]
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    y = torch.einsum("...ecd,edf->...ecf", x.redistribute(mesh, xp).to_local(),
+                     w.redistribute(mesh, wp).to_local())
+    return DTensor.from_local(y, mesh, xp, run_check=False)
+
+
+def _row_sharded(w) -> bool:
+    """Whether ``w`` is placed on a mesh with its rows (the contraction)
+    sharded."""
+    return isinstance(w, DTensor) and any(
+        isinstance(p, Shard) and p.dim == 0 for p in w.placements)
+
+
+def _row_parallel(x: torch.Tensor, w: DTensor) -> torch.Tensor:
+    """``x @ w`` with ``w``'s rows sharded: each rank's partial product in
+    float32, the partial sums reduced in float32, then rounded to ``x``'s
+    dtype once, as one device's float32 accumulator rounds the whole sum
+    once (16-bit partials would round each rank's share, then the sum)."""
+    y = x.to(torch.float32) @ w.to(torch.float32)
+    y = y.redistribute(y.device_mesh, [Replicate() if isinstance(p, Partial)
+                                       else p for p in y.placements])
+    return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -842,8 +919,16 @@ def dense(x: torch.Tensor, w) -> torch.Tensor:
 def _merged_codes(packs) -> torch.Tensor:
     """The packs' codes concatenated on N.  When they are adjacent column
     slices of one buffer (as :func:`repro_torch.core.freeze.freeze_model`
-    lays q|k|v out) this is a view of that buffer, else a copy."""
+    lays q|k|v out) this is a view of that buffer, else a copy.  Packs
+    placed on a mesh concatenate their local slices: the merged DTensor's
+    rank-r block is [q_r | k_r | v_r] (:func:`_split_local` undoes it)."""
     ws = [p.wq for p in packs]
+    if isinstance(ws[0], DTensor):
+        local = torch.cat([w.to_local() for w in ws], dim=1)
+        return DTensor.from_local(
+            local, ws[0].device_mesh, ws[0].placements, run_check=False,
+            shape=torch.Size((ws[0].shape[0], sum(w.shape[1] for w in ws))),
+            stride=(sum(w.shape[1] for w in ws), 1))
     w0 = ws[0]
     adjacent = all(
         w.stride(1) == 1 and w.stride(0) == w0.stride(0)
@@ -858,6 +943,28 @@ def _merged_codes(packs) -> torch.Tensor:
         return w0.as_strided((w0.shape[0], n), (w0.stride(0), 1),
                              w0.storage_offset())
     return torch.cat(ws, dim=1)
+
+
+def _mergeable(packs) -> bool:
+    """Whether the packs' codes can run as one pass: all on one device, or
+    all placed on one mesh alike."""
+    ws = [p.wq for p in packs]
+    if not isinstance(ws[0], DTensor):
+        return not any(isinstance(w, DTensor) for w in ws)
+    return all(isinstance(w, DTensor) and w.device_mesh == ws[0].device_mesh
+               and w.placements == ws[0].placements for w in ws)
+
+
+def _split_local(acc: DTensor, packs):
+    """The merged pass's accumulator split back per pack on each rank's
+    block (its local columns are [q_r | k_r | v_r])."""
+    widths = [p.wq.to_local().shape[-1] for p in packs]
+    parts = torch.split(acc.to_local(), widths, dim=-1)
+    return tuple(DTensor.from_local(part, acc.device_mesh, acc.placements,
+                                    run_check=False,
+                                    shape=torch.Size(acc.shape[:-1] + (p.n,)),
+                                    stride=(p.n, 1))
+                 for part, p in zip(parts, packs))
 
 
 def da_qkv_matmul(x: torch.Tensor, packs, cfg: Optional[DAConfig] = None,
@@ -901,13 +1008,14 @@ def da_qkv_matmul(x: torch.Tensor, packs, cfg: Optional[DAConfig] = None,
     xqt = quantize_acts_signed(x2, bits=scfg.x_bits)
     xs, rcfg, drop = truncate_codes(xqt.q, scfg, eff)
     if (len({s.name for s in specs}) == 1 and specs[0].is_da
-            and not specs[0].needs_luts):
+            and not specs[0].needs_luts and _mergeable(packs)):
         merged = PackedWeights(wq=_merged_codes(packs), w_scale=packs[0].w_scale,
                                luts=None, cfg=rcfg, mode=specs[0].name)
-        accs = torch.split(specs[0].fn(xs, merged, rcfg),
-                           [p.n for p in packs], dim=-1)
+        acc = backend_fn(specs[0], merged)(xs, merged, rcfg)
+        accs = (_split_local(acc, packs) if isinstance(acc, DTensor)
+                else torch.split(acc, [p.n for p in packs], dim=-1))
     else:
-        accs = [s.fn(xs, p, rcfg) for s, p in zip(specs, packs)]
+        accs = [backend_fn(s, p)(xs, p, rcfg) for s, p in zip(specs, packs)]
     return tuple(
         ((acc * (1 << drop) if drop else acc).to(torch.float32) * xqt.scale
          * p.w_scale).reshape(lead + (p.n,))

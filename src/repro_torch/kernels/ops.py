@@ -15,6 +15,22 @@ its op, which :mod:`repro_torch.analysis` reads.
 The ops are defined with ``torch.library.Library`` (def + impl): no
 autograd wrapper sits between the dispatcher and the launch.  A
 ``DAConfig`` is not an op argument, so its fields travel as ints and bools.
+
+Each op also has DTensor sharding rules (``register_sharding``), so a call
+on tensors placed on a mesh runs the kernel on each rank's local blocks,
+which DTensor hands it contiguous:
+
+* the VMMs: the codes ``xq`` replicated and ``wq`` / ``luts`` sharded on
+  their last dim (N) give an output sharded on N — the tensor-parallel
+  DA linear, exact as the integers are; rows (``xq``'s M) sharded with the
+  weights replicated give rows sharded; the experts' forms also shard on
+  the expert axis;
+* the attention read: q sharded on heads with the pools (and their
+  scales) on kv-heads, the page table and ``tpos`` replicated, gives an
+  output sharded on heads; or the batch rows sharded with the pools
+  replicated.
+
+Any call may also run fully replicated.
 """
 from __future__ import annotations
 
@@ -91,6 +107,47 @@ torch.library.register_fake(f"{NAMESPACE}::paged_attention",
                             lambda q, *_: torch.empty_like(q), lib=_LIB)
 
 _OPS = torch.ops.repro_torch
+
+
+def _register_sharding_rules() -> None:
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    R = Replicate()
+    scalars = [None, None, None]   # group_size, x_bits, x_signed
+
+    def vmm_rules(xq, w, *_):
+        return [([R], [R, R] + scalars),
+                ([Shard(1)], [R, Shard(w.ndim - 1)] + scalars),   # N
+                ([Shard(0)], [Shard(0), R] + scalars)]            # rows
+
+    def experts_rules(xq, w, *_):
+        return [([R], [R, R] + scalars),
+                ([Shard(2)], [R, Shard(w.ndim - 1)] + scalars),   # N
+                ([Shard(0)], [Shard(0), Shard(0)] + scalars),     # experts
+                ([Shard(1)], [Shard(1), R] + scalars)]            # rows
+
+    for name in ("bitplane_vmm", "da_vmm"):
+        register_sharding(getattr(_OPS, name).default)(vmm_rules)
+    for name in ("bitplane_vmm_experts", "da_vmm_experts"):
+        register_sharding(getattr(_OPS, name).default)(experts_rules)
+
+    @register_sharding(_OPS.paged_attention.default)
+    def attention_rules(q, k_pool, v_pool, page_table, tpos, k_scale, v_scale,
+                        softmax_dtype, mask_mode):
+        def scales(pl):
+            return [None if k_scale is None else pl,
+                    None if v_scale is None else pl]
+
+        tail = [None, None]
+        return [([R], [R, R, R, R, R] + scales(R) + tail),
+                ([Shard(2)], [Shard(2), Shard(2), Shard(2), R, R]
+                 + scales(Shard(2)) + tail),                        # heads
+                ([Shard(0)], [Shard(0), R, R, Shard(0), Shard(0)]
+                 + scales(R) + tail)]                               # rows
+
+
+_register_sharding_rules()
 
 
 def da_vmm(xq: torch.Tensor, luts: torch.Tensor, cfg: DAConfig) -> torch.Tensor:

@@ -27,6 +27,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.core.engine import (
     PackedWeights,
@@ -34,6 +35,16 @@ from repro_torch.core.engine import (
     dense,
     get_attn_backend,
     select_attn_backend,
+)
+from repro_torch.launch.sharding import (
+    DTensor,
+    NamedSharding,
+    constrain,
+    distribute,
+    local_of,
+    paged_cache_axes,
+    replicated,
+    spec_of,
 )
 from repro_torch.models import kv_quant as _kvq
 from repro_torch.models.config import ModelConfig
@@ -162,7 +173,10 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
         q = rms_norm_headwise(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm_headwise(k, p["k_norm"], cfg.norm_eps)
     ang = rope_angles(positions, hd, cfg.rope_theta, cfg.mrope_sections)
-    return apply_rope(q, ang), apply_rope(k, ang), v
+    q = constrain(apply_rope(q, ang), ("batch", "seq", "heads", "head_dim"))
+    k = constrain(apply_rope(k, ang), ("batch", "seq", "kv_heads", "head_dim"))
+    v = constrain(v, ("batch", "seq", "kv_heads", "head_dim"))
+    return q, k, v
 
 
 def _in_dtype(value: float, dtype: torch.dtype) -> float:
@@ -242,6 +256,8 @@ def paged_gather_read(q, k_pool, v_pool, page_table, tpos, *,
         vg = _kvq.dequantize_kv(vg, v_scale[table], fmt, q.dtype)
     kg = kg.reshape(b, -1, kg.shape[-2], kg.shape[-1])
     vg = vg.reshape(b, -1, vg.shape[-2], vg.shape[-1])
+    kg = constrain(kg, ("batch", "kv_seq", "kv_heads", "head_dim"))
+    vg = constrain(vg, ("batch", "kv_seq", "kv_heads", "head_dim"))
     kpos = torch.arange(kg.shape[1], device=q.device)
     mask = kpos[None, None, :] <= tpos.long()[:, :, None]   # [B, T, S]
     scores = _gqa_scores(q, kg, torch.float64)
@@ -267,20 +283,42 @@ def _paged_attention(q, k, v, cache: PagedKVCache, page_table, tpos,
                                  tp // ps]
     off = tp % ps
     if fmt == "fp":
-        cache.k[page_ids, off] = k.to(cache.k.dtype)
-        cache.v[page_ids, off] = v.to(cache.v.dtype)
+        _write_rows(cache.k, page_ids, off, k.to(cache.k.dtype))
+        _write_rows(cache.v, page_ids, off, v.to(cache.v.dtype))
     else:
         qk, sk = _kvq.quantize_kv(k, fmt)
         qv, sv = _kvq.quantize_kv(v, fmt)
-        cache.k[page_ids, off] = qk
-        cache.v[page_ids, off] = qv
-        cache.k_scale[page_ids, off] = sk
-        cache.v_scale[page_ids, off] = sv
+        _write_rows(cache.k, page_ids, off, qk)
+        _write_rows(cache.v, page_ids, off, qv)
+        _write_rows(cache.k_scale, page_ids, off, sk)
+        _write_rows(cache.v_scale, page_ids, off, sv)
+    # the reference's constraints on the written pools: placed once by
+    # shard_paged_caches, each returns its pool as it is
+    pool_axes = paged_cache_axes(cache.k.ndim)
+    if fmt != "fp":
+        constrain(cache.k_scale, pool_axes)
+        constrain(cache.v_scale, pool_axes)
+    constrain(cache.k, pool_axes)
+    constrain(cache.v, pool_axes)
     name = select_attn_backend(cfg.paged_attn, q.device)
     return get_attn_backend(name).fn(
         q, cache.k, cache.v, page_table, tpos,
         softmax_dtype=cfg.softmax_dtype, mask_mode=cfg.attn_mask_mode,
         k_scale=cache.k_scale, v_scale=cache.v_scale)
+
+
+def _write_rows(pool, page_ids, off, rows) -> None:
+    """``pool[page_ids, off] = rows`` in place.  A pool placed on a mesh
+    (:func:`repro_torch.launch.sharding.shard_paged_caches`: its kv-heads
+    dim sharded, the rest replicated) takes on each rank the rows' block
+    under the pool's own placements, written into its local block — both
+    are ``[.., kv, hd]`` in their last two dims."""
+    if isinstance(pool, DTensor):
+        if not isinstance(rows, DTensor):
+            rows = distribute(rows, NamedSharding(pool.device_mesh, spec_of(pool)))
+        rows = rows.redistribute(pool.device_mesh, pool.placements).to_local()
+        pool, page_ids, off = pool.to_local(), local_of(page_ids), local_of(off)
+    pool[page_ids, off] = rows
 
 
 def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -289,6 +327,47 @@ def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     if kv == n_heads:
         return k
     return torch.repeat_interleave(k, n_heads // kv, dim=2)
+
+
+def _head_parallel(fn, q, k, v, *args, batch_args=(), **kwargs):
+    """``fn(q, k, v, *batch_args, *args, **kwargs)``, an attention core
+    over [B,T,H,hd] / [B,S,Kv,hd], run on each rank's own rows and heads;
+    returns its output flattened to [B,T,H·hd].
+
+    Rows and heads are independent, so where q, k and v are placed on a
+    mesh each rank keeps its block of the batch (dim 0) and of the heads
+    (dim 2: a contiguous block of q heads reads the matching block of KV
+    heads when both counts divide the ranks) and gathers only the rest;
+    its output is flattened locally (a block of heads is a block of
+    H·hd) and placed as q.  ``batch_args`` ([B, ..]) are cut by rows
+    alike, ``args`` are taken whole.  Without a DTensor operand, ``fn`` as
+    it is; where the KV heads do not divide, the whole core runs
+    replicated."""
+    if not any(isinstance(t, DTensor) for t in (q, k, v)):
+        return fn(q, k, v, *batch_args, *args, **kwargs).flatten(2)
+    mesh = next(t.device_mesh for t in (q, k, v) if isinstance(t, DTensor))
+    place = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+             for p in (q.placements if isinstance(q, DTensor)
+                       else [Replicate()] * mesh.ndim)]
+    split = 1
+    for size, p in zip(mesh.shape, place):
+        split *= size if p == Shard(2) else 1
+    if q.shape[2] % split or k.shape[2] % split:
+        return replicated(lambda *a, **kw: fn(*a, **kw).flatten(2), q, k, v,
+                          *batch_args, *args, **kwargs)
+    rows = [p if p == Shard(0) else Replicate() for p in place]
+
+    def cut(t, target):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, target).to_local()
+
+    y = fn(*(cut(t, place) for t in (q, k, v)),
+           *(cut(a, rows) for a in batch_args),
+           *(a.full_tensor() if isinstance(a, DTensor) else a for a in args),
+           **kwargs)
+    return DTensor.from_local(y.flatten(2), mesh, place, run_check=False)
 
 
 def _decode_attention(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
@@ -316,7 +395,8 @@ def causal_bias(t: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
     pos = torch.arange(t, device=device)
     zero = torch.zeros((), dtype=dtype, device=device)
     neg = torch.tensor(NEG_INF, dtype=dtype, device=device)
-    return torch.where(pos[None, :] <= pos[:, None], zero, neg)
+    return constrain(torch.where(pos[None, :] <= pos[:, None], zero, neg),
+                     (None, None))
 
 
 def _lean_attention(q, k, v, cfg: ModelConfig, bias) -> torch.Tensor:
@@ -409,7 +489,8 @@ def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
         if page_table is None:
             raise ValueError("a PagedKVCache requires a page_table operand")
         y = _paged_attention(q, k, v, cache, page_table, tpos, cfg)
-        return dense(y.reshape(b, t, cfg.q_dim), p["wo"])
+        y = dense(y.reshape(b, t, cfg.q_dim), p["wo"])
+        return constrain(y, ("batch", "seq", "embed"))
     if cache is not None:
         warm = update_cache and t > 1 and int(cache.length) > 0
         if warm:
@@ -420,20 +501,26 @@ def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
                 "in one call, or use the paged runtime (PagedKVCache), whose "
                 "attention read covers earlier chunks through the page pool.")
         _dense_cache_write(k, v, cache, tpos, cfg)
+        constrain(cache.k, ("batch", "kv_seq", "kv_heads", "head_dim"))
+        constrain(cache.v, ("batch", "kv_seq", "kv_heads", "head_dim"))
         if not (update_cache and t > 1):
             kpos = torch.arange(cache.k.shape[1], device=x.device)
             mask = kpos[None, None, :] <= tpos.long()[:, :, None]  # [B,T,S]
-            y = _decode_attention(q, cache.k, cache.v, mask, cfg)
-            return dense(y.reshape(b, t, cfg.q_dim), p["wo"])
+            y = _head_parallel(_decode_attention, q, cache.k, cache.v, cfg,
+                               batch_args=(mask,))
+            y = dense(y, p["wo"])
+            return constrain(y, ("batch", "seq", "embed"))
     # no cache, or a prefill into an empty dense cache: the fresh segment
     if cfg.attn_impl == "lean":
         bias = attn_bias if attn_bias is not None else causal_bias(
             t, device=x.device)
-        y = _lean_attention(q, k, v, cfg, bias)
+        y = _head_parallel(_lean_attention, q, k, v, cfg, bias)
     elif cfg.attn_chunk_q and t > cfg.attn_chunk_q:
-        y = _chunked_attention(q, k, v, q_offset=0, chunk=cfg.attn_chunk_q)
+        y = _head_parallel(_chunked_attention, q, k, v, q_offset=0,
+                           chunk=cfg.attn_chunk_q)
     else:
         pos = torch.arange(t, device=x.device)
         mask = (pos[None, :] <= pos[:, None])[None, None]     # [1,1,T,S]
-        y = _naive_attention(q, k, v, mask, cfg)
-    return dense(y.reshape(b, t, cfg.q_dim), p["wo"])
+        y = _head_parallel(_naive_attention, q, k, v, mask, cfg)
+    y = dense(y, p["wo"])
+    return constrain(y, ("batch", "seq", "embed"))

@@ -14,6 +14,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.engine import dense
+from repro_torch.launch.sharding import (
+    DTensor,
+    Partial,
+    Replicate,
+    Shard,
+    constrain,
+    full,
+    replicated,
+)
 from repro_torch.models.config import ModelConfig
 
 
@@ -139,16 +148,17 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_model: int,
 
 def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """GELU is the tanh form (``jax.nn.gelu``'s default)."""
-    up = dense(x, p["w_up"])
+    up = constrain(dense(x, p["w_up"]), ("batch", "seq", "ffn"))
     if cfg.mlp_act == "swiglu":
-        h = F.silu(dense(x, p["w_gate"])) * up
+        gate = constrain(dense(x, p["w_gate"]), ("batch", "seq", "ffn"))
+        h = F.silu(gate) * up
     elif cfg.mlp_act == "gelu":
         h = F.gelu(up, approximate="tanh")
     elif cfg.mlp_act == "relu2":
         h = torch.square(F.relu(up))
     else:
         raise ValueError(cfg.mlp_act)
-    return dense(h, p["w_down"])
+    return constrain(dense(h, p["w_down"]), ("batch", "seq", "embed"))
 
 
 # ---------------------------------------------------------------------------
@@ -159,7 +169,46 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def apply_embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens.long()]
+    """The table's rows at ``tokens``; a table placed on a mesh reads
+    through :func:`_vocab_parallel_rows` when its vocab is sharded, else
+    through ``F.embedding``."""
+    table = p["table"]
+    if not isinstance(table, DTensor):
+        rows = table[tokens.long()]
+    elif any(isinstance(pl, Shard) and pl.dim == 0 for pl in table.placements):
+        rows = _vocab_parallel_rows(table, tokens)
+    else:
+        rows = F.embedding(tokens.long(), table)
+    return constrain(rows, ("batch", "seq", "embed"))
+
+
+def _vocab_parallel_rows(table, tokens: torch.Tensor):
+    """The vocab-parallel lookup: each rank reads the ids that fall in its
+    slice of the vocab (zeros for the others), and the ranks' rows are a
+    ``Partial`` sum over the vocab's mesh dim — one non-zero term each, so
+    the sum is exact.  Its backward gives each rank the gradient of its own
+    rows.  (DTensor's own strategy for an embedding on a vocab-sharded table
+    has no backward: it cannot turn a ``Partial`` gradient into its masked
+    partial.)"""
+    mesh = table.device_mesh
+    vocab_dims = [i for i, pl in enumerate(table.placements)
+                  if isinstance(pl, Shard) and pl.dim == 0]
+    if len(vocab_dims) != 1:
+        return replicated(F.embedding, tokens.long(), table)
+    (vd,) = vocab_dims
+    local = table.redistribute(mesh, [pl if i == vd else Replicate()
+                                      for i, pl in enumerate(table.placements)])
+    ids = full(tokens).long()
+    rows = local.to_local()
+    start = mesh.get_local_rank(vd) * rows.shape[0]
+    ids = ids - start
+    outside = (ids < 0) | (ids >= rows.shape[0])
+    out = F.embedding(torch.where(outside, 0, ids), rows)
+    out = torch.where(outside[..., None], torch.zeros((), dtype=out.dtype,
+                                                      device=out.device), out)
+    return DTensor.from_local(out, mesh, [Partial() if i == vd else Replicate()
+                                          for i in range(mesh.ndim)],
+                              run_check=False)
 
 
 def init_lm_head(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -168,4 +217,4 @@ def init_lm_head(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def apply_lm_head(p, x: torch.Tensor) -> torch.Tensor:
-    return dense(x, p["w"])
+    return constrain(dense(x, p["w"]), ("batch", "seq", "vocab"))

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.engine import dense
+from repro_torch.launch.sharding import constrain, replicated
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _mean_square, normal_init
 
@@ -191,10 +192,12 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig,
     SSM state are written into ``cache`` in place; returns the output."""
     b, t, _ = x.shape
     h, pdim, s = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    z, xbc, dt_raw = _split_proj(cfg, dense(x, p["in_proj"]))
+    zxbcdt = constrain(dense(x, p["in_proj"]), ("batch", "seq", "inner"))
+    z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
 
     conv_in = cache.conv if cache is not None else None
-    xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_in)
+    xbc, new_conv = replicated(_causal_conv, xbc, p["conv_w"], p["conv_b"],
+                               conv_in)
     gs = cfg.ssm_groups * s
     di = cfg.d_inner
     xh = xbc[..., :di].reshape(b, t, h, pdim)
@@ -205,17 +208,18 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig,
     a = -torch.exp(p["A_log"])
 
     if cache is not None and t == 1 and not update_cache:
-        y1, new_ssm = ssd_step(cache.ssm, xh[:, 0], dt[:, 0], a, bmat[:, 0],
-                               cmat[:, 0])
+        y1, new_ssm = replicated(ssd_step, cache.ssm, xh[:, 0], dt[:, 0], a,
+                                 bmat[:, 0], cmat[:, 0])
         y = y1[:, None]
     else:
-        y, new_ssm = ssd_chunked(xh, dt, a, bmat, cmat, cfg.ssm_chunk,
-                                 cache.ssm if cache is not None else None)
+        y, new_ssm = replicated(ssd_chunked, xh, dt, a, bmat, cmat,
+                                cfg.ssm_chunk,
+                                cache.ssm if cache is not None else None)
 
     y = y + p["D"][None, None, :, None] * xh.to(torch.float32)
     y = y.reshape(b, t, di)
     y = _gated_norm(y, z, p["norm_scale"], cfg.norm_eps).to(x.dtype)
-    out = dense(y, p["out_proj"])
+    out = constrain(dense(y, p["out_proj"]), ("batch", "seq", "embed"))
     if cache is not None:
         cache.conv.copy_(new_conv.to(cache.conv.dtype))
         cache.ssm.copy_(new_ssm)

@@ -30,6 +30,7 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.sharding import constrain, replicated
 from repro_torch.models.attention import (
     KVCache,
     attention_forward,
@@ -159,7 +160,7 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
     if inputs.ndim == 2:
         h = apply_embed(params["embed"], inputs)
     else:
-        h = inputs.to(cfg.dtype())
+        h = constrain(inputs.to(cfg.dtype()), ("batch", "seq", "embed"))
     b, t = h.shape[0], h.shape[1]
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32,
@@ -188,7 +189,12 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy in float32."""
+    """Mean token cross-entropy in float32 (on the full logits, replicated,
+    when they are placed on a mesh)."""
+    return replicated(_lm_loss, logits, labels)
+
+
+def _lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.engine import dense
+from repro_torch.launch.sharding import constrain, replicated
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_mlp, init_mlp, normal_init
 
@@ -136,16 +137,27 @@ def moe_forward_sorted(p, xg: torch.Tensor, gates: torch.Tensor,
     """Sorted-dispatch expert layer on grouped tokens xg [G, S, D]."""
     g, s, d = xg.shape
     e = gates.shape[-1]
-    token_for_slot, weight_for_slot = _sorted_dispatch(gates, cfg.top_k, cap)
+    token_for_slot, weight_for_slot = replicated(_sorted_dispatch, gates,
+                                                 cfg.top_k, cap)
     xg_pad = torch.cat([xg, xg.new_zeros((g, 1, d))], dim=1)
     rows = torch.arange(g, device=xg.device)[:, None]
     xe = xg_pad[rows, token_for_slot].reshape(g, e, cap, d)
-    ye = _moe_experts(p, xe)
+    xe = constrain(xe, ("batch", "expert", None, "embed"))
+    ye = constrain(_moe_experts(p, xe), ("batch", "expert", None, "embed"))
     yflat = ye.reshape(g, e * cap, d) * weight_for_slot[..., None].to(ye.dtype)
     y = ye.new_zeros((g, s + 1, d))
     y.index_put_((rows.expand_as(token_for_slot), token_for_slot), yflat,
                  accumulate=True)
     return y[:, :s]
+
+
+def _gates(xg: torch.Tensor, router: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Routing probabilities in float32 over the padded experts (a padded
+    expert's logit is -inf: never chosen)."""
+    logits = xg.to(torch.float32) @ router
+    pad_mask = torch.where(torch.arange(router.shape[1], device=xg.device)
+                           < n_experts, 0.0, float("-inf"))
+    return torch.softmax(logits + pad_mask, dim=-1)
 
 
 def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -158,23 +170,20 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     xf = x.reshape(n, d)
     if g * s > n:
         xf = F.pad(xf, (0, 0, 0, g * s - n))
-    xg = xf.reshape(g, s, d)
+    xg = constrain(xf.reshape(g, s, d), ("batch", None, "embed"))
     cap = capacity(cfg, s)
 
-    logits = xg.to(torch.float32) @ p["router"]
-    e_pad = p["router"].shape[1]
-    pad_mask = torch.where(torch.arange(e_pad, device=x.device) < cfg.n_experts,
-                           0.0, float("-inf"))
-    gates = torch.softmax(logits + pad_mask, dim=-1)
+    gates = replicated(_gates, xg, p["router"], cfg.n_experts)
 
     if cfg.moe_impl == "sorted":
         y = moe_forward_sorted(p, xg, gates, cfg, cap)
     else:
-        dispatch, combine = _topk_dispatch(gates, cfg.top_k, cap)
-        xe = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xg)
-        ye = _moe_experts(p, xe)
-        y = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), ye)
+        dispatch, combine = replicated(_topk_dispatch, gates, cfg.top_k, cap)
+        xe = replicated(torch.einsum, "gsec,gsd->gecd", dispatch.to(x.dtype), xg)
+        xe = constrain(xe, ("batch", "expert", None, "embed"))
+        ye = constrain(_moe_experts(p, xe), ("batch", "expert", None, "embed"))
+        y = replicated(torch.einsum, "gsec,gecd->gsd", combine.to(x.dtype), ye)
     y = y.reshape(g * s, d)[:n].reshape(b, t, d)
     if "shared" in p:
         y = y + apply_mlp(p["shared"], x, cfg)
-    return y
+    return constrain(y, ("batch", "seq", "embed"))

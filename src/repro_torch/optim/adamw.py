@@ -42,15 +42,13 @@ class AdamWState(NamedTuple):
 
 def init(params) -> AdamWState:
     """Fresh state on the params' device: float32 copies of the params and
-    zero moments."""
+    zero moments (placed as the params are, on a mesh)."""
     first = leaves(params)[0]
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=first.device),
         master=tree_map(lambda p: p.detach().to(torch.float32, copy=True), params),
-        mu=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params),
-        nu=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params),
+        mu=tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
+        nu=tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
     )
 
 

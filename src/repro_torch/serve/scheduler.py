@@ -50,6 +50,7 @@ import torch
 
 from repro_torch.analysis.races import PageWrite, TickPlan, assert_plan_ok
 from repro_torch.device import resolve_device
+from repro_torch.launch.sharding import full, is_sharded, shard_paged_caches
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import Observability
 from repro_torch.obs.hwcost import HardwareCostModel, draft_price
@@ -261,6 +262,9 @@ class PagedScheduler:
             n_pages = batch_size * pages_for(max_len, page_size) + 1
         self.cfg = cfg
         self.params = params
+        # a DTensor view of a normal tensor cannot be made inside inference
+        # mode: params placed on a mesh run their steps under no_grad
+        self._grad_mode = torch.no_grad if is_sharded(params) else torch.inference_mode
         self.b = batch_size
         self.max_len = max_len
         self.greedy = greedy
@@ -274,9 +278,10 @@ class PagedScheduler:
         self.pad_pos = pad_position(max_len, page_size)
         self.pool = PagePool(n_pages, page_bytes=kv_page_bytes(
             cfg, page_size, self.kv_dtypes))
-        self.caches = init_paged_caches(cfg, n_pages, page_size, cfg.dtype(),
-                                        kv_dtypes=self.kv_dtypes,
-                                        device=self.device)
+        # under mesh rules each rank holds its kv-heads slice of every page
+        self.caches = shard_paged_caches(init_paged_caches(
+            cfg, n_pages, page_size, cfg.dtype(), kv_dtypes=self.kv_dtypes,
+            device=self.device))
         self.lanes: List[Optional[_Lane]] = [None] * batch_size
         self.queue: List[Request] = []
         self.done: Dict[int, Request] = {}
@@ -317,8 +322,8 @@ class PagedScheduler:
         self._spec_state: Dict[int, Dict[str, Any]] = {}  # uid → EMA state
         if spec is not None:
             self._provider = make_provider(spec, cfg, params, device=self.device)
-            self.draft_caches = self._provider.init_caches(
-                self.pool.n_pages, page_size, self.device)
+            self.draft_caches = shard_paged_caches(self._provider.init_caches(
+                self.pool.n_pages, page_size, self.device))
             self._spec_floor = (
                 spec.disable_below if spec.disable_below is not None
                 else min(1.0, breakeven_acceptance(
@@ -701,10 +706,10 @@ class PagedScheduler:
             self._submit_plan(phase, rows, poss)
         tokens, positions, table, last_idx = self._pack_rows(
             rows, toks, poss, n_rows, t_step)
-        with self._issue("step", n_rows, t_step), torch.inference_mode():
+        with self._issue("step", n_rows, t_step), self._grad_mode():
             logits, self.caches = self._step(self.params, self.caches, tokens,
                                              positions, table, last_idx)
-            logits = logits.float()
+            logits = full(logits).float()
         return logits.cpu().numpy()  # the host waits here, outside the span
 
     def _hw_charge(self, req: Request, phase: str, n: int) -> float:
@@ -858,7 +863,7 @@ class PagedScheduler:
         batch = self._pack_rows(rows, toks, poss, width, t_step,
                                 self._provider.cfg)
         shared = self._provider.shared_cache
-        with self._issue("draft", width, t_step), torch.inference_mode():
+        with self._issue("draft", width, t_step), self._grad_mode():
             drafts, new = self._draft_step(
                 self._provider.params,
                 self.caches if shared else self.draft_caches, *batch)
@@ -871,7 +876,7 @@ class PagedScheduler:
     def _run_ingest(self, rows, toks, poss, width: int, t_step: int) -> None:
         batch = self._pack_rows(rows, toks, poss, width, t_step,
                                 self._provider.cfg)
-        with self._issue("ingest", width, t_step), torch.inference_mode():
+        with self._issue("ingest", width, t_step), self._grad_mode():
             _, self.draft_caches = self._draft_ingest(
                 self._provider.params, self.draft_caches, *batch)
 
@@ -905,10 +910,10 @@ class PagedScheduler:
             self._submit_plan("spec_verify", rows, poss)
         tokens, positions, table, _ = self._pack_rows(rows, toks, poss, width,
                                                       t_step)
-        with self._issue("verify", width, t_step), torch.inference_mode():
+        with self._issue("verify", width, t_step), self._grad_mode():
             logits, self.caches = self._verify_step(
                 self.params, self.caches, tokens, positions, table)
-            best = torch.argmax(logits, dim=-1)
+            best = torch.argmax(full(logits), dim=-1)
         return best.cpu().numpy()
 
     def _spec_phase(self, staged) -> set:

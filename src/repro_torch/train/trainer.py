@@ -1,4 +1,4 @@
-"""Fault-tolerant single-device trainer.
+"""Fault-tolerant trainer, on one device or on a mesh.
 
 Layers of defense, as in the reference (``repro/train/trainer.py``):
   * NaN/inf guard — non-finite grads skip the update on the device
@@ -16,8 +16,15 @@ The step runs eagerly: each microbatch's loss and gradients come from
 ``torch.autograd.grad`` over detached aliases of the params, its products
 on ``torch.matmul`` (the reference computes them outside any Pallas
 kernel: training runs no hand-written kernel).  The loop reads the step's
-metrics on the host once per step.  Distributed training (meshes, sharded
-state, compressed all-reduce) is not part of this module.
+metrics on the host once per step.
+
+On a mesh the same step runs on DTensor leaves: the state placed by
+``launch/specs.py: tree_pspecs`` and the batch by ``batch_pspecs``, under
+``launch/sharding.py: use_mesh_rules`` (the launcher's ``--mesh``).  Each
+gradient is redistributed to its parameter's placements before the update
+(a replicated parameter's gradient comes out ``Partial`` over the data
+axis), so AdamW's in-place writes and the global-norm clip see reduced
+gradients; the step's metrics are read from every rank alike.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import ckpt as C
+from repro_torch.launch.sharding import DTensor, full
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import forward, init_model, lm_loss
 from repro_torch.optim import adamw
@@ -83,12 +91,23 @@ def value_and_grad(params, batch, cfg: ModelConfig):
     batch = _to_device(batch, xs[0].device)
     loss = loss_fn(tree_map(lambda _: next(it), params), batch, cfg)
     grads = iter(torch.autograd.grad(loss, xs))
-    return loss.detach(), tree_map(lambda _: next(grads), params)
+    return loss.detach(), tree_map(lambda p: _like(next(grads), p), params)
+
+
+def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient redistributed to its parameter's placements
+    (a ``Partial`` sum reduced); any other gradient as it is."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def _to_device(batch, device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor)
-                               else v, device=device) for k, v in batch.items()}
+    """The batch's arrays as tensors on ``device``; a DTensor (a batch
+    placed on a mesh) stays where it is."""
+    return {k: v if isinstance(v, DTensor) else torch.as_tensor(
+        np.asarray(v) if not isinstance(v, torch.Tensor) else v, device=device)
+        for k, v in batch.items()}
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig
@@ -103,8 +122,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig
         batch = _to_device(batch, state.step.device)
         if mb > 1:
             loss = torch.zeros((), dtype=torch.float32, device=state.step.device)
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), state.params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                             state.params)  # placed as the params on a mesh
             for i in range(mb):
                 mbatch = {k: x.reshape((mb, x.shape[0] // mb) + x.shape[1:])[i]
                           for k, x in batch.items()}
@@ -175,14 +194,14 @@ class Trainer:
         state = self._maybe_restore(state)
         history = []
         retries = 0
-        step = int(state.step)
+        step = int(full(state.step))
         while step < n_steps:
             try:
                 batch = self.data_iter_fn(step)
                 t0 = time.perf_counter()
                 state, metrics = self.step_fn(state, batch)
                 # the step's one read on the host
-                values = torch.stack([v.to(torch.float32)
+                values = torch.stack([full(v).to(torch.float32)
                                       for v in metrics.values()]).tolist()
                 metrics = dict(zip(metrics, values))
                 dt = time.perf_counter() - t0
@@ -199,7 +218,7 @@ class Trainer:
                 if retries > max_retries or not self.tcfg.ckpt_dir:
                     raise
                 state = self._maybe_restore(state)
-                step = int(state.step)
+                step = int(full(state.step))
         if self.ckpt:
             self.ckpt.wait()
         return state, history

@@ -1046,3 +1046,121 @@ def test_train_step_on_the_card_matches_the_cpu(card):
             assert float(md["skipped"]) == 0.0 and int(dev.step) == s + 1
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+# ---------------------------------------------------------------------------
+# the custom ops' DTensor sharding rules, on a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A 1×1 ``data × model`` mesh over a one-rank NCCL group on card 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    torch.cuda.set_device(0)
+    if not dist.is_initialized():
+        store = tmp_path_factory.mktemp("nccl") / "store"
+        dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                                world_size=1, device_id=torch.device("cuda", 0))
+    yield make_test_mesh((1, 1), ("data", "model"), device_type="cuda")
+    dist.destroy_process_group()
+
+
+def _on_mesh(mesh, t, *placements):
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(t, mesh, list(placements), run_check=False)
+
+
+@pytest.mark.parametrize("op", ["bitplane_vmm", "da_vmm"])
+@pytest.mark.parametrize("rule", ["columns", "rows", "replicated"])
+def test_vmm_sharding_rule_equals_the_plain_call(nccl_mesh, op, rule):
+    """xq replicated and the weights sharded on N (or the rows sharded):
+    the op's DTensor output, on the rule's placement, EQUAL to the op on
+    plain tensors, one kernel launch."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bitplane_vmm import bitplane_vmm_cuda
+    from repro_torch.kernels.da_vmm import da_vmm_cuda
+
+    card = torch.device("cuda")
+    g = torch.Generator(device=card).manual_seed(3)
+    xq = torch.randint(-128, 128, (16, 256), generator=g, device=card, dtype=torch.int32)
+    wq = torch.randint(-128, 128, (256, 768), generator=g, device=card, dtype=torch.int8)
+    cfg = DAConfig(x_signed=True)
+    w = wq if op == "bitplane_vmm" else build_luts(wq.to(torch.int32), cfg.group_size)
+    want = getattr(ops, op)(xq, w, cfg)
+    R = Replicate()
+    x_pl, w_pl, out_pl = {"columns": (R, Shard(w.ndim - 1), Shard(1)),
+                          "rows": (Shard(0), R, Shard(0)),
+                          "replicated": (R, R, R)}[rule]
+    kernel = bitplane_vmm_cuda if op == "bitplane_vmm" else da_vmm_cuda
+    before = kernel.launches
+    got = getattr(ops, op)(_on_mesh(nccl_mesh, xq, R, x_pl),
+                           _on_mesh(nccl_mesh, w, R, w_pl), cfg)
+    assert kernel.launches == before + 1
+    assert tuple(got.placements)[1] == out_pl
+    assert torch.equal(got.to_local(), want)
+
+
+@pytest.mark.parametrize("op", ["bitplane_vmm_experts", "da_vmm_experts"])
+@pytest.mark.parametrize("rule", ["columns", "experts", "rows"])
+def test_experts_sharding_rule_equals_the_plain_call(nccl_mesh, op, rule):
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.kernels import ops
+
+    card = torch.device("cuda")
+    g = torch.Generator(device=card).manual_seed(5)
+    e, m, k, n = 4, 8, 128, 96
+    xq = torch.randint(-128, 128, (e, m, k), generator=g, device=card, dtype=torch.int32)
+    wq = torch.randint(-128, 128, (e, k, n), generator=g, device=card, dtype=torch.int8)
+    cfg = DAConfig(x_signed=True)
+    w = (wq if op == "bitplane_vmm_experts"
+         else torch.stack([build_luts(wq[i].to(torch.int32), cfg.group_size)
+                           for i in range(e)]))
+    want = getattr(ops, op)(xq, w, cfg)
+    R = Replicate()
+    x_pl, w_pl, out_pl = {"columns": (R, Shard(w.ndim - 1), Shard(2)),
+                          "experts": (Shard(0), Shard(0), Shard(0)),
+                          "rows": (Shard(1), R, Shard(1))}[rule]
+    got = getattr(ops, op)(_on_mesh(nccl_mesh, xq, R, x_pl),
+                           _on_mesh(nccl_mesh, w, R, w_pl), cfg)
+    assert tuple(got.placements)[1] == out_pl
+    assert torch.equal(got.to_local(), want)
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp16", "int8"])
+@pytest.mark.parametrize("rule", ["heads", "rows"])
+def test_attention_sharding_rule_equals_the_plain_call(nccl_mesh, kv_dtype, rule):
+    """q on heads with the pools on kv-heads (or the batch rows), the page
+    table and tpos replicated: EQUAL to the op on plain tensors, one read."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    card = torch.device("cuda")
+    gen = torch.Generator(device=card).manual_seed(11)
+    q, k, v, table, tpos = _paged_args(gen, card, torch.bfloat16, "verify", hd=128)
+    ks = vs = None
+    if kv_dtype == "int8":
+        k, ks = kv_quant.quantize_kv(k, "int8")
+        v, vs = kv_quant.quantize_kv(v, "int8")
+    want = ops.paged_attention(q, k, v, table, tpos, k_scale=ks, v_scale=vs)
+    R = Replicate()
+    head, row = rule == "heads", rule == "rows"
+    pool_pl = Shard(2) if head else R
+    on = lambda t, pl: None if t is None else _on_mesh(nccl_mesh, t, R, pl)  # noqa: E731
+    before = paged_attention_cuda.launches
+    got = ops.paged_attention(
+        on(q, Shard(2) if head else Shard(0)), on(k, pool_pl), on(v, pool_pl),
+        on(table, Shard(0) if row else R), on(tpos, Shard(0) if row else R),
+        k_scale=on(ks, pool_pl), v_scale=on(vs, pool_pl))
+    assert paged_attention_cuda.launches == before + 1
+    assert tuple(got.placements)[1] == (Shard(2) if head else Shard(0))
+    assert torch.equal(got.to_local(), want)
