@@ -16,6 +16,7 @@
     python3 chip_smoke.py --phase launch     # build, then phase 21 alone
     python3 chip_smoke.py --phase train      # build, then phase 22 alone
     python3 chip_smoke.py --phase distributed  # build, then phase 23 alone
+    python3 chip_smoke.py --phase dryrun     # build, phase 22, then phase 24
     python3 chip_smoke.py --out FILE         # every JSON line also to FILE
     python3 chip_smoke.py --phase attention --src OTHER/src
     python3 chip_smoke.py --phase vmm --src OTHER/src
@@ -255,7 +256,20 @@ Phases, one JSON line each:
    one device: losses within DIST_LOSS_ATOL, ms a step and peak GB per
    rank; (d) on four ranks, the compressed all-reduce (codes, mean and
    error EQUAL to the same ranks' CPU run) and GPipe (output and weight
-   gradient within PIPE_ATOL of the CPU's).
+   gradient within PIPE_ATOL of the CPU's);
+24. the dry-run tools (``dryrun``, last; no kernel launches): (a) ``python
+   -m repro_torch.launch.dryrun --arch qwen3-8b --shape decode_32k --mesh
+   single`` and ``python -m repro_torch.launch.perf --arch mamba2-780m
+   --shape decode_32k --variant DA_auto`` as commands, started together,
+   each traced on a fake 512-rank world whose tensors and mesh are on
+   ``cuda``: both exit 0, both records ``ok``, their roofline lines
+   printed; (b) phase 22's qwen3-8b step (TRAIN_FULL) traced on one rank
+   of fake tensors: the roofline bound ``t_bound`` at most the step's
+   measured ms, and MemTracker's peak beside ``max_memory_allocated``;
+   (c) qwen3-8b frozen ``pallas_bitplane`` at batch 4, one decode step
+   traced: the counted bytes at least the packed codes' and scales'
+   bytes (so ``t_memory`` at least their stream), 181 bit-plane calls a
+   forward.
 
 ``--phase plans`` runs none of these after the build: it times each
 constant of the two VMM plans (kernels/bitplane_vmm.py, kernels/da_vmm.py)
@@ -3151,19 +3165,21 @@ SUBPROCESS_TIMEOUT = 300
 _REQ = re.compile(r"^  req (\d+): (\d+) tokens -> \[([\d, ]*)\]\.\.\.$")
 
 
-def _run_together(cmds: dict, cwd: str) -> dict:
+def _run_together(cmds: dict, cwd: str, log_dir: str = None) -> dict:
     """Run each command (its arguments after ``python``) as a subprocess of
     this interpreter with ``PYTHONPATH=src``, all started together in
-    ``cwd``; wait for all.  Returns ``{name: {"rc", "stdout", "stderr"}}``
-    and the wall seconds; raises naming every command that exited other
-    than 0.  No process outlives the call."""
+    ``cwd`` (their output kept in ``log_dir``, by default ``cwd``); wait
+    for all.  Returns ``{name: {"rc", "stdout", "stderr"}}`` and the wall
+    seconds; raises naming every command that exited other than 0.  No
+    process outlives the call."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    log_dir = log_dir or cwd
     procs, files = {}, {}
     t0 = time.perf_counter()
     try:
         for name, argv in cmds.items():
-            files[name] = (open(os.path.join(cwd, f"{name}.out"), "w+"),
-                           open(os.path.join(cwd, f"{name}.err"), "w+"))
+            files[name] = (open(os.path.join(log_dir, f"{name}.out"), "w+"),
+                           open(os.path.join(log_dir, f"{name}.err"), "w+"))
             procs[name] = subprocess.Popen([sys.executable, *argv], cwd=cwd,
                                            env=env, stdout=files[name][0],
                                            stderr=files[name][1])
@@ -3445,7 +3461,7 @@ def phase_train():
     emit(line)
     if any(counts[k] for k in KERNEL_COUNTS):
         raise AssertionError(f"training launched a hand-written kernel: {counts}")
-    return counts
+    return counts, line["full_width"]
 
 
 # ---------------------------------------------------------------------------
@@ -3979,6 +3995,142 @@ def phase_distributed():
             _merge_counts([r["launches"] for r in legs[1]]))
 
 
+# ---------------------------------------------------------------------------
+# 24: the dry-run tools
+# ---------------------------------------------------------------------------
+#: the two commands of (a), their records' directories under build/
+DRYRUN_CMDS = {
+    "dryrun": ["-m", "repro_torch.launch.dryrun", "--arch", "qwen3-8b",
+               "--shape", "decode_32k", "--mesh", "single", "--out", "build/dryrun"],
+    "perf": ["-m", "repro_torch.launch.perf", "--arch", "mamba2-780m", "--shape",
+             "decode_32k", "--variant", "DA_auto", "--out", "build/perf"]}
+DRYRUN_RECORDS = {"dryrun": "build/dryrun/qwen3-8b__decode_32k__pod16x16.json",
+                  "perf": "build/perf/mamba2-780m__decode_32k__pod16x16__DA_auto.json"}
+#: qwen3-8b's bit-plane calls a forward (phase 20's traced nodes)
+DRYRUN_BITPLANE_CALLS = 181
+#: the decode cell of (c): batch 4, caches of 256 positions (phase 6's)
+DRYRUN_DECODE = dict(batch=4, max_len=256)
+
+
+def _dryrun_commands() -> dict:
+    import shutil
+
+    for d in ("build/dryrun", "build/perf"):   # a cached record would be reread
+        shutil.rmtree(os.path.join(ROOT, d), ignore_errors=True)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    runs, wall = _run_together(DRYRUN_CMDS, ROOT, os.path.join(ROOT, "build"))
+    out = {"wall_s": wall}
+    for name, path in DRYRUN_RECORDS.items():
+        with open(os.path.join(ROOT, path)) as f:
+            rec = json.load(f)
+        lines = [ln for ln in runs[name]["stdout"].splitlines() if ln.strip()]
+        for ln in lines:
+            print(ln, flush=True)
+        out[name] = {"argv": DRYRUN_CMDS[name], "ok": rec["ok"],
+                     "error": rec.get("error"), "n_params": rec.get("n_params"),
+                     "trace_s": rec.get("lower_compile_s"),
+                     "roofline": rec.get("roofline"), "stdout": lines}
+    return out
+
+
+def _dryrun_train(measured: dict) -> dict:
+    from repro_torch.configs.registry import ShapeSpec, get
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.dryrun import _cost_of, lower_cell
+    from repro_torch.train.trainer import TrainConfig
+
+    f = TRAIN_FULL
+    cfg = dataclasses.replace(get("qwen3-8b"), n_layers=f["layers"])
+    shape = ShapeSpec("train_full", f["seq"], f["batch"], "train")
+    trace, aux = lower_cell(cfg, shape, None, device="cuda", train_cfg=TrainConfig(
+        warmup_steps=f["warmup"], total_steps=f["steps"],
+        microbatches=f["microbatches"]))
+    cost = _cost_of(trace)
+    roof = rl.Roofline(cost["flops"], cost["bytes"], cost["coll"], 1,
+                       aux["model_flops"])
+    peak_gb = trace.memory["peak_bytes"] / 1e9
+    return {"model": f"{cfg.name} full width, {f['layers']} of 36 layers",
+            "trace_s": trace.seconds, "roofline": roof.as_dict(),
+            "t_bound_ms": roof.t_bound * 1e3, "measured_ms": measured["steady_ms"],
+            "bound_share": roof.t_bound * 1e3 / measured["steady_ms"],
+            "memory": trace.memory, "memtracker_peak_gb": peak_gb,
+            "max_memory_allocated_gb": measured["peak_gb"],
+            "peak_ratio": peak_gb / measured["peak_gb"],
+            "top_bytes": [[k, b, n] for k, b, n in trace.counter.bytes_by_op_kind()[:6]]}
+
+
+def _dryrun_da_decode() -> dict:
+    from repro_torch.configs.registry import ShapeSpec, get
+    from repro_torch.core.engine import PackedWeights
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.dryrun import _cost_of, lower_cell
+
+    cfg = get("qwen3-8b")
+    shape = ShapeSpec("decode", DRYRUN_DECODE["max_len"], DRYRUN_DECODE["batch"],
+                      "decode")
+    trace, aux = lower_cell(cfg, shape, None, quant="pallas_bitplane",
+                            device="cuda")
+    cost = _cost_of(trace)
+    roof = rl.Roofline(cost["flops"], cost["bytes"], cost["coll"], 1,
+                       aux["model_flops"])
+    def packs(tree):
+        if isinstance(tree, PackedWeights):
+            yield tree
+        elif isinstance(tree, dict):
+            for v in tree.values():
+                yield from packs(v)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                yield from packs(v)
+
+    # every packed leaf: codes, scales, tables
+    codes = sum(t.numel() * t.element_size() for p in packs(trace.args[0])
+                for t in (p.wq, p.w_scale, p.luts) if t is not None)
+    c = trace.counter
+    return {"model": "qwen3-8b full size, pallas_bitplane", **DRYRUN_DECODE,
+            "trace_s": trace.seconds, "roofline": roof.as_dict(),
+            "counted_bytes": c.bytes, "codes_bytes": codes,
+            "codes_stream_ms": codes / rl.HBM_BW * 1e3,
+            "t_memory_ms": roof.t_memory * 1e3,
+            "bitplane_calls": c.calls["repro_torch.bitplane_vmm"],
+            "bitplane_bytes": c.bytes_by_op["repro_torch.bitplane_vmm"],
+            "bitplane_flops": c.flops_by_op["repro_torch.bitplane_vmm"]}
+
+
+def phase_dryrun(train_full: dict):
+    """Phase 24 (no kernel launches: every traced op runs on fake
+    tensors)."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    line = {"phase": "dryrun", "smi": smi_line(), "commands": _dryrun_commands()}
+    t1 = time.perf_counter()
+    line["train"] = _dryrun_train(train_full)
+    t2 = time.perf_counter()
+    line["da_decode"] = _dryrun_da_decode()
+    counts = _read_counts()
+    line["seconds"] = {"a": t1 - t0, "b": t2 - t1, "c": time.perf_counter() - t2}
+    line["launches"] = {k: counts[k] for k in KERNEL_COUNTS}
+    emit(line)
+    cmds, train, da = line["commands"], line["train"], line["da_decode"]
+    if not all(cmds[n]["ok"] for n in DRYRUN_CMDS):
+        raise AssertionError(f"a dry-run record is not ok: {cmds}")
+    if not train["t_bound_ms"] <= train["measured_ms"]:
+        raise AssertionError(f"the roofline bound {train['t_bound_ms']} ms exceeds "
+                             f"the measured step, {train['measured_ms']} ms")
+    if not (da["counted_bytes"] >= da["codes_bytes"]
+            and da["t_memory_ms"] >= da["codes_stream_ms"]):
+        raise AssertionError(f"the DA decode counted less than its codes: {da}")
+    if da["bitplane_calls"] != DRYRUN_BITPLANE_CALLS:
+        raise AssertionError(f"{da['bitplane_calls']} bit-plane calls a forward, "
+                             f"not {DRYRUN_BITPLANE_CALLS}")
+    if any(counts[k] for k in KERNEL_COUNTS):
+        raise AssertionError(f"the dry-run launched a hand-written kernel: {counts}")
+    return counts
+
+
 def decode_window(eng, vocab: int, steps: int = 4):
     """Where a full-width decode step spends its time: host wall of
     ``steps`` batch-4 decode ticks, then the same number of ticks under
@@ -4019,7 +4171,8 @@ def main() -> int:
     parser.add_argument("--phase", choices=("all", "attention", "vmm", "plans",
                                             "ci_boot", "serve", "obs", "auto",
                                             "dense", "families", "analysis",
-                                            "launch", "train", "distributed"),
+                                            "launch", "train", "distributed",
+                                            "dryrun"),
                         default="all",
                         help="'attention', 'vmm', 'plans', 'ci_boot', 'serve', "
                              "'obs', 'auto', 'dense', 'families' or 'analysis': "
@@ -4036,8 +4189,9 @@ def main() -> int:
                              "qwen2-vl-72b), only the MoE / Mamba / hybrid "
                              "phases, only the qwen3-8b serve and the "
                              "static-analysis phase, only the entry points "
-                             "(launch), only training (train) or only the "
-                             "distributed slice (distributed) (no result "
+                             "(launch), only training (train), only the "
+                             "distributed slice (distributed) or training "
+                             "and the dry-run tools (dryrun) (no result "
                              "line)")
     parser.add_argument("--src", help="import the port from this directory "
                         "(another checkout's src/) instead of this one's; "
@@ -4049,7 +4203,7 @@ def main() -> int:
         _OUT.append(args.out)
     if args.src:
         if args.phase in ("all", "plans", "obs", "auto", "analysis", "launch",
-                          "train", "distributed"):
+                          "train", "distributed", "dryrun"):
             parser.error("--src needs --phase attention, vmm, ci_boot or serve")
         sys.path.insert(0, os.path.abspath(args.src))
     elif not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
@@ -4068,6 +4222,11 @@ def main() -> int:
          "obs": phase_serve_obs, "auto": phase_artifact_auto,
          "launch": phase_launch, "train": phase_train,
          "distributed": phase_distributed}[args.phase]()
+        print(smi_line(), flush=True)
+        return 0
+    if args.phase == "dryrun":
+        _, train_full = phase_train()
+        phase_dryrun(train_full)
         print(smi_line(), flush=True)
         return 0
     if args.phase == "analysis":
@@ -4136,10 +4295,13 @@ def main() -> int:
     family_counts = timed("family_variants", phase_family_variants)
     gc.collect()
     torch.cuda.empty_cache()
-    train_counts = timed("train", phase_train)
+    train_counts, train_full = timed("train", phase_train)
     gc.collect()
     torch.cuda.empty_cache()
     dist_counts, tp_counts, tp_lut_counts = timed("distributed", phase_distributed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("dryrun", phase_dryrun, train_full)
     emit({"phase": "phase_seconds", **secs})
     paths = {"serve": fp_counts, "serve_int8kv": int8_counts,
              "serve_prefix": prefix_counts, "serve_spec": spec_counts,

@@ -23,11 +23,14 @@ and :func:`distribute` / :func:`shard_frozen_params` /
 :func:`shard_paged_caches` place tensors by ``distribute_tensor`` (every
 rank holds the same full tensor and keeps its own slice: no transfer).
 
-A few ops of the model have no DTensor sharding strategy.  Their operands
-go through :func:`replicated`: gathered to ``Replicate`` on every mesh
-dimension, the op run on the full local tensors, and the result wrapped as
-replicated — the counterpart of GSPMD's replicate fallback.  Each such site
-calls it by name (``CHANGES.md`` lists them).
+A few ops of the model have no DTensor sharding strategy.  Where their
+rows are independent (routing per token group, the causal convolution per
+row) they go through :func:`on_rows`: each rank runs the op on its own
+block of the batch, everything else gathered.  The rest go through
+:func:`replicated`: gathered to ``Replicate`` on every mesh dimension, the
+op run on the full local tensors, and the result wrapped as replicated —
+the counterpart of GSPMD's replicate fallback.  Each such site calls one
+of them by name (``CHANGES.md`` lists them).
 """
 from __future__ import annotations
 
@@ -270,6 +273,66 @@ def replicated(fn: Callable, *args, **kwargs):
         return out
     rep = [Replicate()] * mesh.ndim
     wrap = lambda o: (DTensor.from_local(o, mesh, rep, run_check=False)  # noqa: E731
+                      if isinstance(o, torch.Tensor) else o)
+    if isinstance(out, tuple):
+        return type(out)(wrap(o) for o in out)
+    return wrap(out)
+
+
+def block_of(t, mesh, target, partial_on: Sequence[int] = ()) -> torch.Tensor:
+    """This rank's block of ``t`` under the placements ``target`` (a plain
+    tensor counts as replicated), differentiable.  The mesh dims in
+    ``partial_on`` are those along which this rank uses only part of the
+    block (its own rows, or heads, of a computation that reads it whole):
+    there its gradient is a ``Partial`` sum."""
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return t.redistribute(mesh, target).to_local(grad_placements=[
+        Partial() if i in partial_on else p for i, p in enumerate(target)])
+
+
+def shard_block(mesh, placements_, dim: int, extent: int) -> Tuple[int, int]:
+    """``(size, start)`` of this rank's block of a tensor dim ``dim`` of
+    ``extent`` elements under ``placements_`` (an even split; a dim split
+    over several mesh dims in mesh order, major first)."""
+    size, start = extent, 0
+    for i, p in enumerate(placements_):
+        if p == Shard(dim):
+            size //= mesh.size(i)
+            start += mesh.get_local_rank(i) * size
+    return size, start
+
+
+def on_rows(fn: Callable, *args, whole: Sequence[int] = ()):
+    """``fn`` on each rank's own rows: where the active rules shard the
+    batch, every tensor argument (but those at the indices in ``whole``,
+    taken whole) is cut to this rank's block of its dim 0, the batch axes'
+    block, and gathered on every other mesh dimension; tensor results are
+    wrapped back as that block of rows.  For ops whose rows are
+    independent (per-group routing, a per-row convolution) and that
+    DTensor cannot place.  Without a DTensor argument ``fn(*args)`` as it
+    is; where the batch is not sharded, :func:`replicated`.
+    Differentiable."""
+    mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)), None)
+    if mesh is None:
+        return fn(*args)
+    first = next(a for i, a in enumerate(args)
+                 if isinstance(a, torch.Tensor) and i not in whole)
+    rows = placements(pspec(("batch",), (first.shape[0],)), mesh)
+    if all(p == Replicate() for p in rows):
+        return replicated(fn, *args)
+    rep = [Replicate()] * mesh.ndim
+    row_dims = [j for j, p in enumerate(rows) if p != Replicate()]
+
+    def cut(i, a):
+        if not isinstance(a, torch.Tensor):
+            return a
+        if i in whole:              # read by this rank's rows only
+            return block_of(a, mesh, rep, partial_on=row_dims)
+        return block_of(a, mesh, rows)
+
+    out = fn(*(cut(i, a) for i, a in enumerate(args)))
+    wrap = lambda o: (DTensor.from_local(o, mesh, rows, run_check=False)  # noqa: E731
                       if isinstance(o, torch.Tensor) else o)
     if isinstance(out, tuple):
         return type(out)(wrap(o) for o in out)

@@ -160,6 +160,23 @@ def cache_pspecs(caches: Any) -> Any:
     return one(caches)
 
 
+def place_caches(caches: Any, specs: Any, mesh) -> Any:
+    """The dense decode caches' tensors (``KVCache`` / ``MambaCache``
+    fields) as DTensors placed by :func:`cache_pspecs`' specs, as
+    :func:`place` places a param tree."""
+    def one(node, spec):
+        fields = _cache_fields(node)
+        if fields is not None:
+            return dataclasses.replace(node, **{
+                name: shd.distribute(leaf, shd.NamedSharding(mesh, getattr(spec, name)))
+                for name, leaf in fields.items() if leaf is not None})
+        if isinstance(node, dict):
+            return {k: one(v, spec[k]) for k, v in node.items()}
+        raise TypeError(f"not a cache: {type(node).__name__}")
+
+    return one(caches, specs)
+
+
 # ---------------------------------------------------------------------------
 # abstract inputs
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.core.engine import (
@@ -39,11 +40,18 @@ from repro_torch.core.engine import (
 from repro_torch.launch.sharding import (
     DTensor,
     NamedSharding,
+    P,
+    active_mesh,
+    block_of,
     constrain,
     distribute,
+    full,
     local_of,
     paged_cache_axes,
+    placements,
+    pspec,
     replicated,
+    shard_block,
     spec_of,
 )
 from repro_torch.models import kv_quant as _kvq
@@ -166,9 +174,9 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
         q, k, v = dense(x, p["wq"]), dense(x, p["wk"]), dense(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, t, cfg.n_heads, hd)
-    k = k.reshape(b, t, cfg.n_kv_heads, hd)
-    v = v.reshape(b, t, cfg.n_kv_heads, hd)
+    q = _split_heads(q, cfg.n_heads, hd, "heads")
+    k = _split_heads(k, cfg.n_kv_heads, hd, "kv_heads")
+    v = _split_heads(v, cfg.n_kv_heads, hd, "kv_heads")
     if cfg.qk_norm:
         q = rms_norm_headwise(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm_headwise(k, p["k_norm"], cfg.norm_eps)
@@ -177,6 +185,23 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     k = constrain(apply_rope(k, ang), ("batch", "seq", "kv_heads", "head_dim"))
     v = constrain(v, ("batch", "seq", "kv_heads", "head_dim"))
     return q, k, v
+
+
+def _split_heads(y: torch.Tensor, n: int, hd: int, axis: str) -> torch.Tensor:
+    """[B, T, n·hd] → [B, T, n, hd].  On a mesh the flat projection is
+    first placed as the 4-D result resolves (``axis`` on its mesh axes, or
+    replicated where ``n`` does not divide them while ``n·hd`` does: 8 KV
+    heads on a 16-way model axis), GSPMD's implicit reshard, where DTensor
+    refuses to unflatten an uneven split.  A plain tensor is reshaped as
+    it is."""
+    b, t, _ = y.shape
+    mesh = active_mesh()
+    if isinstance(y, DTensor) and mesh is not None:
+        spec = tuple(pspec(("batch", "seq", axis, "head_dim"), (b, t, n, hd)))
+        target = placements(P(*(spec + (None,) * 3)[:3]), mesh)
+        if tuple(y.placements) != target:
+            y = y.redistribute(mesh, target)
+    return y.reshape(b, t, n, hd)
 
 
 def _in_dtype(value: float, dtype: torch.dtype) -> float:
@@ -339,10 +364,12 @@ def _head_parallel(fn, q, k, v, *args, batch_args=(), **kwargs):
     (dim 2: a contiguous block of q heads reads the matching block of KV
     heads when both counts divide the ranks) and gathers only the rest;
     its output is flattened locally (a block of heads is a block of
-    H·hd) and placed as q.  ``batch_args`` ([B, ..]) are cut by rows
-    alike, ``args`` are taken whole.  Without a DTensor operand, ``fn`` as
-    it is; where the KV heads do not divide, the whole core runs
-    replicated."""
+    H·hd) and placed as q.  Where the KV heads do not divide the ranks but
+    each rank's block of q heads lies in one KV head's group (32 heads
+    over 8 KV heads on 16 ranks), the rank reads that one KV head.
+    ``batch_args`` ([B, ..]) are cut by rows alike, ``args`` are taken
+    whole.  Without a DTensor operand, ``fn`` as it is; where the heads
+    fit neither way, the whole core runs replicated."""
     if not any(isinstance(t, DTensor) for t in (q, k, v)):
         return fn(q, k, v, *batch_args, *args, **kwargs).flatten(2)
     mesh = next(t.device_mesh for t in (q, k, v) if isinstance(t, DTensor))
@@ -352,19 +379,20 @@ def _head_parallel(fn, q, k, v, *args, batch_args=(), **kwargs):
     split = 1
     for size, p in zip(mesh.shape, place):
         split *= size if p == Shard(2) else 1
-    if q.shape[2] % split or k.shape[2] % split:
+    h, kv = q.shape[2], k.shape[2]
+    if h % split or (kv % split and (h // kv) % (h // split)):
         return replicated(lambda *a, **kw: fn(*a, **kw).flatten(2), q, k, v,
                           *batch_args, *args, **kwargs)
     rows = [p if p == Shard(0) else Replicate() for p in place]
-
-    def cut(t, target):
-        if not isinstance(t, DTensor):
-            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
-                                   run_check=False)
-        return t.redistribute(mesh, target).to_local()
-
-    y = fn(*(cut(t, place) for t in (q, k, v)),
-           *(cut(a, rows) for a in batch_args),
+    if kv % split:                  # the KV head of this rank's q heads
+        head = shard_block(mesh, place, 2, h)[1] // (h // kv)
+        heads_dims = [i for i, p in enumerate(place) if p == Shard(2)]
+        ks, vs = (block_of(t, mesh, rows, partial_on=heads_dims)[:, :, head:head + 1]
+                  for t in (k, v))
+    else:
+        ks, vs = block_of(k, mesh, place), block_of(v, mesh, place)
+    y = fn(block_of(q, mesh, place), ks, vs,
+           *(block_of(a, mesh, rows) for a in batch_args),
            *(a.full_tensor() if isinstance(a, DTensor) else a for a in args),
            **kwargs)
     return DTensor.from_local(y.flatten(2), mesh, place, run_check=False)
@@ -376,6 +404,58 @@ def _decode_attention(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
     probs = _masked_softmax(scores, mask[:, None, None], cfg.softmax_dtype,
                             cfg.attn_mask_mode).to(q.dtype)
     return _gqa_out(probs, v)
+
+
+def _seq_sharded(cache_k) -> bool:
+    """Whether a dense cache [B, S, kv, hd] is placed with its positions
+    sharded and its heads whole (the KV heads' divisibility fallback)."""
+    return (isinstance(cache_k, DTensor) and Shard(1) in cache_k.placements
+            and Shard(2) not in cache_k.placements)
+
+
+def _seq_parallel_decode(q, k: DTensor, v: DTensor, mask, cfg: ModelConfig):
+    """Decode attention over a cache whose positions are sharded: each
+    rank attends every head of its rows over its own block of positions
+    (max and row sum in float32, unnormalised PV in the cache's dtype),
+    and the blocks combine as an online softmax does (the max over the
+    position axes, each block's sum and PV rescaled to it and summed), so
+    no rank gathers the cache.  [B,T,H·hd] out, placed as the rows."""
+    from repro_torch.launch.mesh import pmax, psum
+
+    mesh, names = k.device_mesh, k.device_mesh.mesh_dim_names
+    pl = k.placements
+    seq_axes = [names[i] for i, p in enumerate(pl) if p == Shard(1)]
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in pl]
+    block = [Shard(0) if p == Shard(0) else Shard(1) if p == Shard(1)
+             else Replicate() for p in pl]
+    mask_block = [Shard(2) if p == Shard(1) else p for p in block]
+    ql, kl, vl = (block_of(q, mesh, rows), block_of(k, mesh, block),
+                  block_of(v, mesh, block))
+    ml = block_of(mask, mesh, mask_block)
+    sd = getattr(torch, str(cfg.softmax_dtype).replace("torch.", ""))
+    scores = _gqa_scores(ql, kl).to(sd)                      # [b,kv,g,T,S/n]
+    neg = torch.tensor(NEG_INF, dtype=sd, device=scores.device)
+    if cfg.attn_mask_mode == "additive":
+        scores = scores + torch.where(ml[:, None, None], torch.zeros(
+            (), dtype=sd, device=scores.device), neg)
+    else:
+        scores = torch.where(ml[:, None, None], scores, neg)
+    f32 = torch.float32
+    m = torch.amax(scores, dim=-1).to(f32)
+    top = m
+    for a in seq_axes:
+        top = pmax(top, a, mesh)
+    p = torch.exp(scores.to(f32) - m[..., None])
+    scale = torch.exp(m - top)
+    l = torch.sum(p, dim=-1) * scale  # noqa: E741
+    # PV in the cache's dtype, as the unsharded read's is
+    o = torch.einsum("bkgts,bskd->btkgd", p.to(vl.dtype), vl).to(f32) \
+        * scale.permute(0, 3, 1, 2)[..., None]
+    for a in seq_axes:
+        l, o = psum(l, a, mesh), psum(o, a, mesh)  # noqa: E741
+    y = (o / l.permute(0, 3, 1, 2)[..., None]).to(q.dtype)
+    y = y.reshape(y.shape[0], y.shape[1], -1)
+    return DTensor.from_local(y, mesh, rows, run_check=False)
 
 
 def _naive_attention(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
@@ -450,9 +530,18 @@ def _chunked_attention(q, k, v, q_offset: int, chunk: int) -> torch.Tensor:
 def _dense_cache_write(k, v, cache: KVCache, tpos, cfg: ModelConfig) -> None:
     """Write this step's K/V rows into the dense cache in place: at each
     row's own positions (``scatter``), or as one slice at row 0's first
-    position, clamped to fit as a dynamic update slice is (``slice``)."""
+    position, clamped to fit as a dynamic update slice is (``slice``).  A
+    cache placed on a mesh takes either as positions on each rank's block
+    (:func:`_write_sharded`)."""
     t = k.shape[1]
-    if cfg.cache_mode == "slice":
+    if isinstance(cache.k, DTensor):
+        if cfg.cache_mode == "slice":   # the slice's positions, on the device
+            first = full(tpos)[0, 0].long().clamp(0, cache.k.shape[1] - t)
+            tpos = (first + torch.arange(t, device=first.device))[None].expand(
+                k.shape[0], t)
+        _write_sharded(cache.k, k, tpos)
+        _write_sharded(cache.v, v, tpos)
+    elif cfg.cache_mode == "slice":
         start = min(max(int(tpos[0, 0]), 0), cache.k.shape[1] - t)
         cache.k[:, start:start + t] = k.to(cache.k.dtype)
         cache.v[:, start:start + t] = v.to(cache.v.dtype)
@@ -462,6 +551,37 @@ def _dense_cache_write(k, v, cache: KVCache, tpos, cfg: ModelConfig) -> None:
         cache.k[rows, tp] = k.to(cache.k.dtype)
         cache.v[rows, tp] = v.to(cache.v.dtype)
     cache.length.add_(t)
+
+
+def _write_sharded(cache: DTensor, rows, tpos) -> None:
+    """``cache[b, tpos[b, i]] = rows[b, i]`` into a dense cache placed on a
+    mesh ([B, S, kv, hd], batch, positions and heads possibly sharded), on
+    each rank's local block in place: DTensor refuses an in-place
+    ``index_put_`` whose operands it would have to move.  The rows come to
+    the cache's placements (their T axis whole); where the positions are
+    sharded, an entry outside the rank's block writes back what its
+    clamped slot holds, or the entry that lands there (the last of them),
+    so every write to one slot carries one value."""
+    mesh, pl = cache.device_mesh, tuple(cache.placements)
+    new = block_of(rows.to(cache.dtype), mesh,
+                   [Replicate() if p == Shard(1) else p for p in pl])
+    tp = block_of(tpos, mesh, [p if p == Shard(0) else Replicate()
+                               for p in pl]).long()
+    local = cache.to_local()
+    b = torch.arange(local.shape[0], device=local.device)[:, None]
+    if Shard(1) not in pl:
+        local[b, tp] = new
+        return
+    s_loc, start = shard_block(mesh, pl, 1, cache.shape[1])
+    lp = tp - start
+    valid = (lp >= 0) & (lp < s_loc)
+    lp = lp.clamp(0, s_loc - 1)
+    entry = torch.arange(lp.shape[1], device=lp.device).expand_as(lp)
+    lands = torch.full((lp.shape[0], s_loc), -1, dtype=torch.long, device=lp.device)
+    lands.scatter_reduce_(1, lp, torch.where(valid, entry, -1), reduce="amax")
+    src = lands.gather(1, lp)
+    pick = new[b, src.clamp(min=0)]
+    local[b, lp] = torch.where((src >= 0)[..., None, None], pick, local[b, lp])
 
 
 def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
@@ -492,7 +612,9 @@ def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
         y = dense(y.reshape(b, t, cfg.q_dim), p["wo"])
         return constrain(y, ("batch", "seq", "embed"))
     if cache is not None:
-        warm = update_cache and t > 1 and int(cache.length) > 0
+        # traced on fake tensors (the dry-run), a prefill's caches are empty
+        warm = (update_cache and t > 1 and not is_fake(cache.length)
+                and int(cache.length) > 0)
         if warm:
             raise ValueError(
                 "chunked prefill into a warm dense KVCache is not supported: "
@@ -506,8 +628,11 @@ def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
         if not (update_cache and t > 1):
             kpos = torch.arange(cache.k.shape[1], device=x.device)
             mask = kpos[None, None, :] <= tpos.long()[:, :, None]  # [B,T,S]
-            y = _head_parallel(_decode_attention, q, cache.k, cache.v, cfg,
-                               batch_args=(mask,))
+            if _seq_sharded(cache.k):
+                y = _seq_parallel_decode(q, cache.k, cache.v, mask, cfg)
+            else:
+                y = _head_parallel(_decode_attention, q, cache.k, cache.v, cfg,
+                                   batch_args=(mask,))
             y = dense(y, p["wo"])
             return constrain(y, ("batch", "seq", "embed"))
     # no cache, or a prefill into an empty dense cache: the fresh segment

@@ -138,6 +138,15 @@ class ModelConfig:
                 "implement")
         return cls(**{k: v for k, v in raw.items() if k in ours})
 
+    def with_levers(self, **levers) -> "ModelConfig":
+        """``dataclasses.replace`` by the reference's config levers (the
+        §Perf variants): a reference-only lever that changes nothing here
+        (``scan_unroll``; ``prefill_last_only``, as the port's prefill
+        always slices the last position) is dropped, any other unknown
+        field raises."""
+        return dataclasses.replace(
+            self, **{k: v for k, v in levers.items() if k not in _INERT})
+
     # ---- derived ------------------------------------------------------------
     @property
     def head_dim_(self) -> int:

@@ -19,8 +19,8 @@ from repro_torch.launch.sharding import (
     Partial,
     Replicate,
     Shard,
+    block_of,
     constrain,
-    full,
     replicated,
 )
 from repro_torch.models.config import ModelConfig
@@ -186,28 +186,33 @@ def _vocab_parallel_rows(table, tokens: torch.Tensor):
     """The vocab-parallel lookup: each rank reads the ids that fall in its
     slice of the vocab (zeros for the others), and the ranks' rows are a
     ``Partial`` sum over the vocab's mesh dim — one non-zero term each, so
-    the sum is exact.  Its backward gives each rank the gradient of its own
-    rows.  (DTensor's own strategy for an embedding on a vocab-sharded table
-    has no backward: it cannot turn a ``Partial`` gradient into its masked
-    partial.)"""
+    the sum is exact.  Ids placed on a mesh keep their batch rows where
+    they are sharded (each rank looks up its own rows only).  Its backward
+    gives each rank the gradient of its own rows.  (DTensor's own strategy
+    for an embedding on a vocab-sharded table has no backward: it cannot
+    turn a ``Partial`` gradient into its masked partial.)"""
     mesh = table.device_mesh
     vocab_dims = [i for i, pl in enumerate(table.placements)
                   if isinstance(pl, Shard) and pl.dim == 0]
     if len(vocab_dims) != 1:
         return replicated(F.embedding, tokens.long(), table)
     (vd,) = vocab_dims
-    local = table.redistribute(mesh, [pl if i == vd else Replicate()
-                                      for i, pl in enumerate(table.placements)])
-    ids = full(tokens).long()
-    rows = local.to_local()
+    rows_pl = [Shard(0) if i != vd and pl == Shard(0) else Replicate()
+               for i, pl in enumerate(tokens.placements if isinstance(tokens, DTensor)
+                                      else [Replicate()] * mesh.ndim)]
+    ids = block_of(tokens, mesh, rows_pl).long()
+    # the table's gradient from this rank's rows is a part of the whole
+    rows = block_of(table, mesh, [pl if i == vd else Replicate()
+                                  for i, pl in enumerate(table.placements)],
+                    partial_on=[i for i, p in enumerate(rows_pl) if p == Shard(0)])
     start = mesh.get_local_rank(vd) * rows.shape[0]
     ids = ids - start
     outside = (ids < 0) | (ids >= rows.shape[0])
     out = F.embedding(torch.where(outside, 0, ids), rows)
     out = torch.where(outside[..., None], torch.zeros((), dtype=out.dtype,
                                                       device=out.device), out)
-    return DTensor.from_local(out, mesh, [Partial() if i == vd else Replicate()
-                                          for i in range(mesh.ndim)],
+    return DTensor.from_local(out, mesh, [Partial() if i == vd else pl
+                                          for i, pl in enumerate(rows_pl)],
                               run_check=False)
 
 

@@ -11,13 +11,25 @@ a frozen block's ``in_proj`` and ``out_proj`` take the DA datapath.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.engine import dense
-from repro_torch.launch.sharding import constrain, replicated
+from repro_torch.launch.sharding import (
+    DTensor,
+    Replicate,
+    Shard,
+    block_of,
+    constrain,
+    on_rows,
+    placements,
+    pspec,
+    replicated,
+    shard_block,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _mean_square, normal_init
 
@@ -184,6 +196,50 @@ def ssd_step(state, x, dt, a, bmat, cmat):
     return y, new_state
 
 
+def _on_blocks(fn, x, dt, a, bmat, cmat, state=None):
+    """``fn(state, x, dt, a, bmat, cmat)`` → ``(y, new state)``, the SSD
+    scan or step, run on each rank's own rows and heads where its
+    operands are placed on a mesh: x ``[B, (T,) H, P]``, dt ``[B, (T,)
+    H]``, a ``[H]``, bmat / cmat ``[B, (T,) G, S]``, state ``[B, H, P,
+    S]`` or None.  Rows and heads are independent; the rules place them
+    (``batch``, ``ssm_heads``), and a rank's block of heads reads the B/C
+    groups it spans.  y and the state come back placed so.  Without a
+    DTensor operand, ``fn`` as it is; where a block of heads straddles
+    groups unevenly, the whole scan runs replicated."""
+    if not any(isinstance(t, DTensor) for t in (x, dt, bmat, cmat, state)):
+        return fn(state, x, dt, a, bmat, cmat)
+    mesh = next(t.device_mesh for t in (x, dt, bmat, cmat, state)
+                if isinstance(t, DTensor))
+    hd = x.ndim - 2                            # the heads' dim of x
+    h, g = x.shape[hd], bmat.shape[-2]
+    place = placements(pspec(("batch", "ssm_heads"), (x.shape[0], h)), mesh)
+    split = math.prod(mesh.size(i) for i, p in enumerate(place) if p == Shard(1))
+    hb, per_g = h // split, h // g
+    if hb % per_g and per_g % hb:
+        return replicated(lambda *a_: fn(a_[-1], *a_[:-1]), x, dt, a, bmat,
+                          cmat, state)
+    g0, gn = shard_block(mesh, place, 1, h)[1] // per_g, max(1, hb // per_g)
+
+    def cut(t, rows, heads):
+        """t's block: its dim ``rows`` on the batch axes, ``heads`` on the
+        heads axes (None: whole, and read by this rank's part only)."""
+        target = [Shard(rows) if p == Shard(0) and rows is not None else
+                  Shard(heads) if p == Shard(1) and heads is not None else
+                  Replicate() for p in place]
+        part = [i for i, p in enumerate(place) if p != Replicate()
+                and target[i] == Replicate()]
+        return block_of(t, mesh, target, partial_on=part)
+
+    y, new = fn(None if state is None else cut(state, 0, 1), cut(x, 0, hd),
+                cut(dt, 0, dt.ndim - 1), cut(a, None, 0),
+                cut(bmat, 0, None).narrow(-2, g0, gn),
+                cut(cmat, 0, None).narrow(-2, g0, gn))
+    wrap = lambda t, d: DTensor.from_local(  # noqa: E731
+        t, mesh, [Shard(d) if p == Shard(1) else p for p in place],
+        run_check=False)
+    return wrap(y, hd), wrap(new, 1)
+
+
 def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig,
                   cache: Optional[MambaCache] = None,
                   update_cache: bool = False) -> torch.Tensor:
@@ -196,8 +252,8 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig,
     z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
 
     conv_in = cache.conv if cache is not None else None
-    xbc, new_conv = replicated(_causal_conv, xbc, p["conv_w"], p["conv_b"],
-                               conv_in)
+    xbc, new_conv = on_rows(_causal_conv, xbc, p["conv_w"], p["conv_b"],
+                            conv_in, whole=(1, 2))
     gs = cfg.ssm_groups * s
     di = cfg.d_inner
     xh = xbc[..., :di].reshape(b, t, h, pdim)
@@ -208,13 +264,15 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig,
     a = -torch.exp(p["A_log"])
 
     if cache is not None and t == 1 and not update_cache:
-        y1, new_ssm = replicated(ssd_step, cache.ssm, xh[:, 0], dt[:, 0], a,
-                                 bmat[:, 0], cmat[:, 0])
+        y1, new_ssm = _on_blocks(
+            lambda s_, x_, dt_, a_, b_, c_: ssd_step(s_, x_, dt_, a_, b_, c_),
+            xh[:, 0], dt[:, 0], a, bmat[:, 0], cmat[:, 0], cache.ssm)
         y = y1[:, None]
     else:
-        y, new_ssm = replicated(ssd_chunked, xh, dt, a, bmat, cmat,
-                                cfg.ssm_chunk,
-                                cache.ssm if cache is not None else None)
+        y, new_ssm = _on_blocks(
+            lambda s_, x_, dt_, a_, b_, c_: ssd_chunked(
+                x_, dt_, a_, b_, c_, cfg.ssm_chunk, s_),
+            xh, dt, a, bmat, cmat, cache.ssm if cache is not None else None)
 
     y = y + p["D"][None, None, :, None] * xh.to(torch.float32)
     y = y.reshape(b, t, di)

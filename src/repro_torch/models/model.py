@@ -30,7 +30,14 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.device import resolve_device
-from repro_torch.launch.sharding import constrain, replicated
+from repro_torch.launch.sharding import (
+    DTensor,
+    Replicate,
+    Shard,
+    block_of,
+    constrain,
+    shard_block,
+)
 from repro_torch.models.attention import (
     KVCache,
     attention_forward,
@@ -189,9 +196,12 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy in float32 (on the full logits, replicated,
-    when they are placed on a mesh)."""
-    return replicated(_lm_loss, logits, labels)
+    """Mean token cross-entropy in float32.  Logits placed on a mesh are
+    reduced where they lie (:func:`_sharded_lm_loss`); a replicated
+    DTensor result."""
+    if isinstance(logits, DTensor):
+        return _sharded_lm_loss(logits, labels)
+    return _lm_loss(logits, labels)
 
 
 def _lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -201,6 +211,45 @@ def _lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean(logz - gold)
 
 
+def _sharded_lm_loss(logits: DTensor, labels) -> DTensor:
+    """The loss on each rank's block of the logits: its rows where the
+    batch or sequence is sharded, its slice of the vocab where that is
+    (Megatron's vocab-parallel cross-entropy: the log-sum-exp's max and
+    sum, and the gold logit, combined over the vocab's mesh axes), the
+    tokens' sum over the rows' axes.  No rank holds the global logits.
+    Every rank ends with the same scalar; the combines (``psum``) pass
+    each rank's cotangent through as it is, as that replicated scalar's
+    gradient is."""
+    from repro_torch.launch.mesh import pmax, psum
+
+    mesh, names = logits.device_mesh, logits.device_mesh.mesh_dim_names
+    pl = [p if isinstance(p, Shard) else Replicate() for p in logits.placements]
+    if pl != list(logits.placements):          # a Partial sum: reduce it
+        logits = logits.redistribute(mesh, pl)
+    rows_pl = [p if p.is_shard() and p.dim < 2 else Replicate() for p in pl]
+    vocab_axes = [names[i] for i, p in enumerate(pl) if p == Shard(2)]
+    row_axes = [names[i] for i, p in enumerate(pl) if p.is_shard() and p.dim < 2]
+    lab = block_of(labels, mesh, rows_pl).long()
+    x = logits.to_local().to(torch.float32)            # [b, t, v]
+    n, start = shard_block(mesh, pl, 2, logits.shape[-1])    # the vocab block
+    m = torch.amax(x.detach(), dim=-1)
+    for a in vocab_axes:
+        m = pmax(m, a, mesh)
+    se = torch.sum(torch.exp(x - m[..., None]), dim=-1)
+    idx = lab - start
+    hit = (idx >= 0) & (idx < n)
+    gold = torch.gather(x, -1, torch.where(hit, idx, 0)[..., None])[..., 0]
+    gold = torch.where(hit, gold, torch.zeros((), dtype=x.dtype, device=x.device))
+    for a in vocab_axes:
+        se, gold = psum(se, a, mesh), psum(gold, a, mesh)
+    total = torch.sum(m + torch.log(se) - gold)
+    for a in row_axes:
+        total = psum(total, a, mesh)
+    loss = total / (labels.shape[0] * labels.shape[1])
+    return DTensor.from_local(loss, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
 class _ShapeGen:
     """Stands in for a generator on the meta device: the init functions
     then build tensors with shapes and dtypes and no data."""
@@ -208,10 +257,16 @@ class _ShapeGen:
     device = torch.device("meta")
 
 
+def abstract_params(cfg: ModelConfig) -> Params:
+    """:func:`init_model`'s tree for ``cfg`` on the meta device: shapes and
+    dtypes, no bytes."""
+    return _init_tree(_ShapeGen(), cfg)
+
+
 def count_params(cfg: ModelConfig) -> int:
     """Parameters of :func:`init_model`'s tree for ``cfg``, counted from the
     tree's shapes (built on the meta device, no bytes)."""
-    return sum(math.prod(x.shape) for x in leaves(_init_tree(_ShapeGen(), cfg)))
+    return sum(math.prod(x.shape) for x in leaves(abstract_params(cfg)))
 
 
 def count_active_params(cfg: ModelConfig) -> int:

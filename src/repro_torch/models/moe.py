@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.engine import dense
-from repro_torch.launch.sharding import constrain, replicated
+from repro_torch.launch.sharding import constrain, on_rows
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_mlp, init_mlp, normal_init
 
@@ -137,8 +137,8 @@ def moe_forward_sorted(p, xg: torch.Tensor, gates: torch.Tensor,
     """Sorted-dispatch expert layer on grouped tokens xg [G, S, D]."""
     g, s, d = xg.shape
     e = gates.shape[-1]
-    token_for_slot, weight_for_slot = replicated(_sorted_dispatch, gates,
-                                                 cfg.top_k, cap)
+    token_for_slot, weight_for_slot = on_rows(_sorted_dispatch, gates,
+                                              cfg.top_k, cap)
     xg_pad = torch.cat([xg, xg.new_zeros((g, 1, d))], dim=1)
     rows = torch.arange(g, device=xg.device)[:, None]
     xe = xg_pad[rows, token_for_slot].reshape(g, e, cap, d)
@@ -173,16 +173,16 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     xg = constrain(xf.reshape(g, s, d), ("batch", None, "embed"))
     cap = capacity(cfg, s)
 
-    gates = replicated(_gates, xg, p["router"], cfg.n_experts)
+    gates = on_rows(_gates, xg, p["router"], cfg.n_experts, whole=(1,))
 
     if cfg.moe_impl == "sorted":
         y = moe_forward_sorted(p, xg, gates, cfg, cap)
     else:
-        dispatch, combine = replicated(_topk_dispatch, gates, cfg.top_k, cap)
-        xe = replicated(torch.einsum, "gsec,gsd->gecd", dispatch.to(x.dtype), xg)
+        dispatch, combine = on_rows(_topk_dispatch, gates, cfg.top_k, cap)
+        xe = on_rows(torch.einsum, "gsec,gsd->gecd", dispatch.to(x.dtype), xg)
         xe = constrain(xe, ("batch", "expert", None, "embed"))
         ye = constrain(_moe_experts(p, xe), ("batch", "expert", None, "embed"))
-        y = replicated(torch.einsum, "gsec,gecd->gsd", combine.to(x.dtype), ye)
+        y = on_rows(torch.einsum, "gsec,gecd->gsd", combine.to(x.dtype), ye)
     y = y.reshape(g * s, d)[:n].reshape(b, t, d)
     if "shared" in p:
         y = y + apply_mlp(p["shared"], x, cfg)

@@ -25,6 +25,14 @@ A. 4 ranks:
    (5) a LUT-frozen ``--smoke`` qwen3-8b sharded over the model axis: each
        rank's ``wq`` / ``w_scale`` / ``luts`` N/2 wide, logits within 1e-4
        of the unsharded port and of JAX's sharded forward, argmax equal;
+   (2b) the ``--smoke`` MoE config with the sort-based dispatch
+       (``moe_impl="sorted"``), and qwen3-8b with one KV head, on (2, 2)
+       against one device, at the dense dispatch's bound;
+   (8) a prefill and three decode steps through dense caches placed on a
+       (2, 2) mesh, one KV head (neither it nor its flat projection's
+       split divides the model axis, so the caches fall back to their
+       sequence axis; a prefill row crosses the ranks' blocks): logits
+       within 1e-4 and caches within 1e-5 of the unsharded port;
    (7a) the launcher's rank body at ``--mesh 2x2``, with one microbatch
        and with two: losses within 1e-3 of ``--mesh 1x1``.
 B. 2 ranks: (6) a tensor-parallel ``PagedScheduler`` serve of the CI
@@ -199,6 +207,12 @@ def _train_step_vocab_sharded():
 
 
 FAMILIES = ("mamba2-780m", "qwen2-moe-a2.7b", "jamba-1.5-large-398b")
+#: configs again with a lever: the MoE with the sort-based dispatch, and
+#: qwen3 with one KV head (its K/V projections' split does not divide the
+#: model axis: each rank's q heads read the one KV head, its gradient a
+#: partial sum)
+LEVERS = {"qwen2-moe-a2.7b:sorted": ("qwen2-moe-a2.7b", {"moe_impl": "sorted"}),
+          "qwen3-8b:kv1": ("qwen3-8b", {"n_kv_heads": 1})}
 
 
 def _train_step_families():
@@ -217,8 +231,9 @@ def _train_step_families():
 
     mesh = make_test_mesh((2, 2), ("data", "model"))
     out = {}
-    for arch in FAMILIES:
-        cfg = dataclasses.replace(reduce_for_smoke(ARCHS[arch]), vocab=98)
+    for arch in FAMILIES + tuple(LEVERS):
+        name, levers = LEVERS.get(arch, (arch, {}))
+        cfg = dataclasses.replace(reduce_for_smoke(ARCHS[name]), vocab=98, **levers)
         dc = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=8, seed=0)
         batch = {k: torch.as_tensor(v) for k, v in batch_at(dc, 0).items()}
         params = init_model(cfg, seed=0, device="cpu")
@@ -231,6 +246,50 @@ def _train_step_families():
         out[arch] = {k: (float(shd.full(m_sh[k])), float(m_ref[k]))
                      for k in ("loss", "grad_norm")}
     return out
+
+
+def _dense_cache_on_a_mesh():
+    """(8): the prefill and decode steps of the slot runtime's dense caches
+    on a (2, 2) mesh (``launch/specs.py: place_caches``) against one
+    device."""
+    from repro_torch.configs.registry import ARCHS, reduce_for_smoke
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import init_caches, init_model
+    from repro_torch.serve.engine import make_prefill_step, make_serve_step
+
+    cfg = dataclasses.replace(reduce_for_smoke(ARCHS["qwen3-8b"]), n_kv_heads=1,
+                              vocab=98)
+    params = init_model(cfg, seed=0, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(3).integers(0, 98, (2, 17)))
+    prefill, decode = make_prefill_step(cfg), make_serve_step(cfg)
+
+    def run(params, caches, place):
+        pos = torch.arange(14, dtype=torch.int32)[None].expand(2, 14)
+        out, caches = prefill(params, caches, place(toks[:, :14]), place(pos))
+        logits = [shd.full(out)]
+        for i in range(14, 17):
+            p = torch.full((2, 1), i, dtype=torch.int32)
+            out, caches = decode(params, caches, place(toks[:, i:i + 1]), place(p))
+            logits.append(shd.full(out))
+        return torch.stack(logits), caches
+
+    with torch.no_grad():
+        one, one_c = run(params, init_caches(cfg, 2, 24, device="cpu"), lambda t: t)
+        mesh = make_test_mesh((2, 2), ("data", "model"))
+        with shd.use_mesh_rules(mesh):
+            caches = init_caches(cfg, 2, 24, device="cpu")
+            caches = SP.place_caches(caches, SP.cache_pspecs(caches), mesh)
+            rows = lambda t: shd.distribute(t, shd.NamedSharding(  # noqa: E731
+                mesh, shd.pspec(("batch", None), t.shape)))
+            sharded, sh_c = run(SP.place(params, SP.tree_pspecs(params), mesh),
+                                caches, rows)
+    k = sh_c["pos_0"].k
+    return {"logits": sharded.numpy(), "logits_1": one.numpy(),
+            "k": k.full_tensor().numpy(), "k_1": one_c["pos_0"].k.numpy(),
+            "k_local": tuple(k.to_local().shape),
+            "length": int(shd.full(sh_c["pos_0"].length)[0])}
 
 
 def _train_step(ref_dir, rules):
@@ -348,6 +407,7 @@ def _four_ranks(ref_dir, ref):
            "fsdp": _train_step(ref_dir, FSDP_RULES),
            "vocab": _train_step_vocab_sharded(),
            "families": _train_step_families(),
+           "dense_cache": _dense_cache_on_a_mesh(),
            "gpipe": _gpipe(ref["pipe_ws"], ref["pipe_x"]),
            "allreduce": _allreduce(ref["ar_g1"], ref["ar_g2"]),
            "lut": _lut_forward(ref_dir, ref["lut_toks"]),
@@ -420,11 +480,20 @@ def test_vocab_sharded_bf16_train_step_matches_one_device(four):
         np.testing.assert_allclose(got["table"], got["table_1"], atol=PARAM_ATOL)
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", FAMILIES + tuple(LEVERS))
 def test_family_train_step_on_a_mesh_matches_one_device(four, arch):
     for rank in four:
         for key, (sharded, one) in rank["families"][arch].items():
             assert abs(sharded - one) < LOSS_TOL * max(1.0, abs(one)), (key, sharded, one)
+
+
+def test_dense_caches_on_a_mesh_match_one_device(four):
+    for rank in four:
+        got = rank["dense_cache"]
+        assert got["k_local"] == (2, 1, 12, 1, 16)   # [P, B/2, S/2, kv, hd]
+        assert got["length"] == 17
+        np.testing.assert_allclose(got["logits"], got["logits_1"], atol=LOGIT_TOL)
+        np.testing.assert_allclose(got["k"], got["k_1"], atol=1e-5)
 
 
 def test_fsdp_rules_shard_w_up_over_both_axes(four, ref):
