@@ -17,6 +17,8 @@
     python3 chip_smoke.py --phase train      # build, then phase 22 alone
     python3 chip_smoke.py --phase distributed  # build, then phase 23 alone
     python3 chip_smoke.py --phase dryrun     # build, phase 22, then phase 24
+    python3 chip_smoke.py --phase analysis_sweep  # build, then the nightly
+                                             # static-analysis sweep
     python3 chip_smoke.py --out FILE         # every JSON line also to FILE
     python3 chip_smoke.py --phase attention --src OTHER/src
     python3 chip_smoke.py --phase vmm --src OTHER/src
@@ -248,7 +250,9 @@ Phases, one JSON line each:
    refuses two ranks of one card), mesh TP_MESH: phase 6's requests
    served tensor-parallel (each rank's PMAs and KV pools its half of the
    columns and KV heads), tokens EQUAL to rank 0's unsharded serve of the
-   same freeze; each rank's bit-plane calls and attention reads per
+   same freeze; then the LUT-serving model from a ``pallas_lut`` and from
+   an ``int8`` freeze alike (``int8``: each rank's ``torch._int_mm`` on its
+   block of the codes, tokens EQUAL); each rank's bit-plane calls and attention reads per
    forward, codes GB, peak GB, ITL p50 and its collectives staged through
    host memory; (c) ``python -m repro_torch.launch.train --smoke --mesh
    2x2 --fake-devices 4`` on the card against ``--mesh 1x1``, and qwen3-8b
@@ -269,7 +273,18 @@ Phases, one JSON line each:
    (c) qwen3-8b frozen ``pallas_bitplane`` at batch 4, one decode step
    traced: the counted bytes at least the packed codes' and scales'
    bytes (so ``t_memory`` at least their stream), 181 bit-plane calls a
-   forward.
+   forward; (d), started with (a): the production-mesh records of
+   qwen3-8b ``train_4k``, phi3-medium-14b ``prefill_32k``,
+   moonshot-v1-16b-a3b ``train_4k`` and mamba2-780m ``decode_32k``
+   ``DA_int8`` (PARITY_CELLS), each ``ok``, each printed on a ``parity``
+   line with its per-chip FLOPs, argument + temp bytes and collective
+   bytes beside the reference's, and held to PARITY_MAX of them.
+
+``--phase analysis_sweep`` runs, after the build, ``python -m
+repro_torch.analysis.check --configs all`` (the nightly static-analysis
+sweep: every zoo config frozen at smoke scale on the card, its serving
+graphs traced, the passes and the lint run) as a subprocess, and prints
+its exit code and findings; it is not part of the default run.
 
 ``--phase plans`` runs none of these after the build: it times each
 constant of the two VMM plans (kernels/bitplane_vmm.py, kernels/da_vmm.py)
@@ -380,7 +395,7 @@ PATH_DTYPE = {"serve": "bfloat16", "serve_int8kv": "bfloat16",
               "family_variants": "bfloat16", "launch": "bfloat16",
               "launch_smoke": "float32", "train": "bfloat16",
               "distributed": "float32", "distributed_tp": "bfloat16",
-              "distributed_tp_lut": "float32"}
+              "distributed_tp_lut": "float32", "distributed_tp_int8": "float32"}
 
 
 #: a file that receives every emitted line too (``--out``), for lines the
@@ -3686,11 +3701,12 @@ def _tp_serve(cfg, mode, mesh) -> dict:
         m = eng.metrics()
         peak = torch.cuda.max_memory_allocated() / 1e9
         checked = _local_kernels_vs_plain(seen)
-    vmm = "bitplane_vmm" if mode == "pallas_bitplane" else "da_vmm"
+    vmm = TP_VMM[mode]
     out = {"rank": rank, "model": cfg.name, "mode": mode,
            "tokens": _tokens(done, reqs), "plain": plain,
            "launches": counts, "forwards": len(forwards),
-           f"{vmm}_calls_per_forward": counts[vmm] / len(forwards),
+           **({f"{vmm}_calls_per_forward": counts[vmm] / len(forwards)} if vmm
+              else {}),
            "attention_reads_per_forward": counts["paged_attention"] / len(forwards),
            "codes_gb": _local_codes_gb(sharded), "codes_gb_unsharded": full_gb,
            "peak_gb": peak, "itl_p50_ms": m["itl_p50_ms"],
@@ -3703,16 +3719,23 @@ def _tp_serve(cfg, mode, mesh) -> dict:
     return out
 
 
+#: (b)'s legs' freeze modes and the VMM kernel each serve runs (``int8``:
+#: the engine's int8 baseline, ``torch._int_mm`` on each rank's block of
+#: the codes, no hand-written VMM)
+TP_VMM = {"pallas_bitplane": "bitplane_vmm", "pallas_lut": "da_vmm", "int8": None}
+
+
 def _tp_serve_rank() -> list:
     """(b), one rank of two on the (1, 2) mesh: qwen3-8b at full size from
     a ``pallas_bitplane`` freeze, then the LUT-serving model from a
-    ``pallas_lut`` freeze."""
+    ``pallas_lut`` freeze and from an ``int8`` one."""
     from repro_torch.configs.registry import get
     from repro_torch.launch.mesh import make_test_mesh
 
     mesh = make_test_mesh(TP_MESH, ("data", "model"), device_type="cuda")
     return [_tp_serve(get("qwen3-8b"), "pallas_bitplane", mesh),
-            _tp_serve(lut_model_cfg(), "pallas_lut", mesh)]
+            _tp_serve(lut_model_cfg(), "pallas_lut", mesh),
+            _tp_serve(lut_model_cfg(), "int8", mesh)]
 
 
 def _full_width_cfg():
@@ -3871,11 +3894,12 @@ def _collectives_rank() -> dict:
 
 def phase_distributed():
     """Phase 23: (a) a one-rank NCCL mesh; (b) qwen3-8b and the LUT-serving
-    model served tensor-parallel on two gloo ranks of the card; (c) training on a 2×2
+    model (from its LUT and its int8 freeze) served tensor-parallel on two
+    gloo ranks of the card; (c) training on a 2×2
     mesh (four ranks) and qwen3-8b at full width on (1, 2); (d) the
     compressed all-reduce and GPipe on four ranks, CUDA against CPU.
-    Returns the counts of (a) and of (b)'s two legs (the bit-plane and the
-    LUT serve), each summed over the ranks."""
+    Returns the counts of (a) and of (b)'s three legs (the bit-plane, the
+    LUT and the int8 serve), each summed over the ranks."""
     import io
 
     import torch
@@ -3898,7 +3922,8 @@ def phase_distributed():
     legs = list(zip(*spawn(_tp_serve_rank, 2, device="cuda", backend="gloo")))
     secs["b"] = time.perf_counter() - t
     line["tensor_parallel_serve"] = []
-    for ranks, vmm in zip(legs, ("bitplane_vmm", "da_vmm")):
+    for ranks in legs:
+        vmm = TP_VMM[ranks[0]["mode"]]
         plain = ranks[0]["plain"]
         line["tensor_parallel_serve"].append({
             "model": ranks[0]["model"], "mode": ranks[0]["mode"],
@@ -3913,10 +3938,10 @@ def phase_distributed():
             if r["tokens"] != plain:
                 raise AssertionError(f"rank {r['rank']}'s tensor-parallel tokens left "
                                      f"the unsharded serve's: {line}")
-            if min(r["launches"][vmm], r["launches"]["paged_attention"]) <= 0:
+            if min(r["launches"][k] for k in (vmm, "paged_attention") if k) <= 0:
                 raise AssertionError(f"rank {r['rank']} missed a kernel: {r['launches']}")
             kernels = {c["kernel"] for c in r["local_vs_plain"]}
-            if kernels != {vmm, "paged_attention"} or not all(
+            if kernels != {vmm, "paged_attention"} - {None} or not all(
                     c["equal"] for c in r["local_vs_plain"]):
                 raise AssertionError(f"rank {r['rank']}: a kernel on its slice left "
                                      f"the plain version: {r['local_vs_plain']}")
@@ -3992,7 +4017,8 @@ def phase_distributed():
                 and r["gpipe_grad_max_abs_err"] <= PIPE_ATOL):
             raise AssertionError(f"a collective left the CPU's: {r}")
     return (one_counts, _merge_counts([r["launches"] for r in legs[0]]),
-            _merge_counts([r["launches"] for r in legs[1]]))
+            _merge_counts([r["launches"] for r in legs[1]]),
+            _merge_counts([r["launches"] for r in legs[2]]))
 
 
 # ---------------------------------------------------------------------------
@@ -4006,10 +4032,73 @@ DRYRUN_CMDS = {
              "decode_32k", "--variant", "DA_auto", "--out", "build/perf"]}
 DRYRUN_RECORDS = {"dryrun": "build/dryrun/qwen3-8b__decode_32k__pod16x16.json",
                   "perf": "build/perf/mamba2-780m__decode_32k__pod16x16__DA_auto.json"}
+#: (d): the production-mesh cells the port was repaired on, each a command
+#: on the cuda-typed fake world (the DA_int8 record with its memory:
+#: ``--full``), and the reference's per-chip figures of the same cell
+#: (``python -m repro.launch.dryrun --all --mesh single``, and ``python -m
+#: repro.launch.perf --arch mamba2-780m --shape decode_32k --variant
+#: DA_int8``, which records no memory, on the CPU): FLOPs, argument + temp
+#: bytes, collective bytes
+PARITY_CELLS = {
+    "qwen3_train": (["--arch", "qwen3-8b", "--shape", "train_4k"],
+                    (273554933284864.0, 72478354376, 383524812844.0)),
+    "phi3_prefill": (["--arch", "phi3-medium-14b", "--shape", "prefill_32k"],
+                     (342695784480768.0, 102054472480, 632836587520.0)),
+    "moonshot_train": (["--arch", "moonshot-v1-16b-a3b", "--shape", "train_4k"],
+                       (204546756313088.0, 86538565240, 241767030828.0)),
+    "mamba_int8": (["--arch", "mamba2-780m", "--shape", "decode_32k",
+                    "--variant", "DA_int8", "--full"],
+                   (2312973056.0, None, 6970368.0)),
+}
+#: the bounds (d) holds each record to, port ÷ reference: FLOPs,
+#: argument + temp bytes and collective bytes at most.  The DA_int8
+#: record's FLOPs are printed, not held: on the card ``torch._int_mm``
+#: multiplies its operands padded to 17 rows (a decode rank has 8), which
+#: the CPU sweep's product does not
+PARITY_MAX = {"flops": 1.3, "peak": 1.5, "coll": 1.5}
+PARITY_UNHELD = {"mamba_int8": ("flops",)}
 #: qwen3-8b's bit-plane calls a forward (phase 20's traced nodes)
 DRYRUN_BITPLANE_CALLS = 181
 #: the decode cell of (c): batch 4, caches of 256 positions (phase 6's)
 DRYRUN_DECODE = dict(batch=4, max_len=256)
+
+
+def _parity_cmd(args: list) -> list:
+    tool = "perf" if "--variant" in args else "dryrun"
+    return (["-m", f"repro_torch.launch.{tool}", *args, "--out", f"build/{tool}"]
+            + (["--mesh", "single"] if tool == "dryrun" else []))
+
+
+def _parity_record(name: str) -> str:
+    args = PARITY_CELLS[name][0]
+    cell = f"{args[1]}__{args[3]}__pod16x16"
+    if "--variant" in args:
+        return f"build/perf/{cell}__{args[5]}.json"
+    return f"build/dryrun/{cell}.json"
+
+
+def _parity(name: str) -> dict:
+    """(d)'s record of one cell beside the reference's figures."""
+    with open(os.path.join(ROOT, _parity_record(name))) as f:
+        rec = json.load(f)
+    ref = dict(zip(("flops", "peak", "coll"), PARITY_CELLS[name][1]))
+    mem, roof = rec.get("memory") or {}, rec.get("roofline") or {}
+    port = {"flops": roof.get("flops_per_chip"),
+            "peak": (mem["argument_bytes"] + mem["temp_bytes"]
+                     if mem.get("temp_bytes") is not None else None),
+            "coll": roof.get("coll_bytes_per_chip")}
+    ratio = {k: (port[k] / ref[k] if port[k] is not None and ref[k] else None)
+             for k in port}
+    out = {"cell": rec["cell"], "ok": rec["ok"], "error": rec.get("error"),
+           "trace_s": rec.get("lower_compile_s"), "port": port, "reference": ref,
+           "ratio": ratio,
+           "coll_by_kind": (rec.get("raw_full_cost") or {}).get("coll_by_kind")}
+    print(f"parity {out['cell']}: ok={out['ok']} " + " ".join(
+        f"{k} {port[k]:.4g} (reference {ref[k]:.4g}, x{ratio[k]:.3f})"
+        if ratio[k] is not None else f"{k} {port[k]}" for k in port), flush=True)
+    if not rec["ok"]:
+        print(rec.get("traceback", ""), flush=True)
+    return out
 
 
 def _dryrun_commands() -> dict:
@@ -4018,8 +4107,9 @@ def _dryrun_commands() -> dict:
     for d in ("build/dryrun", "build/perf"):   # a cached record would be reread
         shutil.rmtree(os.path.join(ROOT, d), ignore_errors=True)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    runs, wall = _run_together(DRYRUN_CMDS, ROOT, os.path.join(ROOT, "build"))
-    out = {"wall_s": wall}
+    cmds = {**DRYRUN_CMDS, **{n: _parity_cmd(c[0]) for n, c in PARITY_CELLS.items()}}
+    runs, wall = _run_together(cmds, ROOT, os.path.join(ROOT, "build"))
+    out = {"wall_s": wall, "parity": {n: _parity(n) for n in PARITY_CELLS}}
     for name, path in DRYRUN_RECORDS.items():
         with open(os.path.join(ROOT, path)) as f:
             rec = json.load(f)
@@ -4117,6 +4207,13 @@ def phase_dryrun(train_full: dict):
     cmds, train, da = line["commands"], line["train"], line["da_decode"]
     if not all(cmds[n]["ok"] for n in DRYRUN_CMDS):
         raise AssertionError(f"a dry-run record is not ok: {cmds}")
+    for name, rec in cmds["parity"].items():
+        over = {k: r for k, r in rec["ratio"].items()
+                if r is not None and r > PARITY_MAX[k]
+                and k not in PARITY_UNHELD.get(name, ())}
+        if not rec["ok"] or over:
+            raise AssertionError(f"{name}: a rank left the reference chip's "
+                                 f"work ({over or rec['error']}): {rec}")
     if not train["t_bound_ms"] <= train["measured_ms"]:
         raise AssertionError(f"the roofline bound {train['t_bound_ms']} ms exceeds "
                              f"the measured step, {train['measured_ms']} ms")
@@ -4129,6 +4226,45 @@ def phase_dryrun(train_full: dict):
     if any(counts[k] for k in KERNEL_COUNTS):
         raise AssertionError(f"the dry-run launched a hand-written kernel: {counts}")
     return counts
+
+
+#: the nightly static-analysis sweep, on the card, and its time limit
+ANALYSIS_SWEEP = ["-m", "repro_torch.analysis.check", "--configs", "all",
+                  "--json", "build/analysis_sweep/findings.json"]
+ANALYSIS_SWEEP_TIMEOUT = 1800
+
+
+def phase_analysis_sweep():
+    """``--phase analysis_sweep``: the nightly sweep as a subprocess (its
+    exit code is the verdict: 0 clean, 1 an error-severity finding);
+    prints its exit code, its findings by severity and its last lines."""
+    import shutil
+
+    d = os.path.join(ROOT, "build", "analysis_sweep")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, *ANALYSIS_SWEEP], cwd=ROOT, env=env,
+                         capture_output=True, text=True,
+                         timeout=ANALYSIS_SWEEP_TIMEOUT)
+    line = {"phase": "analysis_sweep", "smi": smi_line(), "argv": ANALYSIS_SWEEP,
+            "rc": run.returncode, "seconds": time.perf_counter() - t0,
+            "stdout_tail": run.stdout.splitlines()[-40:],
+            "stderr_tail": run.stderr.splitlines()[-20:]}
+    path = os.path.join(d, "findings.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            found = json.load(f)
+        items = found if isinstance(found, list) else found.get("findings", [])
+        by = {}
+        for it in items:
+            sev = it.get("severity", "?") if isinstance(it, dict) else "?"
+            by[sev] = by.get(sev, 0) + 1
+        line["findings_by_severity"] = by
+        line["findings"] = items[:40]
+    emit(line)
+    return line
 
 
 def decode_window(eng, vocab: int, steps: int = 4):
@@ -4172,7 +4308,7 @@ def main() -> int:
                                             "ci_boot", "serve", "obs", "auto",
                                             "dense", "families", "analysis",
                                             "launch", "train", "distributed",
-                                            "dryrun"),
+                                            "dryrun", "analysis_sweep"),
                         default="all",
                         help="'attention', 'vmm', 'plans', 'ci_boot', 'serve', "
                              "'obs', 'auto', 'dense', 'families' or 'analysis': "
@@ -4190,9 +4326,10 @@ def main() -> int:
                              "phases, only the qwen3-8b serve and the "
                              "static-analysis phase, only the entry points "
                              "(launch), only training (train), only the "
-                             "distributed slice (distributed) or training "
-                             "and the dry-run tools (dryrun) (no result "
-                             "line)")
+                             "distributed slice (distributed), training "
+                             "and the dry-run tools (dryrun) or the nightly "
+                             "static-analysis sweep (analysis_sweep) (no "
+                             "result line)")
     parser.add_argument("--src", help="import the port from this directory "
                         "(another checkout's src/) instead of this one's; "
                         "only with --phase attention, vmm, ci_boot or serve")
@@ -4203,7 +4340,7 @@ def main() -> int:
         _OUT.append(args.out)
     if args.src:
         if args.phase in ("all", "plans", "obs", "auto", "analysis", "launch",
-                          "train", "distributed", "dryrun"):
+                          "train", "distributed", "dryrun", "analysis_sweep"):
             parser.error("--src needs --phase attention, vmm, ci_boot or serve")
         sys.path.insert(0, os.path.abspath(args.src))
     elif not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
@@ -4227,6 +4364,10 @@ def main() -> int:
     if args.phase == "dryrun":
         _, train_full = phase_train()
         phase_dryrun(train_full)
+        print(smi_line(), flush=True)
+        return 0
+    if args.phase == "analysis_sweep":
+        phase_analysis_sweep()
         print(smi_line(), flush=True)
         return 0
     if args.phase == "analysis":
@@ -4298,7 +4439,8 @@ def main() -> int:
     train_counts, train_full = timed("train", phase_train)
     gc.collect()
     torch.cuda.empty_cache()
-    dist_counts, tp_counts, tp_lut_counts = timed("distributed", phase_distributed)
+    dist_counts, tp_counts, tp_lut_counts, tp_int8_counts = timed(
+        "distributed", phase_distributed)
     gc.collect()
     torch.cuda.empty_cache()
     timed("dryrun", phase_dryrun, train_full)
@@ -4313,7 +4455,8 @@ def main() -> int:
              "family_variants": family_counts, "launch": launch_counts,
              "launch_smoke": launch_smoke_counts, "train": train_counts,
              "distributed": dist_counts, "distributed_tp": tp_counts,
-             "distributed_tp_lut": tp_lut_counts}
+             "distributed_tp_lut": tp_lut_counts,
+             "distributed_tp_int8": tp_int8_counts}
 
     def launches(name, fmt=None, dtype=None, key=None):
         """Launches over the paths (that run ``dtype``): of ``name``, of its

@@ -73,7 +73,9 @@ Dispatch sees the draft's bit count.
 The paged-attention read has its own registry: ``gather`` (page-table gather
 + masked softmax in plain torch) and ``fused`` (the CUDA page-walk kernel,
 ``kernels/csrc/paged_attention.cu``, fp, int8 and int4 pages; its plain
-version on the CPU).
+version on the CPU).  Its ``auto`` reads the cost table's ``attn:*``
+bucket of the read's shape, as the reference does, else the platform's
+choice.
 """
 from __future__ import annotations
 
@@ -133,6 +135,8 @@ class PackedWeights:
         default=None, init=False, repr=False, compare=False)
     _experts: Optional[Tuple["PackedWeights", ...]] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+    _block: Optional["PackedWeights"] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def k(self) -> int:
@@ -160,6 +164,20 @@ class PackedWeights:
                               cfg=self.cfg, mode=self.mode)
                 for e in range(self.wq.shape[0])))
         return self._experts
+
+    def block(self, placements_) -> "PackedWeights":
+        """This rank's block of a pack placed on a mesh: its codes and
+        scales under ``placements_`` (built on the first call and kept, so
+        an ``int8`` call lays out the block's operand once)."""
+        if self._block is None:
+            mesh = self.wq.device_mesh
+            w_pl = [Shard(self.w_scale.ndim - 1) if p == Shard(self.wq.ndim - 1)
+                    else p for p in placements_]
+            object.__setattr__(self, "_block", PackedWeights(
+                wq=self.wq.redistribute(mesh, placements_).to_local(),
+                w_scale=self.w_scale.redistribute(mesh, w_pl).to_local(),
+                luts=None, cfg=self.cfg, mode=self.mode))
+        return self._block
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return da_matmul(x, self)
@@ -450,8 +468,12 @@ def backend_fn(spec: BackendSpec, packed: PackedWeights, experts: bool = False):
     storage-free one.  The ops carry DTensor sharding rules
     (:mod:`repro_torch.kernels.ops`): each rank runs the kernel (its plain
     version on the CPU) on its own column slice, and every mode gives the
-    same exact integers.  ``int8`` has no rule and raises."""
+    same exact integers.  ``int8`` on a mesh runs its product on each
+    rank's block alike (:func:`_int8_on_mesh`); another baseline has no
+    rule and raises."""
     if isinstance(packed.wq, DTensor):  # placed by shard_frozen_params
+        if spec.name == "int8":
+            return functools.partial(_int8_on_mesh, experts=experts)
         if not spec.is_da:
             raise ValueError(f"backend {spec.name!r} has no sharding rule; a "
                              "pack placed on a mesh runs a DA mode")
@@ -503,6 +525,47 @@ def _int8_backend(xq, packed, cfg):
         w8 = int_mm_weights(packed.wq)
         object.__setattr__(packed, "int8_operand", w8)
     return torch._int_mm(int_mm_acts(xq, w8.shape[0]), w8)[:xq.shape[0], :packed.n]
+
+
+def _int8_on_mesh(xq: torch.Tensor, packed: PackedWeights, cfg: DAConfig,
+                  experts: bool = False) -> DTensor:
+    """The ``int8`` product of a pack placed on a mesh, as GSPMD splits the
+    reference's plain product: on a mesh dim where the codes are split by
+    columns (N) the activations' codes are whole and the product is split
+    by columns; where they are split by rows (K, a row-parallel layer) the
+    activations' codes are split alike and the int32 partial sums are
+    added up (exact); where the stacked experts are split (E), both are;
+    elsewhere the activations keep their block of rows and the codes are
+    whole.  Each rank multiplies its own block (:func:`_int8_backend`, its
+    operand laid out from that block once: :meth:`PackedWeights.block`)."""
+    w = packed.wq
+    mesh, nd = w.device_mesh, w.ndim
+    rows = nd - 2                       # the rows' dim of xq ([E,] M, K)
+    if not isinstance(xq, DTensor):
+        xq = DTensor.from_local(xq, mesh, [Replicate()] * mesh.ndim,
+                                run_check=False)
+    w_pl, x_pl, out_pl = [], [], []
+    for wp, xp in zip(w.placements, xq.placements):
+        if wp in (Shard(nd - 1), Shard(nd - 2)) or (experts and wp == Shard(0)):
+            w_pl.append(wp)
+            x_pl.append(Shard(nd - 1) if wp == Shard(nd - 2)
+                        else Shard(0) if wp == Shard(0) else Replicate())
+            out_pl.append(Partial() if wp == Shard(nd - 2) else wp)
+        else:
+            w_pl.append(Replicate())
+            x_pl.append(xp if xp == Shard(rows) else Replicate())
+            out_pl.append(x_pl[-1])
+    block = packed.block(w_pl)
+    run = (functools.partial(_each_expert, _int8_backend) if experts
+           else _int8_backend)
+    acc = run(xq.redistribute(mesh, x_pl).to_local(), block, cfg)
+    shape = torch.Size(tuple(xq.shape[:-1]) + (w.shape[-1],))
+    acc = DTensor.from_local(acc, mesh, out_pl, run_check=False, shape=shape,
+                             stride=torch.empty(shape, device="meta").stride())
+    if Partial() in out_pl:             # the row-parallel sum, in int32
+        acc = acc.redistribute(mesh, [Replicate() if p == Partial() else p
+                                      for p in out_pl])
+    return acc
 
 
 #: the one name a cost table times per kernel on CUDA, where the three LUT
@@ -880,14 +943,16 @@ def dense(x: torch.Tensor, w) -> torch.Tensor:
 def _expert_parallel(x: torch.Tensor, w: DTensor) -> torch.Tensor:
     """Stacked experts ``w`` [E, K, N] placed on a mesh: each rank applies
     its own experts to their rows of ``x`` [.., E, C, K], the expert axis
-    sharded alike on both (every other dim gathered), and the result is
-    sharded on the expert axis as ``x``'s rows are."""
+    sharded alike on both; on the other mesh dims ``x`` keeps its block of
+    a leading (group) dim, the experts there gathered; every other dim is
+    gathered.  The result is placed as ``x``'s block."""
     mesh, e_dim = w.device_mesh, x.ndim - 3
     on_e = [isinstance(p, Shard) and p.dim == 0 for p in w.placements]
-    xp = [Shard(e_dim) if e else Replicate() for e in on_e]
-    wp = [Shard(0) if e else Replicate() for e in on_e]
     if not isinstance(x, DTensor):
         x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    xp = [Shard(e_dim) if e else p if isinstance(p, Shard) and p.dim < e_dim
+          else Replicate() for e, p in zip(on_e, x.placements)]
+    wp = [Shard(0) if e else Replicate() for e in on_e]
     y = torch.einsum("...ecd,edf->...ecf", x.redistribute(mesh, xp).to_local(),
                      w.redistribute(mesh, wp).to_local())
     return DTensor.from_local(y, mesh, xp, run_check=False)
@@ -1060,11 +1125,33 @@ def get_attn_backend(mode: str) -> AttnBackendSpec:
     return _ATTN_REGISTRY[mode]
 
 
-def select_attn_backend(mode: Optional[str], device: torch.device) -> str:
-    """``"auto"`` (or None) → ``fused`` on CUDA, ``gather`` on the CPU."""
-    if mode is None or mode == "auto":
-        return "fused" if device.type == "cuda" else "gather"
-    return get_attn_backend(mode).name
+def attn_shape_bucket(batch: int, t: int, kv_len: int) -> str:
+    """The cost table's key of a paged-attention read's shape, the
+    reference's: ``attn:{dec|pre}:{s|m|l}``, decode-like steps (T ≤ 8:
+    decode, and the draft / verify steps of speculative decoding) apart
+    from prefill chunks, and the KV extent (table width · page size) in
+    three bands of read volume."""
+    phase = "dec" if t <= 8 else "pre"
+    kb = "s" if kv_len <= 256 else ("m" if kv_len <= 2048 else "l")
+    return f"attn:{phase}:{kb}"
+
+
+def select_attn_backend(mode: Optional[str], device: torch.device, *,
+                        batch: Optional[int] = None, t: Optional[int] = None,
+                        kv_len: Optional[int] = None) -> str:
+    """Resolve a ``cfg.paged_attn`` mode to a registered backend name.
+    ``"auto"`` (or None) takes the fastest backend the cost table timed
+    in the read's shape bucket (:func:`attn_shape_bucket`; a read given
+    with its ``batch``, ``t`` and ``kv_len``), as the reference does; with
+    no such entry, ``fused`` on CUDA and ``gather`` on the CPU."""
+    if mode is not None and mode != "auto":
+        return get_attn_backend(mode).name
+    if None not in (batch, t, kv_len):
+        timed = load_cost_table().get(attn_shape_bucket(batch, t, kv_len), {})
+        timed = {n: c for n, c in timed.items() if n in _ATTN_REGISTRY}
+        if timed:
+            return min(timed, key=timed.get)
+    return "fused" if device.type == "cuda" else "gather"
 
 
 @register_attn_backend("gather",

@@ -17,7 +17,8 @@ run, and the global-shape ops that DTensor's sharding propagation runs on
 fake tensors are not counted, so every count is per chip:
 
 * FLOPs: ``torch.utils.flop_counter``'s formulas, plus one for each
-  ``repro_torch::`` kernel op.  A VMM counts the product it stands for,
+  ``repro_torch::`` kernel op and for ``torch._int_mm`` (its padded
+  operands: the card multiplies 17 rows where a decode rank has 8).  A VMM counts the product it stands for,
   2·M·K·N (per expert for the stacked forms), so ``useful_flops_fraction``
   stays comparable with ``model_flops``; the paged-attention read counts
   the reference's score and PV products, 4·B·T·H·S·hd over its window of
@@ -39,10 +40,12 @@ counts every layer: the reference's ``probe_costs`` (an affine fit of two
 unrolled probes, since XLA counts a scan body once) has no counterpart,
 and a record's ``probes`` is null.
 
-The fake tensors and the mesh live on ``--device`` (``cuda`` by default:
-a CUDA-typed mesh takes NCCL's collective schedule, where a CPU-typed one
-replaces all-to-all by all-gather and chunk); ``--device cpu`` runs
-without a card, and without one ``cuda`` raises.
+The fake tensors and the mesh live on ``--device`` (``cuda`` by default;
+``--device cpu`` runs without a card, and without one ``cuda`` raises).
+DTensor replaces all-to-all by all-gather and chunk on a CPU-typed mesh;
+on the fake world it issues the all-to-all there too
+(:func:`_issue_all_to_all`), so both devices count the collectives a
+card's mesh issues.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k --mesh single
@@ -58,6 +61,7 @@ import functools
 import json
 import math
 import os
+import sys
 import threading
 import time
 import traceback
@@ -66,6 +70,7 @@ from typing import Any, Callable, List, Optional
 
 import torch
 from torch.distributed.tensor import DTensor
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -99,10 +104,12 @@ _LOCAL = threading.local()
 def start_fake_world(n: int = FAKE_WORLD) -> None:
     """Make this process rank 0 of an ``n``-rank world on the ``fake``
     backend (once; a fake world already started with at least ``n`` ranks
-    is kept)."""
+    is kept), whose CPU-typed meshes issue all-to-alls
+    (:func:`_issue_all_to_all`)."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
+    _issue_all_to_all()
     if dist.is_initialized():
         if dist.get_backend() != "fake" or dist.get_world_size() < n:
             raise RuntimeError(
@@ -110,6 +117,30 @@ def start_fake_world(n: int = FAKE_WORLD) -> None:
                 f"holds a {dist.get_backend()} group of {dist.get_world_size()}")
         return
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+
+
+def _issue_all_to_all() -> None:
+    """DTensor replaces the all-to-all of a shard-to-shard redistribution
+    on a CPU-typed mesh by an all-gather and a chunk (gloo has no
+    all-to-all); on a mesh of the ``fake`` backend, issue the all-to-all
+    op as a ``cuda`` mesh does, so that a trace without a card counts the
+    collectives a card's mesh would issue.  A mesh of any other backend
+    keeps DTensor's own choice.  Idempotent."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import placement_types as pt
+
+    if getattr(pt.shard_dim_alltoall, "_repro_torch_issued", False):
+        return
+    plain = pt.shard_dim_alltoall
+
+    def shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        if mesh.device_type != "cpu" or dist.get_backend() != "fake":
+            return plain(input, gather_dim, shard_dim, mesh, mesh_dim)
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
+
+    shard_dim_alltoall._repro_torch_issued = True
+    pt.shard_dim_alltoall = shard_dim_alltoall
 
 
 # ---------------------------------------------------------------------------
@@ -163,8 +194,15 @@ def _attention_flops(q_shape, k_shape, v_shape, table_shape, *_, out_shape=None,
     return 4 * math.prod(q_shape) * table_shape[1] * k_shape[-3]
 
 
+def _int_mm_flops(a_shape, b_shape, *_, **__) -> int:
+    """``torch._int_mm`` (the ``int8`` backend on CUDA): 2·M·K·N of its
+    operands, as they are padded (M above 16 rows)."""
+    return 2 * a_shape[0] * a_shape[1] * b_shape[1]
+
+
 def _register_kernel_flops() -> None:
-    """A FLOP formula for each ``repro_torch::`` kernel op (idempotent)."""
+    """A FLOP formula for each ``repro_torch::`` kernel op, and for
+    ``torch._int_mm``, which torch's counter lacks (idempotent)."""
     from torch.utils.flop_counter import flop_registry, register_flop_formula
 
     from repro_torch.kernels import ops
@@ -174,6 +212,8 @@ def _register_kernel_flops() -> None:
         if packet not in flop_registry:
             register_flop_formula(packet)(
                 _attention_flops if name == "paged_attention" else _vmm_flops)
+    if torch.ops.aten._int_mm not in flop_registry:
+        register_flop_formula(torch.ops.aten._int_mm)(_int_mm_flops)
 
 
 #: ops that allocate, alias or query and move no bytes
@@ -231,23 +271,78 @@ def _storage_bytes(tensors) -> dict:
     return out
 
 
+#: the modules whose functions name a site (:func:`_site`); the dry-run
+#: itself is not one
+_SITE_MODULES = ("repro_torch.models.", "repro_torch.train.",
+                 "repro_torch.core.", "repro_torch.launch.sharding",
+                 "repro_torch.serve.")
+
+
+def _frame_site(frame) -> Optional[str]:
+    """``module.function`` of the innermost port frame at or above
+    ``frame`` (the model code that issued an op), or None."""
+    while frame is not None:
+        mod = frame.f_globals.get("__name__", "")
+        if mod.startswith(_SITE_MODULES):
+            return f"{mod.rsplit('.', 1)[-1]}.{frame.f_code.co_name}"
+        frame = frame.f_back
+    return None
+
+
+def _site() -> str:
+    """Where the op being run comes from: the port function on the Python
+    stack, or, in the backward (which autograd runs from C++), the
+    forward site of the autograd node running (``bwd:`` before it, as
+    :class:`_SiteTagger` tagged it)."""
+    node = torch._C._current_autograd_node()
+    if node is not None:
+        return "bwd:" + node.metadata.get("site", node.name())
+    return _frame_site(sys._getframe(2)) or "other"
+
+
+class _SiteTagger(TorchFunctionMode):
+    """Tags every autograd node a port function creates with that
+    function's site (``node.metadata["site"]``), the nodes inside a
+    composite op (an einsum's bmm and views) too, so the backward's ops
+    can be attributed to the forward code they differentiate."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        site = None
+        todo = [t.grad_fn for t in _tensors(out) if t.grad_fn is not None]
+        while todo:
+            node = todo.pop()
+            if node is None or "site" in node.metadata:
+                continue
+            site = site or _frame_site(sys._getframe(1)) or "other"
+            node.metadata["site"] = site
+            todo.extend(n for n, _ in node.next_functions)
+        return out
+
+
 class OpCounter(TorchDispatchMode):
     """Counts the local ops run under it: FLOPs, bytes and calls by op,
     and every collective's result bytes.  A DTensor op returns
     ``NotImplemented`` here, so DTensor runs it and its local ops come
     back through the mode; DTensor's global-shape propagation is skipped
-    (:func:`_hide_sharding_propagation`)."""
+    (:func:`_hide_sharding_propagation`).  With ``sites`` it also splits
+    FLOPs and collective bytes by (site, op) (:func:`_site`; the trace
+    then runs under :class:`_SiteTagger` too)."""
 
-    def __init__(self):
+    def __init__(self, sites: bool = False):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
 
         self._formulas = flop_registry
+        self.sites = sites
         self.flops = 0
         self.bytes = 0
         self.calls: Counter = Counter()
         self.flops_by_op: Counter = Counter()
         self.bytes_by_op: Counter = Counter()
+        #: FLOPs and collective result bytes by (site, op name), with sites
+        self.flops_by_site: Counter = Counter()
+        self.coll_by_site: Counter = Counter()
         #: (op name, result bytes) of each collective issued, in order
         self.collectives: List[tuple] = []
 
@@ -264,10 +359,13 @@ class OpCounter(TorchDispatchMode):
         name = str(func.overloadpacket)
         self.calls[name] += 1
         if rl.collective_kind(name) is not None:
-            self.collectives.append(
-                (name, sum(_nbytes(t) for t in _tensors(out))))
+            b = sum(_nbytes(t) for t in _tensors(out))
+            self.collectives.append((name, b))
+            if self.sites:
+                self.coll_by_site[(_site(), name)] += b
             return
-        if name.startswith(("_c10d_functional.", "c10d.")) or func.is_view \
+        if name.startswith(tuple(ns + "." for ns in rl.COLLECTIVE_NAMESPACES)) \
+                or func.is_view \
                 or name in _NO_BYTES:
             return
         formula = self._formulas.get(func.overloadpacket)
@@ -275,6 +373,8 @@ class OpCounter(TorchDispatchMode):
             n = int(formula(*args, **kwargs, out_val=out))
             self.flops += n
             self.flops_by_op[name] += n
+            if self.sites and n:
+                self.flops_by_site[(_site(), name)] += n
         if name in _INDEXED_READS or name in _INDEXED_WRITES:
             # the rows moved (and their indices), not the table
             b = sum(_nbytes(t) for t in tree_flatten((args[1:], kwargs))[0]
@@ -344,18 +444,21 @@ class StepTrace:
 
 
 def trace_step(fn: Callable, args: tuple, *, grad: bool = False,
-               memory: bool = True) -> StepTrace:
+               memory: bool = True, sites: bool = False) -> StepTrace:
     """Run ``fn(*args)`` once under an :class:`OpCounter` (and MemTracker
-    with ``memory``), gradients on with ``grad``."""
+    with ``memory``), gradients on with ``grad``; ``sites`` splits the
+    counts by site."""
     _hide_sharding_propagation()
     _register_kernel_flops()
     arg_t = _tensors(args)
-    counter = OpCounter()
+    counter = OpCounter(sites=sites)
     tracker = _mem_tracker() if memory else None
     with contextlib.ExitStack() as stack:
         if tracker is not None:
             tracker.track_external(*arg_t)
             stack.enter_context(tracker)
+        if sites:
+            stack.enter_context(_SiteTagger())
         stack.enter_context(counter)
         stack.enter_context(torch.enable_grad() if grad else torch.no_grad())
         t0 = time.perf_counter()
@@ -452,6 +555,7 @@ def lower_cell(
     device="cuda",
     memory: bool = True,
     train_cfg=None,
+    sites: bool = False,
 ):
     """Trace the cell's step on fake tensors placed on ``mesh`` (None: one
     device, no mesh).  Returns ``(trace, aux)``: the :class:`StepTrace`
@@ -459,7 +563,8 @@ def lower_cell(
 
     quant: None, "auto", or any registered engine backend name (legacy
     "da_bitplane"/"da_lut" spellings accepted) — serve the DA-frozen model.
-    ``train_cfg`` replaces the train step's ``TrainConfig()``."""
+    ``train_cfg`` replaces the train step's ``TrainConfig()``; ``sites``
+    splits the counts by site (:class:`OpCounter`)."""
     if extra_cfg:
         cfg = cfg.with_levers(**extra_cfg)
     n_params = count_params(cfg)
@@ -477,7 +582,8 @@ def lower_cell(
                  else contextlib.nullcontext())
     with FakeTensorMode(), rules_ctx:
         step, args, grad = _cell_step(cfg, shape, mesh, quant, device, train_cfg)
-        trace = trace_step(step, args, grad=grad, memory=memory)
+        trace = trace_step(step, args, grad=grad, memory=memory,
+                           sites=sites)
     return trace, aux
 
 

@@ -243,6 +243,84 @@ def ppermute(x: torch.Tensor, axis: str, perm,
     return _PPermute.apply(x, _group(axis, mesh), perm)
 
 
+def _column_pieces(src, dst):
+    """``(source rank, destination rank, global start, width)`` of every
+    piece of columns an exchange from layout ``src`` to ``dst`` moves
+    (:func:`exchange_columns`), each destination's in ascending order."""
+    def source(j, col):
+        """(rank, end of its run) of the rank that sends column ``col`` to
+        ``j``: ``j`` itself where it holds it, else the lowest holder."""
+        for i in [j] + [i for i in range(len(src)) if i != j]:
+            for a, b in src[i]:
+                if a <= col < b:
+                    return i, b
+        raise ValueError(f"column {col} is held by no rank")
+
+    pieces = []
+    for j, ranges in enumerate(dst):
+        for a, b in ranges:
+            col = a
+            while col < b:
+                i, end = source(j, col)
+                if i != j:     # stop where j's own run starts
+                    end = min([end] + [s for s, _ in src[j] if s > col])
+                end = min(end, b)
+                pieces.append((i, j, col, end - col))
+                col = end
+    return pieces
+
+
+def _local_offset(ranges, col: int) -> int:
+    """Where global column ``col`` sits in a tensor holding ``ranges``."""
+    off = 0
+    for a, b in ranges:
+        if a <= col < b:
+            return off + col - a
+        off += b - a
+    raise ValueError(f"column {col} is not in {ranges}")
+
+
+def exchange_columns(x: torch.Tensor, src, dst, axis: str,
+                     mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+    """Move the columns of ``x``'s last dim from one layout over ``axis``
+    to another: ``src[i]`` and ``dst[i]`` list the global column ranges
+    ``(start, stop)``, ascending, that rank ``i`` holds before and after;
+    ``x`` holds this rank's ``src`` columns in order, the result its
+    ``dst`` columns in order.  A column that several ranks hold comes from
+    the receiving rank itself where it holds it, else from the lowest
+    holder.  The columns that change rank move in one all-to-all (none
+    where every piece stays), the reference's collective-permute of a
+    resharded slice; the rest are indexed locally.  Differentiable: a
+    column sent to several ranks gets the sum of their gradients."""
+    import torch.distributed._functional_collectives as funcol
+
+    mesh = current_mesh(mesh)
+    me, n = mesh.get_local_rank(axis), len(src)
+    pieces = _column_pieces(src, dst)
+    cols = lambda start, w: range(start, start + w)  # noqa: E731
+    index = lambda v: torch.tensor(v, dtype=torch.long, device=x.device)  # noqa: E731
+    xt = x.movedim(-1, 0)
+    own = [c for i, j, a, w in pieces if i == j == me for c in cols(a, w)]
+    parts, got = [xt.index_select(0, index([_local_offset(src[me], c)
+                                            for c in own]))], list(own)
+    if any(i != j for i, j, _, _ in pieces):
+        sends = sorted((j, a, w) for i, j, a, w in pieces if i == me != j)
+        recvs = sorted((i, a, w) for i, j, a, w in pieces if j == me != i)
+        send = xt.index_select(0, index([_local_offset(src[me], c)
+                                         for _, a, w in sends for c in cols(a, w)]))
+        recv = funcol.all_to_all_single_autograd(
+            send.contiguous(),
+            [sum(w for i, _, w in recvs if i == r) for r in range(n)],
+            [sum(w for j, _, w in sends if j == r) for r in range(n)],
+            mesh.get_group(axis))
+        if isinstance(recv, funcol.AsyncCollectiveTensor):
+            recv = funcol.wait_tensor(recv)
+        parts.append(recv)
+        got += [c for _, a, w in recvs for c in cols(a, w)]
+    order = sorted(range(len(got)), key=got.__getitem__)
+    return torch.cat(parts).index_select(0, index(order)).movedim(0, -1)
+
+
 #: the functional all-gather DTensor calls (its name across torch
 #: versions): the one functional collective gloo cannot run on CUDA
 _FUNCOL_NAMES = ("all_gather_tensor", "all_gather_single")

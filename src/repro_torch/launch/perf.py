@@ -4,12 +4,15 @@ Traces a (arch × shape) cell with a named variant (a set of config levers /
 DA quant mode) on the production mesh (:mod:`repro_torch.launch.dryrun`),
 computes its roofline, and writes the record under ``artifacts/torch/perf/``.
 Also offers a diagnosis mode that prints the top collectives and the bytes
-by op kind of the traced step.
+by op kind of the traced step, and a split (``--split``) of the rank's
+FLOPs and collective bytes by the port function that issued them, beside
+one device's FLOPs ÷ chips: where a rank does more than its share.
 
   python -m repro_torch.launch.perf --arch mistral-nemo-12b --shape prefill_32k \\
       --variant L3_additive_bf16
   python -m repro_torch.launch.perf --arch mistral-nemo-12b --shape prefill_32k \\
       --diagnose
+  python -m repro_torch.launch.perf --arch qwen3-8b --shape train_4k --split
 (``--device cpu`` without a card.)
 """
 import argparse
@@ -97,6 +100,65 @@ def diagnose(arch: str, shape_name: str, extra=None, quant=None, rules=None,
     return trace
 
 
+def split_sites(cfg, shape, mesh, *, extra=None, quant=None, rules=None,
+                device="cuda") -> dict:
+    """Where a rank's FLOPs and collectives come from: the cell traced on
+    ``mesh`` and on one device, both split by site (the port function that
+    issued each op, ``bwd:`` its backward; :class:`OpCounter`).  Returns
+    ``{"chips", "sites": [{site, rank_flops, one_flops_per_chip, excess,
+    coll_bytes, ops}]}``, largest excess (rank FLOPs less one device's ÷
+    chips) first; ``ops`` the site's rank FLOPs by op."""
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.sharding import LM_RULES
+
+    rank, aux = lower_cell(cfg, shape, mesh, rules=rules or LM_RULES,
+                           extra_cfg=extra, quant=quant, device=device,
+                           memory=False, sites=True)
+    one, _ = lower_cell(cfg, shape, None, extra_cfg=extra, quant=quant,
+                        device=device, memory=False, sites=True)
+    chips = aux["chips"]
+    rows: dict = {}
+
+    def row(site):
+        return rows.setdefault(site, {"site": site, "rank_flops": 0,
+                                      "one_flops_per_chip": 0.0,
+                                      "coll_bytes": 0, "ops": {}})
+
+    for (site, op), n in rank.counter.flops_by_site.items():
+        r = row(site)
+        r["rank_flops"] += n
+        r["ops"][op] = r["ops"].get(op, 0) + n
+    for (site, _), n in one.counter.flops_by_site.items():
+        row(site)["one_flops_per_chip"] += n / chips
+    for (site, op), b in rank.counter.coll_by_site.items():
+        row(site)["coll_bytes"] += b
+    for r in rows.values():
+        r["excess"] = r["rank_flops"] - r["one_flops_per_chip"]
+    return {"chips": chips, "rank_flops": rank.counter.flops,
+            "one_flops": one.counter.flops,
+            "coll_bytes": sum(b for _, b in rank.counter.collectives),
+            "sites": sorted(rows.values(),
+                            key=lambda r: (-r["excess"], -r["coll_bytes"]))}
+
+
+def print_split(split: dict, top: int = 20) -> None:
+    """The table of :func:`split_sites`: the sites with the largest FLOP
+    excess, then those with the most collective bytes."""
+    print(f"== rank FLOPs {split['rank_flops']:.4g} vs one device ÷ "
+          f"{split['chips']} {split['one_flops'] / split['chips']:.4g} "
+          f"(×{split['rank_flops'] * split['chips'] / max(split['one_flops'], 1):.3f}); "
+          f"collectives {split['coll_bytes']:.4g} B ==")
+    print(f"  {'rank FLOPs':>11s} {'one ÷ chips':>11s} {'excess':>11s} "
+          f"{'coll B':>11s}  site")
+    for r in split["sites"][:top]:
+        print(f"  {r['rank_flops']:11.4g} {r['one_flops_per_chip']:11.4g} "
+              f"{r['excess']:11.4g} {r['coll_bytes']:11.4g}  {r['site']}")
+    print("== most collective bytes ==")
+    for r in sorted(split["sites"], key=lambda r: -r["coll_bytes"])[:top]:
+        if r["coll_bytes"]:
+            print(f"  {r['coll_bytes']:11.4g} B  {r['site']}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -106,6 +168,9 @@ def main(argv=None):
                     help="JSON dict of raw config overrides")
     ap.add_argument("--quant", default=None)
     ap.add_argument("--diagnose", action="store_true")
+    ap.add_argument("--split", action="store_true",
+                    help="split the rank's FLOPs and collective bytes by "
+                         "site, beside one device's FLOPs ÷ chips")
     ap.add_argument("--fsdp", action="store_true",
                     help="use FSDP_RULES (2-D weight sharding over data+model)")
     ap.add_argument("--full", action="store_true",
@@ -122,6 +187,24 @@ def main(argv=None):
 
     resolve_device(args.device)
     rules = FSDP_RULES if args.fsdp else LM_RULES
+    if args.split:
+        import torch
+
+        from repro_torch.configs.registry import LM_SHAPES, get
+        from repro_torch.launch.dryrun import start_fake_world
+        from repro_torch.launch.mesh import make_production_mesh
+
+        v = VARIANTS.get(args.variant, {}) if args.variant else {}
+        extra = dict(v.get("extra", {}))
+        extra.update(json.loads(args.extra) if args.extra else {})
+        start_fake_world()
+        mesh = make_production_mesh(device_type=torch.device(args.device).type)
+        shape = next(s for s in LM_SHAPES if s.name == args.shape)
+        split = split_sites(get(args.arch), shape, mesh, extra=extra,
+                            quant=args.quant or v.get("quant"), rules=rules,
+                            device=args.device)
+        print_split(split)
+        return split
     if args.diagnose:
         v = VARIANTS.get(args.variant, {}) if args.variant else {}
         extra = dict(v.get("extra", {}))

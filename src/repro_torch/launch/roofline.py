@@ -31,7 +31,9 @@ HBM_BW = 3.35e12         # bytes/s
 LINK_BW = 450e9          # bytes/s, NVLink 4 one direction (900 GB/s both)
 
 #: the reference's collective kinds, by the stem of the port's op name
-#: (``_c10d_functional.<op>`` or ``c10d.<op>``)
+#: (``_c10d_functional.<op>``, ``c10d.<op>``, or DTensor's own all-to-all
+#: op ``_dtensor.shard_dim_alltoall``, which a traced redistribution
+#: issues as one op)
 KINDS = (
     ("all_gather", "all-gather"), ("allgather", "all-gather"),
     ("reduce_scatter", "reduce-scatter"),
@@ -40,6 +42,8 @@ KINDS = (
     ("send", "collective-permute"), ("recv", "collective-permute"),
     ("broadcast", "broadcast"),
 )
+#: the op namespaces that hold collectives
+COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d", "_dtensor")
 #: a collective's completion: the pair's second half, not a transfer
 WAIT_OPS = ("wait_tensor",)
 
@@ -48,7 +52,7 @@ def collective_kind(op_name: str):
     """The reference's kind of a collective op (``"all-gather"``, ...), or
     None for an op that is not one (a wait included)."""
     ns, _, stem = op_name.rpartition(".")
-    if ns not in ("_c10d_functional", "c10d") or stem in WAIT_OPS:
+    if ns not in COLLECTIVE_NAMESPACES or stem in WAIT_OPS:
         return None
     for key, kind in KINDS:
         if key in stem:

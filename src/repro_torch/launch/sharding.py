@@ -18,7 +18,8 @@ Usage::
 Without active rules, or on a plain tensor, :func:`constrain` and the
 ``shard_*`` functions return their argument itself: the one-device path
 never meets a DTensor.  Under rules, :func:`constrain` is
-``DTensor.redistribute`` (the counterpart of ``with_sharding_constraint``),
+``DTensor.redistribute`` (the counterpart of ``with_sharding_constraint``,
+whose transpose constrains the cotangent alike),
 and :func:`distribute` / :func:`shard_frozen_params` /
 :func:`shard_paged_caches` place tensors by ``distribute_tensor`` (every
 rank holds the same full tensor and keeps its own slice: no transfer).
@@ -128,6 +129,16 @@ def use_mesh_rules(mesh, rules: Mapping[str, AxisName] = LM_RULES):
         _LOCAL.mesh_rules = prev
 
 
+def rules_context():
+    """A context that activates the rules active now (a no-op without
+    any), for code that runs later on another thread: the backward's
+    recompute of a checkpointed block runs on the autograd engine's
+    device thread on CUDA, where this thread's rules are not set."""
+    act = _active()
+    return (contextlib.nullcontext() if act is None
+            else use_mesh_rules(*act))
+
+
 def _resolve(logical: str, dim: int, sizes: Mapping[str, int], rules,
              used: set) -> AxisName:
     axes = rules.get(logical)
@@ -170,6 +181,22 @@ def pspec(logical_axes: Sequence[Optional[str]], shape: Sequence[int]) -> P:
     while parts and parts[-1] is None:
         parts.pop()
     return P(*parts)
+
+
+def rule_dims(logical: str) -> Tuple[int, ...]:
+    """The dims of the active mesh that the active rules map ``logical``
+    to (those the mesh has), whatever a tensor's divisibility; () without
+    rules."""
+    act = _active()
+    if act is None:
+        return ()
+    mesh, rules = act
+    axes = rules.get(logical)
+    if axes is None:
+        return ()
+    names = tuple(mesh.mesh_dim_names)
+    return tuple(names.index(a) for a in ((axes,) if isinstance(axes, str) else axes)
+                 if a in names)
 
 
 def placements(spec: Sequence[AxisName], mesh) -> Tuple:
@@ -220,8 +247,28 @@ class NamedSharding(NamedTuple):
         return placements(self.spec, self.mesh)
 
 
+class _ConstrainGrad(torch.autograd.Function):
+    """The identity forward; the backward places the cotangent at
+    ``target`` (``with_sharding_constraint`` constrains the cotangent as
+    its transpose: a Partial sum arriving at a constrained activation is
+    reduced there, and the products before it take their sharded
+    strategy, not a gathered operand)."""
+
+    @staticmethod
+    def forward(ctx, x, target):
+        ctx.target = target
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.target:
+            g = g.redistribute(g.device_mesh, ctx.target)
+        return g, None
+
+
 def constrain(x, logical_axes: Sequence[Optional[str]]):
-    """``redistribute`` to the logical axes' placements; ``x`` itself
+    """``redistribute`` to the logical axes' placements, the cotangent
+    placed alike in the backward (:class:`_ConstrainGrad`); ``x`` itself
     without active rules or when ``x`` is not a DTensor."""
     act = _active()
     if act is None or not isinstance(x, DTensor):
@@ -229,9 +276,11 @@ def constrain(x, logical_axes: Sequence[Optional[str]]):
     mesh, _ = act
     assert len(logical_axes) == x.ndim, (logical_axes, x.shape)
     target = placements(pspec(logical_axes, x.shape), mesh)
-    if tuple(x.placements) == target:
+    if tuple(x.placements) != target:
+        x = x.redistribute(mesh, target)
+    if not x.requires_grad:
         return x
-    return x.redistribute(mesh, target)
+    return _ConstrainGrad.apply(x, target)
 
 
 def named_sharding(logical_axes: Sequence[Optional[str]], shape

@@ -24,6 +24,7 @@ kernel, which sums in float64 too, matches it bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -51,6 +52,7 @@ from repro_torch.launch.sharding import (
     placements,
     pspec,
     replicated,
+    rule_dims,
     shard_block,
     spec_of,
 )
@@ -325,7 +327,8 @@ def _paged_attention(q, k, v, cache: PagedKVCache, page_table, tpos,
         constrain(cache.v_scale, pool_axes)
     constrain(cache.k, pool_axes)
     constrain(cache.v, pool_axes)
-    name = select_attn_backend(cfg.paged_attn, q.device)
+    name = select_attn_backend(cfg.paged_attn, q.device, batch=b, t=t,
+                               kv_len=page_table.shape[1] * ps)
     return get_attn_backend(name).fn(
         q, cache.k, cache.v, page_table, tpos,
         softmax_dtype=cfg.softmax_dtype, mask_mode=cfg.attn_mask_mode,
@@ -366,16 +369,24 @@ def _head_parallel(fn, q, k, v, *args, batch_args=(), **kwargs):
     its output is flattened locally (a block of heads is a block of
     H·hd) and placed as q.  Where the KV heads do not divide the ranks but
     each rank's block of q heads lies in one KV head's group (32 heads
-    over 8 KV heads on 16 ranks), the rank reads that one KV head.
-    ``batch_args`` ([B, ..]) are cut by rows alike, ``args`` are taken
-    whole.  Without a DTensor operand, ``fn`` as it is; where the heads
-    fit neither way, the whole core runs replicated."""
+    over 8 KV heads on 16 ranks), the rank reads that one KV head.  Where
+    the q heads do not divide the heads' mesh axes at all (phi3's 40 on
+    16), the ranks of those axes split the queries instead
+    (:func:`_query_parallel`).  ``batch_args`` ([B, ..]) are cut by rows
+    alike, ``args`` are taken whole.  Without a DTensor operand, ``fn`` as
+    it is; where the heads fit no way, the whole core runs replicated."""
     if not any(isinstance(t, DTensor) for t in (q, k, v)):
         return fn(q, k, v, *batch_args, *args, **kwargs).flatten(2)
     mesh = next(t.device_mesh for t in (q, k, v) if isinstance(t, DTensor))
     place = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
              for p in (q.placements if isinstance(q, DTensor)
                        else [Replicate()] * mesh.ndim)]
+    rows = [p if p == Shard(0) else Replicate() for p in place]
+    idle = [i for i in rule_dims("heads") if place[i] == Replicate()]
+    if idle and Shard(2) not in place and not batch_args:
+        n = math.prod(mesh.size(i) for i in idle)
+        if q.shape[1] % n == 0 and q.shape[1] >= n > 1:
+            return _query_parallel(fn, q, k, v, args, kwargs, mesh, rows, idle)
     split = 1
     for size, p in zip(mesh.shape, place):
         split *= size if p == Shard(2) else 1
@@ -383,7 +394,6 @@ def _head_parallel(fn, q, k, v, *args, batch_args=(), **kwargs):
     if h % split or (kv % split and (h // kv) % (h // split)):
         return replicated(lambda *a, **kw: fn(*a, **kw).flatten(2), q, k, v,
                           *batch_args, *args, **kwargs)
-    rows = [p if p == Shard(0) else Replicate() for p in place]
     if kv % split:                  # the KV head of this rank's q heads
         head = shard_block(mesh, place, 2, h)[1] // (h // kv)
         heads_dims = [i for i, p in enumerate(place) if p == Shard(2)]
@@ -396,6 +406,40 @@ def _head_parallel(fn, q, k, v, *args, batch_args=(), **kwargs):
            *(a.full_tensor() if isinstance(a, DTensor) else a for a in args),
            **kwargs)
     return DTensor.from_local(y.flatten(2), mesh, place, run_check=False)
+
+
+#: a core's keyword operands that run along the queries ([.., T, S]: cut
+#: with them), and its offset of the first query
+_QUERY_ROWS, _QUERY_OFFSET = ("mask", "bias"), "q_offset"
+
+
+def _query_parallel(fn, q, k, v, args, kwargs, mesh, rows, dims):
+    """The core on each rank's block of queries: along the mesh dims
+    ``dims`` (those of the heads, which the q heads do not divide) each
+    rank takes its contiguous block of q's positions, with the matching
+    rows of the causal mask or bias (``_QUERY_ROWS``) or the offset of its
+    first query (``_QUERY_OFFSET``), and every head; K and V are read whole
+    by this rank's rows, so their gradient there is a Partial sum, as
+    GSPMD splits a replicated-heads attention.  The output comes back with
+    its H·hd columns sharded on ``dims`` (one all-to-all), as the output
+    projection's rows are, or whole where they do not divide."""
+    qpl = [Shard(1) if i in dims else p for i, p in enumerate(rows)]
+    n, start = shard_block(mesh, qpl, 1, q.shape[1])
+    kw = dict(kwargs)
+    for name in _QUERY_ROWS:
+        if kw.get(name) is not None:
+            kw[name] = full(kw[name]).narrow(-2, start, n)
+    if _QUERY_OFFSET in kw:
+        kw[_QUERY_OFFSET] = kw[_QUERY_OFFSET] + start
+    ks, vs = (block_of(t, mesh, rows, partial_on=dims) for t in (k, v))
+    y = fn(block_of(q, mesh, qpl), ks, vs,
+           *(a.full_tensor() if isinstance(a, DTensor) else a for a in args),
+           **kw)
+    y = DTensor.from_local(y.flatten(2), mesh, qpl, run_check=False)
+    cols = Shard(2) if y.shape[2] % math.prod(mesh.size(i) for i in dims) == 0 \
+        else Replicate()
+    return y.redistribute(mesh, [cols if i in dims else p
+                                 for i, p in enumerate(rows)])
 
 
 def _decode_attention(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
@@ -458,7 +502,7 @@ def _seq_parallel_decode(q, k: DTensor, v: DTensor, mask, cfg: ModelConfig):
     return DTensor.from_local(y, mesh, rows, run_check=False)
 
 
-def _naive_attention(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
+def _naive_attention(q, k, v, cfg: ModelConfig, *, mask) -> torch.Tensor:
     """Full-head attention. q [B,T,H,hd], k/v [B,S,Kv,hd]; mask [..,T,S]."""
     h, hd = q.shape[2], q.shape[3]
     kf, vf = _repeat_kv(k, h), _repeat_kv(v, h)
@@ -479,7 +523,7 @@ def causal_bias(t: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
                      (None, None))
 
 
-def _lean_attention(q, k, v, cfg: ModelConfig, bias) -> torch.Tensor:
+def _lean_attention(q, k, v, cfg: ModelConfig, *, bias) -> torch.Tensor:
     """Causal attention with the fewest passes: q pre-scaled by 1/sqrt(hd),
     one additive bias, max / sub-exp / sum in float32, and the 1/l
     normalisation on the [B,T,H,hd] output."""
@@ -639,13 +683,13 @@ def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
     if cfg.attn_impl == "lean":
         bias = attn_bias if attn_bias is not None else causal_bias(
             t, device=x.device)
-        y = _head_parallel(_lean_attention, q, k, v, cfg, bias)
+        y = _head_parallel(_lean_attention, q, k, v, cfg, bias=bias)
     elif cfg.attn_chunk_q and t > cfg.attn_chunk_q:
         y = _head_parallel(_chunked_attention, q, k, v, q_offset=0,
                            chunk=cfg.attn_chunk_q)
     else:
         pos = torch.arange(t, device=x.device)
         mask = (pos[None, :] <= pos[:, None])[None, None]     # [1,1,T,S]
-        y = _head_parallel(_naive_attention, q, k, v, mask, cfg)
+        y = _head_parallel(_naive_attention, q, k, v, cfg, mask=mask)
     y = dense(y, p["wo"])
     return constrain(y, ("batch", "seq", "embed"))

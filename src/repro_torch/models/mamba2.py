@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.engine import dense
+from repro_torch.launch.mesh import exchange_columns
 from repro_torch.launch.sharding import (
     DTensor,
     Replicate,
@@ -28,6 +29,7 @@ from repro_torch.launch.sharding import (
     placements,
     pspec,
     replicated,
+    rule_dims,
     shard_block,
 )
 from repro_torch.models.config import ModelConfig
@@ -95,6 +97,151 @@ def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
     return z, xbc, dt
 
 
+#: the column segments of ``in_proj``'s output, in order, with the
+#: logical axis each is projected on and the one it is used on, on a mesh
+#: (B and C are shared by the heads of a group: projected on their
+#: columns, then whole)
+_SEGMENTS = (("z", "inner", "inner"), ("x", "inner", "inner"),
+             ("B", "inner", None), ("C", "inner", None),
+             ("dt", "ssm_heads", "ssm_heads"))
+
+
+def _segment_widths(cfg: ModelConfig):
+    gs = cfg.ssm_groups * cfg.ssm_state
+    return (cfg.d_inner, cfg.d_inner, gs, gs, cfg.ssm_heads)
+
+
+def _heads_split(x, cfg: ModelConfig) -> Optional[int]:
+    """The mesh dim that splits the block's heads (the ``inner`` rules'
+    one dim, holding no rows of ``x``), where the channels and heads
+    divide it; None where the block runs on rows only."""
+    dims = rule_dims("inner")
+    if not isinstance(x, DTensor) or len(dims) != 1:
+        return None
+    d = dims[0]
+    n = x.device_mesh.size(d)
+    if x.placements[d] != Replicate() or cfg.d_inner % n or cfg.ssm_heads % n:
+        return None
+    hb, per_g = cfg.ssm_heads // n, cfg.ssm_heads // cfg.ssm_groups
+    return d if hb % per_g == 0 or per_g % hb == 0 else None
+
+
+def _segment_layout(cfg: ModelConfig, n: int, conv: bool = False):
+    """Each of ``n`` ranks' column ranges of ``in_proj``'s output (of the
+    conv channels with ``conv``) in Megatron's Mamba layout: its block of
+    heads' columns of z, x and dt, and B and C whole."""
+    di, gs, h = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, cfg.ssm_heads
+    zb, hb = di // n, h // n
+    if conv:
+        return [[(r * zb, (r + 1) * zb), (di, di + 2 * gs)] for r in range(n)]
+    return [[(r * zb, (r + 1) * zb), (di + r * zb, di + (r + 1) * zb),
+             (2 * di, 2 * di + 2 * gs),
+             (2 * di + 2 * gs + r * hb, 2 * di + 2 * gs + (r + 1) * hb)]
+            for r in range(n)]
+
+
+def _held(t, dim: int, n: int):
+    """The column ranges of ``t``'s last dim that each of the ``n`` ranks
+    of mesh dim ``dim`` holds: contiguous blocks where ``t`` is split
+    there, else all of them."""
+    width = t.shape[-1]
+    if isinstance(t, DTensor) and t.placements[dim] == Shard(t.ndim - 1):
+        c = width // n
+        return [[(i * c, (i + 1) * c)] for i in range(n)]
+    return [[(0, width)]] * n
+
+
+def _mesh_mixer(p, x: DTensor, cfg: ModelConfig, cache, update_cache: bool,
+                hd: int):
+    """``in_proj``, the causal conv and the SSD on a mesh whose dim ``hd``
+    splits the heads, in Megatron's Mamba layout (each rank its own
+    heads' columns of z, x and dt, and B and C whole;
+    :func:`_segment_layout`), where the contiguous split of the whole
+    projection (the parameter's placement, kept as the reference's) cuts
+    across the segments.  The cheaper of two exchanges gives the
+    segments: the weight gathered once and projected segment by segment
+    (many rows: train, prefill), or the projection's columns moved to
+    their ranks (few rows: decode, and any frozen pack;
+    :func:`repro_torch.launch.mesh.exchange_columns`).  The conv taps and
+    the cached window move alike, the conv runs on each rank's channels,
+    and the new window goes back to the cache's placement; the scan or
+    step runs on each rank's heads, reading the B/C groups they span, and
+    writes the rank's block of the SSM state.  B and C are read whole, so
+    their gradient on a rank is its heads' part, summed where they came
+    from.  Returns y (with the D skip) and z, [B, T, d_inner] DTensors
+    split on ``hd``."""
+    mesh, n = x.device_mesh, x.device_mesh.size(hd)
+    axis = mesh.mesh_dim_names[hd]
+    rows = [p_ if p_ == Shard(0) else Replicate() for p_ in x.placements]
+    row_dims = [i for i, p_ in enumerate(rows) if p_ == Shard(0)]
+    heads = [Shard(2) if i == hd else p_ for i, p_ in enumerate(rows)]
+    widths = _segment_widths(cfg)
+    gs = widths[2]
+    w = p["in_proj"]
+    if isinstance(w, DTensor) and math.prod(x.to_local().shape[:-1]) > w.shape[0]:
+        whole = w.redistribute(mesh, [Replicate() if p_ == Shard(1) else p_
+                                      for p_ in w.placements])
+        starts = [sum(widths[:i]) for i in range(len(widths))]
+        segs = [constrain(constrain(dense(x, constrain(
+                    whole.narrow(-1, a, m), ("embed", proj))),
+                    ("batch", "seq", proj)), ("batch", "seq", use))
+                for (_, proj, use), a, m in zip(_SEGMENTS, starts, widths)]
+        z, xs, bs, cs, dt = (
+            block_of(t, mesh, tuple(t.placements),
+                     partial_on=[] if use else [hd])
+            for t, (_, _, use) in zip(segs, _SEGMENTS))
+    else:
+        y = dense(x, w)
+        z, xs, bs, cs, dt = torch.split(
+            exchange_columns(block_of(y, mesh, tuple(y.placements)),
+                             _held(y, hd, n), _segment_layout(cfg, n), axis, mesh),
+            [widths[0] // n, widths[1] // n, gs, gs, widths[4] // n], dim=-1)
+    conv = _segment_layout(cfg, n, conv=True)
+
+    def taps(t):
+        """``t``'s segment channels on this rank (its gradient a Partial
+        sum over the rows' mesh dims)."""
+        local = (block_of(t, mesh, tuple(t.placements), partial_on=row_dims)
+                 if isinstance(t, DTensor) else t)
+        return exchange_columns(local, _held(t, hd, n), conv, axis, mesh)
+
+    window = None
+    if cache is not None:
+        window = exchange_columns(cache.conv.to_local(), _held(cache.conv, hd, n),
+                                  conv, axis, mesh)
+    xbc, new = _causal_conv(torch.cat([xs, bs, cs], dim=-1), taps(p["conv_w"]),
+                            taps(p["conv_b"]), window)
+    if cache is not None:
+        cache.conv.to_local().copy_(exchange_columns(
+            new, conv, _held(cache.conv, hd, n), axis, mesh).to(cache.conv.dtype))
+    xs, bs, cs = torch.split(xbc, [widths[0] // n, gs, gs], dim=-1)
+
+    hb = cfg.ssm_heads // n
+    h0 = mesh.get_local_rank(hd) * hb
+    per_g = cfg.ssm_heads // cfg.ssm_groups
+    g0, gn = h0 // per_g, max(1, hb // per_g)
+    own = [Shard(0) if i == hd else Replicate() for i in range(mesh.ndim)]
+    head_param = lambda t: block_of(t, mesh, own, partial_on=row_dims)  # noqa: E731
+    b_loc, t = xs.shape[0], xs.shape[1]
+    xh = xs.reshape(b_loc, t, hb, cfg.ssm_head_dim)
+    groups = lambda m: m.reshape(b_loc, t, cfg.ssm_groups, -1)[:, :, g0:g0 + gn]  # noqa: E731
+    bmat, cmat = groups(bs), groups(cs)
+    dt = F.softplus(dt.to(torch.float32) + head_param(p["dt_bias"]))
+    a = -torch.exp(head_param(p["A_log"]))
+    state = cache.ssm.to_local() if cache is not None else None
+    if cache is not None and t == 1 and not update_cache:
+        y, new_ssm = ssd_step(state, xh[:, 0], dt[:, 0], a, bmat[:, 0], cmat[:, 0])
+        y = y[:, None]
+    else:
+        y, new_ssm = ssd_chunked(xh, dt, a, bmat, cmat, cfg.ssm_chunk, state)
+    if cache is not None:
+        state.copy_(new_ssm)
+    y = y + head_param(p["D"])[None, None, :, None] * xh.to(torch.float32)
+    wrap = lambda v: DTensor.from_local(  # noqa: E731
+        v.reshape(b_loc, t, -1), mesh, heads, run_check=False)
+    return wrap(y), wrap(z)
+
+
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  cache_conv: Optional[torch.Tensor] = None):
     """Depthwise causal conv over time, xbc [B, T, C], w [K, C]: the taps
@@ -115,9 +262,14 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
                 eps: float) -> torch.Tensor:
     """RMS norm of ``y · silu(z)`` in float32 (the mean of squares summed in
-    float64, as the port's norms do, so a row rounds alike at any batch)."""
+    float64, as the port's norms do, so a row rounds alike at any batch);
+    y, z [B, T, d_inner]."""
     g = y * F.silu(z.to(torch.float32))
-    return g * torch.rsqrt(_mean_square(g) + eps) * scale.to(torch.float32)
+    # on a mesh the row statistic is whole on every rank of the channels
+    # (left to DTensor, it comes back split on the rows' dim 0, and every
+    # product with it then moves the channels)
+    ms = constrain(_mean_square(g), ("batch", "seq", None))
+    return g * torch.rsqrt(ms + eps) * scale.to(torch.float32)
 
 
 def _per_head(m: torch.Tensor, h: int) -> torch.Tensor:
@@ -240,22 +392,20 @@ def _on_blocks(fn, x, dt, a, bmat, cmat, state=None):
     return wrap(y, hd), wrap(new, 1)
 
 
-def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig,
-                  cache: Optional[MambaCache] = None,
-                  update_cache: bool = False) -> torch.Tensor:
-    """Mamba-2 block: train (no cache), prefill (``update_cache``, from the
-    cache's state) or decode (T = 1 over the cache).  The new conv window and
-    SSM state are written into ``cache`` in place; returns the output."""
+def _mixer(p, x: torch.Tensor, cfg: ModelConfig, cache, update_cache: bool):
+    """``in_proj``, the causal conv and the SSD on one device, or on a mesh
+    by rows (the conv's rows and the scan's rows and heads,
+    :func:`on_rows` and :func:`_on_blocks`); the cache written in place.
+    Returns y (with the D skip) and z, [B, T, d_inner]."""
     b, t, _ = x.shape
     h, pdim, s = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    zxbcdt = constrain(dense(x, p["in_proj"]), ("batch", "seq", "inner"))
-    z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
-
-    conv_in = cache.conv if cache is not None else None
-    xbc, new_conv = on_rows(_causal_conv, xbc, p["conv_w"], p["conv_b"],
-                            conv_in, whole=(1, 2))
     gs = cfg.ssm_groups * s
     di = cfg.d_inner
+    zxbcdt = constrain(dense(x, p["in_proj"]), ("batch", "seq", "inner"))
+    z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
+    xbc, new_conv = on_rows(_causal_conv, xbc, p["conv_w"], p["conv_b"],
+                            cache.conv if cache is not None else None,
+                            whole=(1, 2))
     xh = xbc[..., :di].reshape(b, t, h, pdim)
     bmat = xbc[..., di:di + gs].reshape(b, t, cfg.ssm_groups, s)
     cmat = xbc[..., di + gs:].reshape(b, t, cfg.ssm_groups, s)
@@ -275,10 +425,22 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig,
             xh, dt, a, bmat, cmat, cache.ssm if cache is not None else None)
 
     y = y + p["D"][None, None, :, None] * xh.to(torch.float32)
-    y = y.reshape(b, t, di)
-    y = _gated_norm(y, z, p["norm_scale"], cfg.norm_eps).to(x.dtype)
-    out = constrain(dense(y, p["out_proj"]), ("batch", "seq", "embed"))
     if cache is not None:
         cache.conv.copy_(new_conv.to(cache.conv.dtype))
         cache.ssm.copy_(new_ssm)
-    return out
+    return y.reshape(b, t, di), z
+
+
+def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig,
+                  cache: Optional[MambaCache] = None,
+                  update_cache: bool = False) -> torch.Tensor:
+    """Mamba-2 block: train (no cache), prefill (``update_cache``, from the
+    cache's state) or decode (T = 1 over the cache).  The new conv window and
+    SSM state are written into ``cache`` in place; returns the output."""
+    hd = _heads_split(x, cfg)
+    if hd is not None:              # on a mesh: Megatron's layout
+        y, z = _mesh_mixer(p, x, cfg, cache, update_cache, hd)
+    else:
+        y, z = _mixer(p, x, cfg, cache, update_cache)
+    y = _gated_norm(y, z, p["norm_scale"], cfg.norm_eps).to(x.dtype)
+    return constrain(dense(y, p["out_proj"]), ("batch", "seq", "embed"))

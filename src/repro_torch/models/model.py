@@ -22,6 +22,7 @@ checkpoints.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Any, Dict, Optional
@@ -36,6 +37,7 @@ from repro_torch.launch.sharding import (
     Shard,
     block_of,
     constrain,
+    rules_context,
     shard_block,
 )
 from repro_torch.models.attention import (
@@ -112,6 +114,23 @@ _REMAT_CONTEXT = {
 }
 
 
+@contextlib.contextmanager
+def _both(first, second):
+    with first, second:
+        yield
+
+
+def _remat_context(policy: str):
+    """The checkpoint's ``context_fn`` of ``policy``, whose recompute also
+    runs under the mesh rules active at the forward (on CUDA the backward,
+    and so the recompute, runs on the autograd engine's device thread)."""
+    def context_fn():
+        forward, recompute = _REMAT_CONTEXT[policy]()
+        return forward, _both(recompute, rules_context())
+
+    return context_fn
+
+
 def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     """Random weights with the reference's shapes and scales, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``."""
@@ -182,7 +201,7 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
         if remat:
             h = _ckpt.checkpoint(block_forward, bp, h, cfg, pos, positions,
                                  attn_bias=attn_bias, use_reentrant=False,
-                                 context_fn=_REMAT_CONTEXT[cfg.remat_policy])
+                                 context_fn=_remat_context(cfg.remat_policy))
         else:
             h = block_forward(bp, h, cfg, pos, positions, cache, page_table,
                               update_cache=update_cache, attn_bias=attn_bias)

@@ -19,9 +19,18 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.engine import dense
-from repro_torch.launch.sharding import constrain, on_rows
+from repro_torch.launch.sharding import (
+    block_of,
+    constrain,
+    on_rows,
+    placements,
+    pspec,
+    rule_dims,
+    shard_block,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_mlp, init_mlp, normal_init
 
@@ -81,13 +90,18 @@ def _top_k(gates: torch.Tensor, k: int):
     return topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9), topi
 
 
-def _topk_dispatch(gates: torch.Tensor, k: int, cap: int):
+def _topk_dispatch(gates: torch.Tensor, k: int, cap: int, experts=None):
     """gates [G, S, E] → dispatch [G, S, E, C] (0/1) and combine [G, S, E, C]
     (weighted), slot-major priority within each group (every slot-0 choice
-    first, in token order); capacity per (group, expert)."""
+    first, in token order); capacity per (group, expert).  ``experts``
+    ``(start, n)``: those experts' columns only (an expert's slots depend
+    on its own choices alone)."""
     g, s, e = gates.shape
     topw, topi = _top_k(gates, k)                          # [G, S, k]
     onehot = F.one_hot(topi, e).to(torch.float32)          # [G, S, k, E]
+    if experts is not None:
+        onehot = onehot[..., experts[0]:experts[0] + experts[1]]
+        e = experts[1]
     flat = onehot.permute(0, 2, 1, 3).reshape(g, k * s, e)
     pos = torch.cumsum(flat, dim=1) - flat                 # 0-based slot
     keep = (pos < cap) * flat
@@ -151,6 +165,48 @@ def moe_forward_sorted(p, xg: torch.Tensor, gates: torch.Tensor,
     return y[:, :s]
 
 
+def _dense_experts(p, xg, gates, k: int, cap: int) -> torch.Tensor:
+    """The one-hot dispatch (:func:`_topk_dispatch`), the experts and the
+    combine: xg [G, S, D], gates [G, S, E] → [G, S, D].  On a mesh that
+    shards the groups (``batch``) and the experts (``expert``), each rank
+    routes its groups' tokens to its own experts only (its block of the
+    dispatch's and combine's E, from the gates read whole), runs them
+    (:func:`_moe_experts`) and combines their outputs into a Partial sum
+    over the experts' mesh dims, reduced there, as the reference's
+    expert-parallel layout places these einsums; the tokens and the gates
+    are read whole there, so their gradients are Partial sums too (the
+    gates' [G, S, E], not the combine's [G, S, E, C]).  Elsewhere, each
+    rank's rows (:func:`on_rows`)."""
+    g, e, dt = xg.shape[0], gates.shape[-1], xg.dtype
+    mesh = xg.device_mesh if isinstance(xg, DTensor) else None
+    rows = (None if mesh is None
+            else placements(pspec(("batch",), (g,)), mesh))
+    edims = ([] if rows is None else
+             [i for i in rule_dims("expert") if rows[i] == Replicate()])
+    if (not edims or all(pl == Replicate() for pl in rows)
+            or e % math.prod(mesh.size(i) for i in edims)):
+        dispatch, combine = on_rows(_topk_dispatch, gates, k, cap)
+        xe = on_rows(torch.einsum, "gsec,gsd->gecd", dispatch.to(dt), xg)
+        xe = constrain(xe, ("batch", "expert", None, "embed"))
+        ye = constrain(_moe_experts(p, xe), ("batch", "expert", None, "embed"))
+        return on_rows(torch.einsum, "gsec,gecd->gsd", combine.to(dt), ye)
+    on_e = lambda dim: [Shard(dim) if i in edims else pl  # noqa: E731
+                        for i, pl in enumerate(rows)]
+    block = shard_block(mesh, on_e(2), 2, e)[::-1]          # (start, n)
+    dl, cl = _topk_dispatch(block_of(gates, mesh, rows, partial_on=edims),
+                            k, cap, experts=block)
+    xe = torch.einsum("gsec,gsd->gecd", dl.to(dt),
+                      block_of(xg, mesh, rows, partial_on=edims))
+    xe = constrain(DTensor.from_local(xe, mesh, on_e(1), run_check=False),
+                   ("batch", "expert", None, "embed"))
+    ye = constrain(_moe_experts(p, xe), ("batch", "expert", None, "embed"))
+    y = torch.einsum("gsec,gecd->gsd", cl.to(dt), block_of(ye, mesh, on_e(1)))
+    y = DTensor.from_local(y, mesh, [Partial() if i in edims else pl
+                                     for i, pl in enumerate(rows)],
+                           run_check=False)
+    return constrain(y, ("batch", None, "embed"))
+
+
 def _gates(xg: torch.Tensor, router: torch.Tensor, n_experts: int) -> torch.Tensor:
     """Routing probabilities in float32 over the padded experts (a padded
     expert's logit is -inf: never chosen)."""
@@ -178,12 +234,11 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.moe_impl == "sorted":
         y = moe_forward_sorted(p, xg, gates, cfg, cap)
     else:
-        dispatch, combine = on_rows(_topk_dispatch, gates, cfg.top_k, cap)
-        xe = on_rows(torch.einsum, "gsec,gsd->gecd", dispatch.to(x.dtype), xg)
-        xe = constrain(xe, ("batch", "expert", None, "embed"))
-        ye = constrain(_moe_experts(p, xe), ("batch", "expert", None, "embed"))
-        y = on_rows(torch.einsum, "gsec,gecd->gsd", combine.to(x.dtype), ye)
-    y = y.reshape(g * s, d)[:n].reshape(b, t, d)
+        y = _dense_experts(p, xg, gates, cfg.top_k, cap)
+    y = y.reshape(g * s, d)
+    if g * s > n:
+        y = y[:n]
+    y = y.reshape(b, t, d)
     if "shared" in p:
         y = y + apply_mlp(p["shared"], x, cfg)
     return constrain(y, ("batch", "seq", "embed"))
