@@ -179,10 +179,10 @@ Phases, one JSON line each:
    phase-6 requests on ``runtime="auto"`` (the slot runtime: exact-length
    prefills into a MambaCache), tokens EQUAL to the plain-swapped serve's,
    and a width-4 decode window;
-18. ``serve_moe``: qwen2-moe-a2.7b (24 layers, d 2048, MHA 16 heads, q/k/v
-   biases, 60 experts padded to 64, top-4, 4 shared, vocab 151936) at full
-   size, dropless, the same freeze (193 bit-plane calls per forward, one
-   per stacked expert pack), the phase-6 requests on the paged
+18. ``serve_moe``: qwen2-moe-a2.7b (MOE_SERVE_LAYERS of its 24 layers, d
+   2048, MHA 16 heads, q/k/v biases, 60 experts padded to 64, top-4, 4
+   shared, vocab 151936) at full width, dropless, the same freeze (8 bit-
+   plane calls per layer and the LM head's, one per stacked expert pack), the phase-6 requests on the paged
    runtime with the attention kernel, tokens EQUAL to the plain-swapped
    serve's, and a width-4 decode window;
 19. ``family_variants``: jamba-1.5-large-398b at one period (8 of its 72
@@ -246,7 +246,8 @@ Phases, one JSON line each:
    same freeze unsharded (the LUT and attention kernels counted over the
    sharded serve), and the launcher's ``--smoke`` training on the mesh
    against one device (|Δloss| within DIST_LOSS_ATOL); (b) qwen3-8b at
-   full size, ``pallas_bitplane``, on two gloo ranks of the card (NCCL
+   full width (TP_LAYERS of its 36 layers), ``pallas_bitplane``, on two
+   gloo ranks of the card (NCCL
    refuses two ranks of one card), mesh TP_MESH: phase 6's requests
    served tensor-parallel (each rank's PMAs and KV pools its half of the
    columns and KV heads), tokens EQUAL to rank 0's unsharded serve of the
@@ -274,11 +275,13 @@ Phases, one JSON line each:
    traced: the counted bytes at least the packed codes' and scales'
    bytes (so ``t_memory`` at least their stream), 181 bit-plane calls a
    forward; (d), started with (a): the production-mesh records of
-   qwen3-8b ``train_4k``, phi3-medium-14b ``prefill_32k``,
-   moonshot-v1-16b-a3b ``train_4k`` and mamba2-780m ``decode_32k``
-   ``DA_int8`` (PARITY_CELLS), each ``ok``, each printed on a ``parity``
-   line with its per-chip FLOPs, argument + temp bytes and collective
-   bytes beside the reference's, and held to PARITY_MAX of them.
+   qwen3-8b ``train_4k`` and ``prefill_32k``, phi3-medium-14b
+   ``prefill_32k``, moonshot-v1-16b-a3b ``train_4k`` and ``decode_32k``
+   (one token group: the experts' capacity slots over the data axis) and
+   mamba2-780m ``decode_32k`` ``DA_int8`` (PARITY_CELLS), each ``ok``,
+   each printed on a ``parity`` line with its per-chip FLOPs, argument
+   + temp bytes and collective bytes beside the reference's, and held to
+   PARITY_MAX of them.
 
 ``--phase analysis_sweep`` runs, after the build, ``python -m
 repro_torch.analysis.check --configs all`` (the nightly static-analysis
@@ -2473,6 +2476,9 @@ FAMILY_VMM_SHAPES = ((1536, 6448), (3072, 1536), (1536, 50280), (2048, 6144),
                      (5632, 2048), (2048, 151936))
 #: qwen2-moe's attention heads (MHA: 16 query heads over 16 KV heads of 128)
 MOE_HEADS = dict(h=16, kv=16, hd=128)
+#: serve_moe's qwen2-moe depth (of 24; full width): its plain-swapped
+#: serve, every expert's product in the plain version, takes most of it
+MOE_SERVE_LAYERS = 8
 #: the stacked-expert checks: qwen2-moe's [64, 2048, 1408] expert stack at
 #: C = 4 and 16 rows per expert through the bit-plane kernel, and a
 #: LUT-carrying [6, 256, 512] stack through the LUT-readout kernel
@@ -2787,15 +2793,16 @@ def phase_serve_ssm():
 
 
 def phase_serve_moe():
-    """qwen2-moe-a2.7b (24 layers, d 2048, MHA 16 heads, q/k/v biases, 60
-    experts padded to 64, top-4, 4 shared, vocab 151936) at full size,
-    dropless as the reference's server runs it, on the paged runtime
-    (page 16, the attention kernel); reckoned 193 bit-plane calls per
-    forward: 24 x (q|k|v, wo, 3 stacked expert packs of 64 experts, one
-    call each, 3 shared) and the LM head."""
+    """qwen2-moe-a2.7b (MOE_SERVE_LAYERS of 24 layers, d 2048, MHA 16
+    heads, q/k/v biases, 60 experts padded to 64, top-4, 4 shared, vocab
+    151936) at full width, dropless as the reference's server runs it, on
+    the paged runtime (page 16, the attention kernel); reckoned 8
+    bit-plane calls per layer (q|k|v, wo, 3 stacked expert packs of 64
+    experts, one call each, 3 shared) and the LM head's."""
     from repro_torch.configs.registry import get
 
-    cfg = dataclasses.replace(get("qwen2-moe-a2.7b"), moe_dropless=True)
+    cfg = dataclasses.replace(get("qwen2-moe-a2.7b"), moe_dropless=True,
+                              n_layers=MOE_SERVE_LAYERS)
     return _family_serve("serve_moe", cfg, "paged", {
         "calls_per_forward": cfg.n_layers * (2 + 3 + 3) + 1,
         "expert_calls_per_forward": cfg.n_layers * 3})
@@ -3484,6 +3491,9 @@ def phase_train():
 # ---------------------------------------------------------------------------
 #: the mesh of the tensor-parallel serve and of the full-width training run
 TP_MESH = (1, 2)
+#: (b)'s qwen3-8b depth (of 36; full width): gloo stages every collective
+#: through host memory, so its serve's time grows with the layers
+TP_LAYERS = 12
 #: the reference's bound on a sharded loss against the one-device loss
 DIST_LOSS_ATOL = 1e-3
 #: GPipe on the card against the CPU (float32 tanh / matmul round apart)
@@ -3702,7 +3712,7 @@ def _tp_serve(cfg, mode, mesh) -> dict:
         peak = torch.cuda.max_memory_allocated() / 1e9
         checked = _local_kernels_vs_plain(seen)
     vmm = TP_VMM[mode]
-    out = {"rank": rank, "model": cfg.name, "mode": mode,
+    out = {"rank": rank, "model": cfg.name, "layers": cfg.n_layers, "mode": mode,
            "tokens": _tokens(done, reqs), "plain": plain,
            "launches": counts, "forwards": len(forwards),
            **({f"{vmm}_calls_per_forward": counts[vmm] / len(forwards)} if vmm
@@ -3726,14 +3736,16 @@ TP_VMM = {"pallas_bitplane": "bitplane_vmm", "pallas_lut": "da_vmm", "int8": Non
 
 
 def _tp_serve_rank() -> list:
-    """(b), one rank of two on the (1, 2) mesh: qwen3-8b at full size from
-    a ``pallas_bitplane`` freeze, then the LUT-serving model from a
-    ``pallas_lut`` freeze and from an ``int8`` one."""
+    """(b), one rank of two on the (1, 2) mesh: qwen3-8b at full width and
+    TP_LAYERS layers from a ``pallas_bitplane`` freeze, then the
+    LUT-serving model from a ``pallas_lut`` freeze and from an ``int8``
+    one."""
     from repro_torch.configs.registry import get
     from repro_torch.launch.mesh import make_test_mesh
 
     mesh = make_test_mesh(TP_MESH, ("data", "model"), device_type="cuda")
-    return [_tp_serve(get("qwen3-8b"), "pallas_bitplane", mesh),
+    qwen3 = dataclasses.replace(get("qwen3-8b"), n_layers=TP_LAYERS)
+    return [_tp_serve(qwen3, "pallas_bitplane", mesh),
             _tp_serve(lut_model_cfg(), "pallas_lut", mesh),
             _tp_serve(lut_model_cfg(), "int8", mesh)]
 
@@ -4046,6 +4058,10 @@ PARITY_CELLS = {
                      (342695784480768.0, 102054472480, 632836587520.0)),
     "moonshot_train": (["--arch", "moonshot-v1-16b-a3b", "--shape", "train_4k"],
                        (204546756313088.0, 86538565240, 241767030828.0)),
+    "moonshot_decode": (["--arch", "moonshot-v1-16b-a3b", "--shape", "decode_32k"],
+                        (109421978624.0, 32321256584, 66817024.0)),
+    "qwen3_prefill": (["--arch", "qwen3-8b", "--shape", "prefill_32k"],
+                      (143933775544320.0, 45825888080, 411789426688.0)),
     "mamba_int8": (["--arch", "mamba2-780m", "--shape", "decode_32k",
                     "--variant", "DA_int8", "--full"],
                    (2312973056.0, None, 6970368.0)),

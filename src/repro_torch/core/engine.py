@@ -944,17 +944,22 @@ def _expert_parallel(x: torch.Tensor, w: DTensor) -> torch.Tensor:
     """Stacked experts ``w`` [E, K, N] placed on a mesh: each rank applies
     its own experts to their rows of ``x`` [.., E, C, K], the expert axis
     sharded alike on both; on the other mesh dims ``x`` keeps its block of
-    a leading (group) dim, the experts there gathered; every other dim is
-    gathered.  The result is placed as ``x``'s block."""
+    a leading (group) dim or of the slots (C), the experts there gathered;
+    every other dim is gathered.  The result is placed as ``x``'s block;
+    the weights' gradient is a Partial sum over the mesh dims where ``x``
+    keeps such a block (each rank's rows contribute their share)."""
     mesh, e_dim = w.device_mesh, x.ndim - 3
     on_e = [isinstance(p, Shard) and p.dim == 0 for p in w.placements]
     if not isinstance(x, DTensor):
         x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
-    xp = [Shard(e_dim) if e else p if isinstance(p, Shard) and p.dim < e_dim
-          else Replicate() for e, p in zip(on_e, x.placements)]
+    xp = [Shard(e_dim) if e else p if isinstance(p, Shard) and p.dim != e_dim
+          and p.dim < x.ndim - 1 else Replicate()
+          for e, p in zip(on_e, x.placements)]
     wp = [Shard(0) if e else Replicate() for e in on_e]
+    wgrad = [Partial() if not e and isinstance(p, Shard) else q
+             for e, p, q in zip(on_e, xp, wp)]
     y = torch.einsum("...ecd,edf->...ecf", x.redistribute(mesh, xp).to_local(),
-                     w.redistribute(mesh, wp).to_local())
+                     w.redistribute(mesh, wp).to_local(grad_placements=wgrad))
     return DTensor.from_local(y, mesh, xp, run_check=False)
 
 

@@ -24,8 +24,10 @@ fake tensors are not counted, so every count is per chip:
   the reference's score and PV products, 4·B·T·H·S·hd over its window of
   S = W·page_size positions.
 * bytes: each distinct tensor among an op's operands and results, once
-  (views, allocations and collectives move none); an indexed read
-  (``index``, ``gather``, ``embedding``) or write (``index_put_``,
+  (views, allocations and collectives move none), and twice the tensor an
+  op reads and writes in place (``sub_``, ``exp_``, a ``where`` into its
+  own operand; not ``copy_`` or ``fill_``, which only write it); an
+  indexed read (``index``, ``gather``, ``embedding``) or write (``index_put_``,
   ``scatter``, ...) counts the rows it moves, twice (read and write), not
   the whole table it indexes.  The port runs eagerly, op by op, so these
   unfused bytes are what it moves; XLA's fused count is smaller.
@@ -227,6 +229,8 @@ _NO_BYTES = frozenset({
 })
 
 
+#: in-place ops that write their tensor without reading it
+_WRITE_ONLY = frozenset({"aten.copy_", "aten.fill_", "aten.zero_"})
 #: ops that read the rows of their first operand (a table) that their
 #: other operands name, and ops that write such rows in place
 _INDEXED_READS = frozenset({"aten.index", "aten.gather", "aten.embedding",
@@ -387,6 +391,9 @@ class OpCounter(TorchDispatchMode):
                 if isinstance(t, torch.Tensor) and id(t) not in seen:
                     seen.add(id(t))
                     b += _nbytes(t)
+            if name not in _WRITE_ONLY:     # read and written in place
+                b += sum(_nbytes(t) for t in _tensors(out)
+                         if any(t is a for a in args))
         self.bytes += b
         self.bytes_by_op[name] += b
 

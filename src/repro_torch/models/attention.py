@@ -242,10 +242,23 @@ def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor, softmax_dtype,
                     mask_mode: str, acc=None) -> torch.Tensor:
     """Mask, then softmax as ``exp(x - max) / sum`` in ``softmax_dtype``,
     the row sum accumulated in ``acc`` (``softmax_dtype`` by default) and
-    rounded to that dtype."""
+    rounded to that dtype.  Where no gradient is recorded, the same
+    operations in the same order run in place on one copy of the scores in
+    ``softmax_dtype`` (bit for bit the chain's values, one score buffer
+    instead of several): scores already in that dtype are written over, so
+    a caller passes scores it does not read again."""
     sd = getattr(torch, str(softmax_dtype).replace("torch.", ""))
     scores = scores.to(sd)
     neg = torch.tensor(NEG_INF, dtype=sd, device=scores.device)
+    if not (torch.is_grad_enabled() and scores.requires_grad):
+        if mask_mode == "additive":
+            scores.add_(torch.where(mask, torch.zeros((), dtype=sd,
+                                                      device=scores.device), neg))
+        else:
+            torch.where(mask, scores, neg, out=scores)
+        scores.sub_(torch.amax(scores, dim=-1, keepdim=True)).exp_()
+        return scores.div_(torch.sum(scores, dim=-1, keepdim=True,
+                                     dtype=acc or sd).to(sd))
     if mask_mode == "additive":
         scores = scores + torch.where(mask, torch.zeros((), dtype=sd,
                                                         device=scores.device), neg)
@@ -506,11 +519,17 @@ def _naive_attention(q, k, v, cfg: ModelConfig, *, mask) -> torch.Tensor:
     """Full-head attention. q [B,T,H,hd], k/v [B,S,Kv,hd]; mask [..,T,S]."""
     h, hd = q.shape[2], q.shape[3]
     kf, vf = _repeat_kv(k, h), _repeat_kv(v, h)
-    scores = torch.einsum("bthd,bshd->bhts", q, kf)
-    scores = scores / _in_dtype(hd ** 0.5, scores.dtype)
-    probs = _masked_softmax(scores, mask, cfg.softmax_dtype,
+    # the scaled scores reach the softmax with no other reference, so its
+    # copy in softmax_dtype frees them
+    probs = _masked_softmax(_scaled_scores(q, kf, hd), mask, cfg.softmax_dtype,
                             cfg.attn_mask_mode).to(q.dtype)
     return torch.einsum("bhts,bshd->bthd", probs, vf)
+
+
+def _scaled_scores(q, kf, hd: int) -> torch.Tensor:
+    """q [B,T,H,hd] · kf [B,S,H,hd] → [B,H,T,S], divided by sqrt(hd)."""
+    scores = torch.einsum("bthd,bshd->bhts", q, kf)
+    return scores / _in_dtype(hd ** 0.5, scores.dtype)
 
 
 def causal_bias(t: int, dtype=torch.float32, device="cpu") -> torch.Tensor:

@@ -51,9 +51,13 @@ def _mean_square(xf: torch.Tensor) -> torch.Tensor:
     reduction splits a row among threads by how many rows the call holds,
     so a float32 sum would round a row differently in a decode step and in
     a verify or prefill step; the float64 sum rounds to the same float32 in
-    all but a vanishing share of rows, whatever the batch."""
-    return torch.mean(torch.square(xf.to(torch.float64)), dim=-1,
-                      keepdim=True).to(torch.float32)
+    all but a vanishing share of rows, whatever the batch.  Where no
+    gradient is recorded the square is taken in place, one float64 copy
+    of the rows alive instead of two (the same values)."""
+    x64 = xf.to(torch.float64)
+    sq = (torch.square(x64) if torch.is_grad_enabled() and x64.requires_grad
+          else x64.square_())
+    return torch.mean(sq, dim=-1, keepdim=True).to(torch.float32)
 
 
 def _row_mean(xf: torch.Tensor) -> torch.Tensor:
@@ -147,15 +151,16 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_model: int,
 
 
 def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """GELU is the tanh form (``jax.nn.gelu``'s default)."""
-    up = constrain(dense(x, p["w_up"]), ("batch", "seq", "ffn"))
+    """GELU is the tanh form (``jax.nn.gelu``'s default).  One name holds
+    the up projection and then the activation, so neither outlives its use
+    (the gate's product is a temporary)."""
+    h = constrain(dense(x, p["w_up"]), ("batch", "seq", "ffn"))
     if cfg.mlp_act == "swiglu":
-        gate = constrain(dense(x, p["w_gate"]), ("batch", "seq", "ffn"))
-        h = F.silu(gate) * up
+        h = F.silu(constrain(dense(x, p["w_gate"]), ("batch", "seq", "ffn"))) * h
     elif cfg.mlp_act == "gelu":
-        h = F.gelu(up, approximate="tanh")
+        h = F.gelu(h, approximate="tanh")
     elif cfg.mlp_act == "relu2":
-        h = torch.square(F.relu(up))
+        h = torch.square(F.relu(h))
     else:
         raise ValueError(cfg.mlp_act)
     return constrain(dense(h, p["w_down"]), ("batch", "seq", "embed"))

@@ -83,12 +83,14 @@ def block_forward(p, x: torch.Tensor, cfg: ModelConfig, pos: int, positions,
                   cache=None, page_table=None, *, update_cache: bool = False,
                   attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     h = apply_norm(p["norm_mixer"], x, cfg)
+    # h takes the mixer's output, so the norm's and the mixer's outputs
+    # are each freed as soon as they are spent
     if cfg.mixer_kind(pos) == "attn":
-        y = attention_forward(p["mixer"], h, cfg, positions, cache, page_table,
+        h = attention_forward(p["mixer"], h, cfg, positions, cache, page_table,
                               update_cache=update_cache, attn_bias=attn_bias)
     else:
-        y = mamba_forward(p["mixer"], h, cfg, cache, update_cache)
-    x = x + y
+        h = mamba_forward(p["mixer"], h, cfg, cache, update_cache)
+    x = x + h
     ffn = cfg.ffn_kind(pos)
     if ffn == "none":
         return x

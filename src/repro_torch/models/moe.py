@@ -90,12 +90,14 @@ def _top_k(gates: torch.Tensor, k: int):
     return topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9), topi
 
 
-def _topk_dispatch(gates: torch.Tensor, k: int, cap: int, experts=None):
+def _topk_dispatch(gates: torch.Tensor, k: int, cap: int, experts=None,
+                   slots=None):
     """gates [G, S, E] → dispatch [G, S, E, C] (0/1) and combine [G, S, E, C]
     (weighted), slot-major priority within each group (every slot-0 choice
     first, in token order); capacity per (group, expert).  ``experts``
     ``(start, n)``: those experts' columns only (an expert's slots depend
-    on its own choices alone)."""
+    on its own choices alone); ``slots`` ``(start, n)``: those slots only,
+    a slot at or past ``cap`` empty."""
     g, s, e = gates.shape
     topw, topi = _top_k(gates, k)                          # [G, S, k]
     onehot = F.one_hot(topi, e).to(torch.float32)          # [G, S, k, E]
@@ -105,9 +107,10 @@ def _topk_dispatch(gates: torch.Tensor, k: int, cap: int, experts=None):
     flat = onehot.permute(0, 2, 1, 3).reshape(g, k * s, e)
     pos = torch.cumsum(flat, dim=1) - flat                 # 0-based slot
     keep = (pos < cap) * flat
-    slots = torch.arange(cap, device=gates.device, dtype=pos.dtype)
-    posc = (pos[..., None] == slots).to(torch.float32) * keep[..., None]
-    posc = posc.reshape(g, k, s, e, cap)
+    first, n = slots if slots is not None else (0, cap)
+    slot_ids = torch.arange(first, first + n, device=gates.device, dtype=pos.dtype)
+    posc = (pos[..., None] == slot_ids).to(torch.float32) * keep[..., None]
+    posc = posc.reshape(g, k, s, e, n)
     dispatch = posc.sum(dim=1)                             # [G, S, E, C]
     combine = torch.einsum("gksec,gsk->gsec", posc, topw)
     return dispatch, combine
@@ -165,55 +168,102 @@ def moe_forward_sorted(p, xg: torch.Tensor, gates: torch.Tensor,
     return y[:, :s]
 
 
-def _dense_experts(p, xg, gates, k: int, cap: int) -> torch.Tensor:
+def _dense_experts(p, xg, gates, k: int, cap: int, batch_rows: int = 1
+                   ) -> torch.Tensor:
     """The one-hot dispatch (:func:`_topk_dispatch`), the experts and the
     combine: xg [G, S, D], gates [G, S, E] → [G, S, D].  On a mesh that
-    shards the groups (``batch``) and the experts (``expert``), each rank
-    routes its groups' tokens to its own experts only (its block of the
-    dispatch's and combine's E, from the gates read whole), runs them
-    (:func:`_moe_experts`) and combines their outputs into a Partial sum
-    over the experts' mesh dims, reduced there, as the reference's
-    expert-parallel layout places these einsums; the tokens and the gates
-    are read whole there, so their gradients are Partial sums too (the
-    gates' [G, S, E], not the combine's [G, S, E, C]).  Elsewhere, each
-    rank's rows (:func:`on_rows`)."""
+    shards the experts (``expert``), each rank routes its groups' tokens
+    to its own experts only (its block of the dispatch's and combine's E,
+    from the gates read whole), runs them (:func:`_moe_experts`) and
+    combines their outputs into a Partial sum over the experts' mesh dims,
+    reduced there, as the reference's expert-parallel layout places these
+    einsums; the tokens and the gates are read whole there, so their
+    gradients are Partial sums too (the gates' [G, S, E], not the
+    combine's [G, S, E, C]).  Where there is one group (a decode step's
+    ``batch_rows`` rows' tokens, row-major), which cannot shard on
+    ``batch``, the batch axes take the capacity slots instead: each rank fills its
+    block of its experts' slots (the capacity padded to a multiple of
+    those axes; a slot past it stays empty), the output's Partial sum is
+    reduce-scattered over them to the batch rows' blocks of tokens, and
+    the output leaves with the tokens so split (``batch_rows`` must divide
+    by those axes, else the slots stay whole).  Elsewhere, each rank's
+    rows (:func:`on_rows`)."""
     g, e, dt = xg.shape[0], gates.shape[-1], xg.dtype
     mesh = xg.device_mesh if isinstance(xg, DTensor) else None
     rows = (None if mesh is None
             else placements(pspec(("batch",), (g,)), mesh))
     edims = ([] if rows is None else
              [i for i in rule_dims("expert") if rows[i] == Replicate()])
-    if (not edims or all(pl == Replicate() for pl in rows)
-            or e % math.prod(mesh.size(i) for i in edims)):
+    if not edims or e % math.prod(mesh.size(i) for i in edims):
         dispatch, combine = on_rows(_topk_dispatch, gates, k, cap)
         xe = on_rows(torch.einsum, "gsec,gsd->gecd", dispatch.to(dt), xg)
         xe = constrain(xe, ("batch", "expert", None, "embed"))
         ye = constrain(_moe_experts(p, xe), ("batch", "expert", None, "embed"))
         return on_rows(torch.einsum, "gsec,gecd->gsd", combine.to(dt), ye)
-    on_e = lambda dim: [Shard(dim) if i in edims else pl  # noqa: E731
+    sdims = ([i for i in rule_dims("batch") if i not in edims and mesh.size(i) > 1]
+             if g == 1 else [])
+    ns = math.prod(mesh.size(i) for i in sdims)
+    if batch_rows % ns:
+        sdims, ns = [], 1
+    slot_axis = "batch" if sdims else None
+    on_e = lambda dim: [Shard(dim) if i in edims  # noqa: E731
+                        else Shard(dim + 1) if i in sdims else pl
                         for i, pl in enumerate(rows)]
     block = shard_block(mesh, on_e(2), 2, e)[::-1]          # (start, n)
-    dl, cl = _topk_dispatch(block_of(gates, mesh, rows, partial_on=edims),
-                            k, cap, experts=block)
+    slots = shard_block(mesh, [Shard(0) if i in sdims else Replicate()
+                               for i in range(mesh.ndim)], 0,
+                        -(-cap // ns) * ns)[::-1]
+    partial_on = edims + sdims
+    dl, cl = _topk_dispatch(block_of(gates, mesh, rows, partial_on=partial_on),
+                            k, cap, experts=block, slots=slots)
     xe = torch.einsum("gsec,gsd->gecd", dl.to(dt),
-                      block_of(xg, mesh, rows, partial_on=edims))
-    xe = constrain(DTensor.from_local(xe, mesh, on_e(1), run_check=False),
-                   ("batch", "expert", None, "embed"))
-    ye = constrain(_moe_experts(p, xe), ("batch", "expert", None, "embed"))
+                      block_of(xg, mesh, rows, partial_on=partial_on))
+    axes = ("batch", "expert", slot_axis, "embed")
+    xe = constrain(DTensor.from_local(xe, mesh, on_e(1), run_check=False), axes)
+    ye = constrain(_moe_experts(p, xe), axes)
     y = torch.einsum("gsec,gecd->gsd", cl.to(dt), block_of(ye, mesh, on_e(1)))
-    y = DTensor.from_local(y, mesh, [Partial() if i in edims else pl
+    y = DTensor.from_local(y, mesh, [Partial() if i in partial_on else pl
                                      for i, pl in enumerate(rows)],
                            run_check=False)
-    return constrain(y, ("batch", None, "embed"))
+    return constrain(y, ("batch", slot_axis, "embed"))
+
+
+def _probs(logits: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Routing probabilities in float32 over the padded experts (a padded
+    expert's logit is -inf: never chosen)."""
+    pad_mask = torch.where(torch.arange(logits.shape[-1], device=logits.device)
+                           < n_experts, 0.0, float("-inf"))
+    return torch.softmax(logits + pad_mask, dim=-1)
 
 
 def _gates(xg: torch.Tensor, router: torch.Tensor, n_experts: int) -> torch.Tensor:
-    """Routing probabilities in float32 over the padded experts (a padded
-    expert's logit is -inf: never chosen)."""
-    logits = xg.to(torch.float32) @ router
-    pad_mask = torch.where(torch.arange(router.shape[1], device=xg.device)
-                           < n_experts, 0.0, float("-inf"))
-    return torch.softmax(logits + pad_mask, dim=-1)
+    return _probs(xg.to(torch.float32) @ router, n_experts)
+
+
+def _route(xg: torch.Tensor, router, n_experts: int) -> torch.Tensor:
+    """gates [G, S, E] of the grouped tokens.  Where the groups do not
+    shard on ``batch`` (a decode step's one group) but the experts do,
+    each rank takes its experts' logits from its own block of the router's
+    columns and the [G, S, E] logits are gathered, not the [D, E] router
+    (the reference's placement of the router product); the tokens are read
+    whole, so their gradient is a Partial sum there.  Elsewhere each
+    rank's rows, the router whole (:func:`on_rows`)."""
+    mesh = xg.device_mesh if isinstance(xg, DTensor) else None
+    rows = (None if mesh is None
+            else placements(pspec(("batch",), (xg.shape[0],)), mesh))
+    edims = ([] if rows is None or any(pl != Replicate() for pl in rows)
+             else rule_dims("expert"))
+    if not edims or router.shape[1] % math.prod(mesh.size(i) for i in edims):
+        return on_rows(_gates, xg, router, n_experts, whole=(1,))
+    rep = [Replicate()] * mesh.ndim
+    cols = [Shard(1) if i in edims else Replicate() for i in range(mesh.ndim)]
+    logits = (block_of(xg, mesh, rep, partial_on=edims).to(torch.float32)
+              @ block_of(router, mesh, cols))
+    logits = DTensor.from_local(logits, mesh, [Shard(2) if i in edims else pl
+                                               for i, pl in enumerate(rep)],
+                                run_check=False).full_tensor()
+    return DTensor.from_local(_probs(logits, n_experts), mesh, rep,
+                              run_check=False)
 
 
 def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -229,12 +279,12 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     xg = constrain(xf.reshape(g, s, d), ("batch", None, "embed"))
     cap = capacity(cfg, s)
 
-    gates = on_rows(_gates, xg, p["router"], cfg.n_experts, whole=(1,))
+    gates = _route(xg, p["router"], cfg.n_experts)
 
     if cfg.moe_impl == "sorted":
         y = moe_forward_sorted(p, xg, gates, cfg, cap)
     else:
-        y = _dense_experts(p, xg, gates, cfg.top_k, cap)
+        y = _dense_experts(p, xg, gates, cfg.top_k, cap, b)
     y = y.reshape(g * s, d)
     if g * s > n:
         y = y[:n]

@@ -192,6 +192,29 @@ def test_per_chip_flops_count_the_local_ops_only(worlds):
         assert cell["comm"] == cell["calls"] and cell["calls"], (kind, cell)
 
 
+def test_in_place_ops_count_their_read_and_write():
+    """An op that reads and writes its tensor in place moves it twice, as
+    the out-of-place op moves its input and its result (the no-grad
+    softmax's chain counts what the autograd chain counts); ``copy_`` and
+    ``fill_`` only write theirs."""
+    from repro_torch.launch.dryrun import OpCounter
+
+    x, y = torch.zeros(64, 32), torch.ones(64, 32)
+    mask = y > 0
+    n = x.numel() * x.element_size()
+    cases = {"sub_": (lambda: x.sub_(y), 3 * n), "sub": (lambda: x - y, 3 * n),
+             "exp_": (lambda: x.exp_(), 2 * n), "exp": (lambda: torch.exp(x), 2 * n),
+             "where_out": (lambda: torch.where(mask, x, y, out=x),
+                           3 * n + mask.numel()),
+             "where": (lambda: torch.where(mask, x, y), 3 * n + mask.numel()),
+             "copy_": (lambda: x.copy_(y), 2 * n), "fill_": (lambda: x.fill_(0.0), n)}
+    for name, (fn, want) in cases.items():
+        counter = OpCounter()
+        with counter:
+            fn()
+        assert counter.bytes == want, (name, counter.bytes, want)
+
+
 def test_da_frozen_decode_counts_the_codes():
     from repro_torch.configs.registry import ARCHS, ShapeSpec, reduce_for_smoke
     from repro_torch.core.engine import PackedWeights

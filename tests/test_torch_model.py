@@ -229,3 +229,61 @@ def test_forward_logits_match_quantized_pool(setup, kv_dtype):
     # the codes written to real pages match (page 0 takes pad writes)
     np.testing.assert_array_equal(tc["pos_0"].k[:, 1:].numpy(),
                                   np.asarray(jnew["pos_0"].k)[:, 1:])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask_mode", ["where", "additive"])
+def test_masked_softmax_without_grad_is_the_autograd_chain(dtype, mask_mode):
+    """Where no gradient is recorded the softmax runs in place on its one
+    copy of the scores in ``softmax_dtype``: bit for bit the autograd
+    path's out-of-place chain, in float32 and bfloat16 scores and softmax
+    dtypes, in both mask modes; within the reference's float32 bound of
+    JAX's softmax."""
+    rng = np.random.default_rng(7)
+    raw = rng.normal(0.0, 4.0, (2, 3, 5, 9)).astype(np.float32)
+    mask = rng.random((1, 1, 5, 9)) < 0.7
+    mask[..., 0] = True                                 # no row wholly masked
+    scores = torch.from_numpy(raw).to(getattr(torch, dtype))
+    for sd in sorted({"float32", dtype}):
+        with torch.enable_grad():
+            want = tattn._masked_softmax(scores.clone().requires_grad_(True),
+                                         torch.from_numpy(mask), sd, mask_mode)
+        assert want.requires_grad
+        with torch.no_grad():
+            s = scores.clone()
+            got = tattn._masked_softmax(s, torch.from_numpy(mask), sd, mask_mode)
+        assert torch.equal(got, want.detach()), (sd, mask_mode)
+        # scores already in softmax_dtype are the one buffer, written over
+        assert (got.data_ptr() == s.data_ptr()) == (sd == dtype)
+        ref = jattn._masked_softmax(jnp.asarray(scores.float().numpy()).astype(
+            jnp.dtype(dtype)), jnp.asarray(mask), sd, mask_mode)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(ref, dtype=np.float32),
+                                   atol=ATOL if sd == "float32" else 1e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_logits_unchanged_by_the_in_place_softmax(setup, dtype):
+    """A reduced qwen3-8b prefill (no cache: the full-head naive attention)
+    gives the same logits, bit for bit, with no gradient recorded (the
+    softmax and the norm's float64 square in place) as through autograd
+    (the out-of-place chains); the float32 logits within the logits bound
+    of JAX's."""
+    jcfg, tcfg, params, _ = setup
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(tcfg, param_dtype=dtype, compute_dtype=dtype)
+    tp = tree_map(lambda t: t.to(getattr(torch, dtype)) if t.is_floating_point()
+                  else t, params_from_jax(_np(params)))
+    tokens = np.random.default_rng(11).integers(0, cfg.vocab, (2, 12))
+    with torch.no_grad():
+        fast, _ = tforward(tp, _t(tokens), cfg)
+    with torch.enable_grad():
+        grad_tp = tree_map(lambda t: t.detach().clone().requires_grad_(True)
+                           if t.is_floating_point() else t, tp)
+        chain, _ = tforward(grad_tp, _t(tokens), cfg)
+    assert chain.requires_grad
+    assert torch.equal(fast, chain.detach())
+    if dtype == "float32":
+        jl, _ = jforward(params, jnp.asarray(tokens), jcfg)
+        np.testing.assert_allclose(fast.numpy(), np.asarray(jl), atol=2e-4)
