@@ -230,12 +230,14 @@ Phases, one JSON line each:
    kernel): (a) ``examples/train_lm``'s qwen3-100m in float32, TF32 off,
    3 ``make_train_step`` steps at batch 2 x seq 64, 2 microbatches, on the
    card and on the CPU from the same params in this process: loss, grad
-   norm and lr within TRAIN_RTOL; (b) qwen3-8b at full width and TRAIN_FULL
+   norm and lr within TRAIN_RTOL, the largest relative error printed
+   beside TRAIN_BEFORE's; (b) qwen3-8b at full width and TRAIN_FULL
    depth (4 of 36 layers; bf16 params, remat on), batch 4 x seq 512, 2
    microbatches, warmup 2, 8 steps: every loss finite, no step skipped, the
    last loss below the first; ms per step, tokens/s, 6·N·tokens over time
-   against the bf16 peak, peak memory, and a ninth step traced with
-   ``torch.profiler`` for its device busy time; (c) ``python -m
+   against the bf16 peak, peak memory (at most TRAIN_BEFORE's), and a
+   ninth step traced with ``torch.profiler`` for its device busy time;
+   (c) ``python -m
    repro_torch.launch.train --smoke`` to 4 steps with checkpoints every 2,
    resumed to 6 (its first step 4, its losses within RESUME_ATOL of a
    straight 6-step run's), and ``python -m repro_torch.examples.train_lm
@@ -277,8 +279,11 @@ Phases, one JSON line each:
    forward; (d), started with (a): the production-mesh records of
    qwen3-8b ``train_4k`` and ``prefill_32k``, phi3-medium-14b
    ``prefill_32k``, moonshot-v1-16b-a3b ``train_4k`` and ``decode_32k``
-   (one token group: the experts' capacity slots over the data axis) and
-   mamba2-780m ``decode_32k`` ``DA_int8`` (PARITY_CELLS), each ``ok``,
+   (one token group: the experts' capacity slots over the data axis),
+   again through the sorted dispatch (``L4_sorted_moe``: each rank's
+   experts' slots scattered into a Partial sum), mamba2-780m
+   ``train_4k`` (the loss's backward holds one float32 copy of the
+   whole-vocab logits) and ``decode_32k`` ``DA_int8`` (PARITY_CELLS), each ``ok``,
    each printed on a ``parity`` line with its per-chip FLOPs, argument
    + temp bytes and collective bytes beside the reference's, and held to
    PARITY_MAX of them.
@@ -3347,6 +3352,11 @@ def phase_launch():
 TRAIN_RTOL = 1e-4
 #: qwen3-8b at full width: the depth kept (of 36 layers) and the run
 TRAIN_FULL = dict(layers=4, batch=4, seq=512, microbatches=2, warmup=2, steps=8)
+#: the card's figures before the loss kept one float32 copy of the logits
+#: in its backward (NVIDIA H100 80GB HBM3, 700.00 W): (a)'s largest
+#: relative error against the CPU, printed beside this run's, and (b)'s
+#: peak GB, which this run's must not exceed
+TRAIN_BEFORE = {"max_rel_err": 1.04e-7, "peak_gb": 55.04}
 #: resumed against straight losses as the launcher prints them (4
 #: decimals); the card's embedding backward adds with atomics, in any order
 RESUME_ATOL = 2e-3
@@ -3480,9 +3490,16 @@ def phase_train():
     counts = _read_counts()
     line["resume"] = _train_resume()
     line["launches"] = {k: counts[k] for k in KERNEL_COUNTS}
+    line["before"] = TRAIN_BEFORE
     emit(line)
+    err, peak = line["card_vs_cpu"]["max_rel_err"], line["full_width"]["peak_gb"]
+    print(f"train: card vs CPU max rel err {err:.3g} (before: "
+          f"{TRAIN_BEFORE['max_rel_err']:.3g}); full-width step peak {peak:.2f} GB "
+          f"(before: {TRAIN_BEFORE['peak_gb']:.2f})", flush=True)
     if any(counts[k] for k in KERNEL_COUNTS):
         raise AssertionError(f"training launched a hand-written kernel: {counts}")
+    if peak > TRAIN_BEFORE["peak_gb"]:
+        raise AssertionError(f"the full-width step's peak rose: {peak} GB")
     return counts, line["full_width"]
 
 
@@ -4045,11 +4062,11 @@ DRYRUN_CMDS = {
 DRYRUN_RECORDS = {"dryrun": "build/dryrun/qwen3-8b__decode_32k__pod16x16.json",
                   "perf": "build/perf/mamba2-780m__decode_32k__pod16x16__DA_auto.json"}
 #: (d): the production-mesh cells the port was repaired on, each a command
-#: on the cuda-typed fake world (the DA_int8 record with its memory:
+#: on the cuda-typed fake world (a variant's record with its memory:
 #: ``--full``), and the reference's per-chip figures of the same cell
 #: (``python -m repro.launch.dryrun --all --mesh single``, and ``python -m
-#: repro.launch.perf --arch mamba2-780m --shape decode_32k --variant
-#: DA_int8``, which records no memory, on the CPU): FLOPs, argument + temp
+#: repro.launch.perf --arch A --shape decode_32k --variant V`` for the
+#: variants, which records no memory, on the CPU): FLOPs, argument + temp
 #: bytes, collective bytes
 PARITY_CELLS = {
     "qwen3_train": (["--arch", "qwen3-8b", "--shape", "train_4k"],
@@ -4065,6 +4082,11 @@ PARITY_CELLS = {
     "mamba_int8": (["--arch", "mamba2-780m", "--shape", "decode_32k",
                     "--variant", "DA_int8", "--full"],
                    (2312973056.0, None, 6970368.0)),
+    "mamba_train": (["--arch", "mamba2-780m", "--shape", "train_4k"],
+                    (60264359657472.0, 64578327720, 137776430820.0)),
+    "moonshot_sorted": (["--arch", "moonshot-v1-16b-a3b", "--shape", "decode_32k",
+                         "--variant", "L4_sorted_moe", "--full"],
+                        (107999877376.0, None, 70997632.0)),
 }
 #: the bounds (d) holds each record to, port ÷ reference: FLOPs,
 #: argument + temp bytes and collective bytes at most.  The DA_int8

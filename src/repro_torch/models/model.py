@@ -217,30 +217,96 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy in float32.  Logits placed on a mesh are
-    reduced where they lie (:func:`_sharded_lm_loss`); a replicated
-    DTensor result."""
+    """Mean token cross-entropy in float32 (:class:`_CrossEntropy`: the
+    backward holds one float32 buffer of the logits' shape).  Logits
+    placed on a mesh are reduced where they lie (:func:`_sharded_lm_loss`);
+    a replicated DTensor result."""
     if isinstance(logits, DTensor):
         return _sharded_lm_loss(logits, labels)
     return _lm_loss(logits, labels)
 
 
+#: float32 bytes of one block of rows that the loss's backward works on at
+#: a time (at most a quarter of the rows: a 16-bit gradient and one float32
+#: block then hold less than one float32 buffer of the logits' shape)
+_LOSS_BLOCK_BYTES = 1 << 28
+
+
+class _CrossEntropy(torch.autograd.Function):
+    """Each row's ``log Σ exp(x) − x[label]`` in float32, the logits ``x``
+    [.., V] read in their own dtype (one float32 temporary of their shape,
+    summed as ``torch.logsumexp`` sums).  ``start`` is the first vocab
+    index of ``x``'s columns and ``combine(m, op)``
+    reduces a per-row ``"max"`` or ``"sum"`` over the ranks that hold the
+    other columns (Megatron's vocab-parallel cross-entropy: a label outside
+    this block adds no gold logit here).  Saves the logits (the graph holds
+    them already), the labels and each row's log-sum-exp; the backward
+    writes ``(softmax − one_hot) · g`` in float32 into the logits' own
+    dtype, a block of rows at a time, into one float32 buffer when that is
+    their dtype, as the autograd chain's ``exp(x − lse) · g``, less ``g``
+    at the label."""
+
+    @staticmethod
+    def forward(ctx, x, labels, start, combine):
+        v = x.shape[-1]
+        x2, lab = x.reshape(-1, v), labels.reshape(-1).long() - start
+        hit = (lab >= 0) & (lab < v)
+        lab = torch.where(hit, lab, 0)
+        m = torch.amax(x2, dim=-1).to(torch.float32)
+        if combine is not None:
+            m = combine(m, "max")
+        se = torch.sum((x2 - m[:, None]).exp_(), dim=-1)
+        gold = torch.gather(x2, 1, lab[:, None])[:, 0].to(torch.float32)
+        gold = torch.where(hit, gold, torch.zeros((), dtype=gold.dtype,
+                                                  device=gold.device))
+        if combine is not None:
+            se, gold = combine(se, "sum"), combine(gold, "sum")
+        lse = m + torch.log(se)
+        ctx.save_for_backward(x, lab, hit, lse)
+        return (lse - gold).reshape(labels.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lab, hit, lse = ctx.saved_tensors
+        v = x.shape[-1]
+        x2, g = x.reshape(-1, v), g.reshape(-1).to(torch.float32)
+        out = torch.empty_like(x2)
+        gold_g = torch.where(hit, -g, torch.zeros((), dtype=g.dtype, device=g.device))
+        for r in _row_blocks(x2):
+            if out.dtype == torch.float32:
+                buf = torch.sub(x2[r], lse[r, None], out=out[r])
+            else:
+                buf = x2[r] - lse[r, None]
+            buf.exp_().mul_(g[r, None])
+            rows = torch.arange(buf.shape[0], device=buf.device)
+            buf.index_put_((rows, lab[r]), gold_g[r], accumulate=True)
+            if out.dtype != torch.float32:
+                out[r] = buf
+        return out.reshape(x.shape), None, None, None
+
+
+def _row_blocks(x2: torch.Tensor):
+    """Slices of ``x2``'s rows, at most a quarter of them each, whose
+    float32 copy fits ``_LOSS_BLOCK_BYTES``."""
+    n, v = x2.shape
+    step = max(1, min(_LOSS_BLOCK_BYTES // (4 * max(v, 1)), -(-n // 4)))
+    return [slice(i, min(i + step, n)) for i in range(0, n, step)]
+
+
 def _lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(logz - gold)
+    return torch.mean(_CrossEntropy.apply(logits, labels, 0, None))
 
 
 def _sharded_lm_loss(logits: DTensor, labels) -> DTensor:
     """The loss on each rank's block of the logits: its rows where the
     batch or sequence is sharded, its slice of the vocab where that is
-    (Megatron's vocab-parallel cross-entropy: the log-sum-exp's max and
-    sum, and the gold logit, combined over the vocab's mesh axes), the
-    tokens' sum over the rows' axes.  No rank holds the global logits.
-    Every rank ends with the same scalar; the combines (``psum``) pass
-    each rank's cotangent through as it is, as that replicated scalar's
-    gradient is."""
+    (the log-sum-exp's max and sum, and the gold logit, combined over the
+    vocab's mesh axes inside :class:`_CrossEntropy`), the tokens' sum over
+    the rows' axes.  No rank holds the global logits.  Every rank ends
+    with the same scalar; the combines (``psum``) pass each rank's
+    cotangent through as it is, as that replicated scalar's gradient is:
+    a rank's gradient is its own block, the gold term only where the label
+    falls in it."""
     from repro_torch.launch.mesh import pmax, psum
 
     mesh, names = logits.device_mesh, logits.device_mesh.mesh_dim_names
@@ -250,20 +316,16 @@ def _sharded_lm_loss(logits: DTensor, labels) -> DTensor:
     rows_pl = [p if p.is_shard() and p.dim < 2 else Replicate() for p in pl]
     vocab_axes = [names[i] for i, p in enumerate(pl) if p == Shard(2)]
     row_axes = [names[i] for i, p in enumerate(pl) if p.is_shard() and p.dim < 2]
-    lab = block_of(labels, mesh, rows_pl).long()
-    x = logits.to_local().to(torch.float32)            # [b, t, v]
-    n, start = shard_block(mesh, pl, 2, logits.shape[-1])    # the vocab block
-    m = torch.amax(x.detach(), dim=-1)
-    for a in vocab_axes:
-        m = pmax(m, a, mesh)
-    se = torch.sum(torch.exp(x - m[..., None]), dim=-1)
-    idx = lab - start
-    hit = (idx >= 0) & (idx < n)
-    gold = torch.gather(x, -1, torch.where(hit, idx, 0)[..., None])[..., 0]
-    gold = torch.where(hit, gold, torch.zeros((), dtype=x.dtype, device=x.device))
-    for a in vocab_axes:
-        se, gold = psum(se, a, mesh), psum(gold, a, mesh)
-    total = torch.sum(m + torch.log(se) - gold)
+    lab = block_of(labels, mesh, rows_pl)
+    _, start = shard_block(mesh, pl, 2, logits.shape[-1])    # the vocab block
+
+    def combine(t, op):
+        for a in vocab_axes:
+            t = pmax(t, a, mesh) if op == "max" else psum(t, a, mesh)
+        return t
+
+    total = torch.sum(_CrossEntropy.apply(logits.to_local(), lab, start,
+                                          combine if vocab_axes else None))
     for a in row_axes:
         total = psum(total, a, mesh)
     loss = total / (labels.shape[0] * labels.shape[1])

@@ -116,11 +116,15 @@ def _topk_dispatch(gates: torch.Tensor, k: int, cap: int, experts=None,
     return dispatch, combine
 
 
-def _sorted_dispatch(gates: torch.Tensor, k: int, cap: int):
+def _sorted_dispatch(gates: torch.Tensor, k: int, cap: int, experts=None,
+                     slots=None):
     """Sort-based dispatch (per group): the S·k (token, expert) choices
     sorted by expert id, each choice's slot in its expert's buffer derived
     from the sort.  Returns (token_for_slot [G, E·C], indices into the
-    group's tokens with S = none; weight_for_slot [G, E·C])."""
+    group's tokens with S = none; weight_for_slot [G, E·C]).  ``experts``
+    ``(start, n)``: those experts' slots only; ``slots`` ``(start, n)``:
+    those slots of each expert only, a slot at or past ``cap`` empty
+    (:func:`_topk_dispatch`'s blocks)."""
     g, s, e = gates.shape
     dev = gates.device
     topw, topi = _top_k(gates, k)
@@ -139,7 +143,16 @@ def _sorted_dispatch(gates: torch.Tensor, k: int, cap: int):
                                 device=dev).scatter_(1, slot, st)
     weight_for_slot = torch.zeros((g, e * cap + 1), dtype=topw.dtype,
                                   device=dev).scatter_(1, slot, sw)
-    return token_for_slot[:, :e * cap], weight_for_slot[:, :e * cap]
+    token_for_slot, weight_for_slot = token_for_slot[:, :-1], weight_for_slot[:, :-1]
+    if experts is None and slots is None:
+        return token_for_slot, weight_for_slot
+    e0, ne = experts if experts is not None else (0, e)
+    c0, nc = slots if slots is not None else (0, cap)
+    pad = max(c0 + nc - cap, 0)                            # slots past cap: empty
+    tok = F.pad(token_for_slot.reshape(g, e, cap), (0, pad), value=s)
+    wt = F.pad(weight_for_slot.reshape(g, e, cap), (0, pad))
+    return (tok[:, e0:e0 + ne, c0:c0 + nc].reshape(g, ne * nc),
+            wt[:, e0:e0 + ne, c0:c0 + nc].reshape(g, ne * nc))
 
 
 def _moe_experts(p, xe: torch.Tensor) -> torch.Tensor:
@@ -149,83 +162,154 @@ def _moe_experts(p, xe: torch.Tensor) -> torch.Tensor:
     return dense(F.silu(gate) * up, p["w_down"])
 
 
-def moe_forward_sorted(p, xg: torch.Tensor, gates: torch.Tensor,
-                       cfg: ModelConfig, cap: int) -> torch.Tensor:
-    """Sorted-dispatch expert layer on grouped tokens xg [G, S, D]."""
-    g, s, d = xg.shape
-    e = gates.shape[-1]
-    token_for_slot, weight_for_slot = on_rows(_sorted_dispatch, gates,
-                                              cfg.top_k, cap)
-    xg_pad = torch.cat([xg, xg.new_zeros((g, 1, d))], dim=1)
-    rows = torch.arange(g, device=xg.device)[:, None]
-    xe = xg_pad[rows, token_for_slot].reshape(g, e, cap, d)
-    xe = constrain(xe, ("batch", "expert", None, "embed"))
-    ye = constrain(_moe_experts(p, xe), ("batch", "expert", None, "embed"))
-    yflat = ye.reshape(g, e * cap, d) * weight_for_slot[..., None].to(ye.dtype)
+def _combine_slots(ye: torch.Tensor, token_for_slot: torch.Tensor,
+                   weight_for_slot: torch.Tensor, s: int) -> torch.Tensor:
+    """The scatter-add combine: each slot's output ye [G, E, C, D], times
+    its weight, added into its token's row of [G, S, D]."""
+    g, d = ye.shape[0], ye.shape[-1]
+    yflat = ye.reshape(g, -1, d) * weight_for_slot[..., None].to(ye.dtype)
+    rows = torch.arange(g, device=ye.device)[:, None]
     y = ye.new_zeros((g, s + 1, d))
     y.index_put_((rows.expand_as(token_for_slot), token_for_slot), yflat,
                  accumulate=True)
     return y[:, :s]
 
 
-def _dense_experts(p, xg, gates, k: int, cap: int, batch_rows: int = 1
-                   ) -> torch.Tensor:
-    """The one-hot dispatch (:func:`_topk_dispatch`), the experts and the
-    combine: xg [G, S, D], gates [G, S, E] → [G, S, D].  On a mesh that
-    shards the experts (``expert``), each rank routes its groups' tokens
-    to its own experts only (its block of the dispatch's and combine's E,
-    from the gates read whole), runs them (:func:`_moe_experts`) and
-    combines their outputs into a Partial sum over the experts' mesh dims,
-    reduced there, as the reference's expert-parallel layout places these
-    einsums; the tokens and the gates are read whole there, so their
-    gradients are Partial sums too (the gates' [G, S, E], not the
-    combine's [G, S, E, C]).  Where there is one group (a decode step's
+def _gather_slots(xg: torch.Tensor, token_for_slot: torch.Tensor, e: int
+                  ) -> torch.Tensor:
+    """Each slot's token of xg [G, S, D] (a zero row for an empty slot):
+    [G, e, C, D]."""
+    g, _, d = xg.shape
+    xg_pad = torch.cat([xg, xg.new_zeros((g, 1, d))], dim=1)
+    rows = torch.arange(g, device=xg.device)[:, None]
+    return xg_pad[rows, token_for_slot].reshape(g, e, -1, d)
+
+
+class _Layout:
+    """The expert-parallel layout of a dispatch on a mesh that shards the
+    experts (``expert``) on dims where the groups are whole
+    (:func:`_expert_layout`): ``rows`` the groups' placements, ``edims``
+    the experts' mesh dims, ``sdims`` the batch dims that split one
+    group's capacity slots, ``block`` and ``slots`` this rank's ``(start,
+    n)`` of the experts and of each expert's slots.  ``tokens`` is this rank's block of the grouped
+    tokens, read whole on ``partial_on`` (their gradient a Partial sum
+    there); the router and the dispatch share it where they read the same
+    block, so the two Partial sums of its gradient are reduced as one."""
+
+    def __init__(self, xg, rows, edims, sdims, e: int, cap: int):
+        self.mesh, self.rows, self.edims, self.sdims = xg.device_mesh, rows, edims, sdims
+        ns = math.prod(self.mesh.size(i) for i in sdims)
+        self.block = shard_block(self.mesh, self.on_e(2), 2, e)[::-1]
+        self.slots = shard_block(self.mesh, [Shard(0) if i in sdims else Replicate()
+                                             for i in range(self.mesh.ndim)], 0,
+                                 -(-cap // ns) * ns)[::-1]
+        self.partial_on = edims + sdims
+        self.slot_axis = "batch" if sdims else None
+        self.tokens = block_of(xg, self.mesh, rows, partial_on=self.partial_on)
+
+    def on_e(self, dim: int) -> list:
+        """The placements of a [G, E, C, ..] tensor with E at ``dim``."""
+        return [Shard(dim) if i in self.edims
+                else Shard(dim + 1) if i in self.sdims else pl
+                for i, pl in enumerate(self.rows)]
+
+    def combined(self, y: torch.Tensor) -> torch.Tensor:
+        """A rank's [G, S, D] share of the combine as the Partial sum over
+        ``partial_on``, reduced (reduce-scattered over the slots' dims) to
+        the tokens' layout."""
+        y = DTensor.from_local(y, self.mesh, [Partial() if i in self.partial_on
+                                              else pl
+                                              for i, pl in enumerate(self.rows)],
+                               run_check=False)
+        return constrain(y, ("batch", self.slot_axis, "embed"))
+
+
+def _expert_layout(xg, e: int, cap: int, batch_rows: int):
+    """The :class:`_Layout` of grouped tokens xg [G, S, D] on the active
+    mesh rules for ``e`` experts of capacity ``cap``; None where there is
+    none (no mesh, no expert dim free of the groups, or experts that do
+    not divide it).  Where there is one group (a decode step's
     ``batch_rows`` rows' tokens, row-major), which cannot shard on
-    ``batch``, the batch axes take the capacity slots instead: each rank fills its
-    block of its experts' slots (the capacity padded to a multiple of
-    those axes; a slot past it stays empty), the output's Partial sum is
-    reduce-scattered over them to the batch rows' blocks of tokens, and
-    the output leaves with the tokens so split (``batch_rows`` must divide
-    by those axes, else the slots stay whole).  Elsewhere, each rank's
-    rows (:func:`on_rows`)."""
-    g, e, dt = xg.shape[0], gates.shape[-1], xg.dtype
-    mesh = xg.device_mesh if isinstance(xg, DTensor) else None
-    rows = (None if mesh is None
-            else placements(pspec(("batch",), (g,)), mesh))
-    edims = ([] if rows is None else
-             [i for i in rule_dims("expert") if rows[i] == Replicate()])
+    ``batch``, the batch axes take each expert's capacity slots (padded
+    to a multiple of them; a slot past it stays empty), if ``batch_rows``
+    divides by them."""
+    g = xg.shape[0]
+    if not isinstance(xg, DTensor):
+        return None
+    mesh = xg.device_mesh
+    rows = placements(pspec(("batch",), (g,)), mesh)
+    edims = [i for i in rule_dims("expert") if rows[i] == Replicate()]
     if not edims or e % math.prod(mesh.size(i) for i in edims):
+        return None
+    sdims = ([i for i in rule_dims("batch") if i not in edims and mesh.size(i) > 1]
+             if g == 1 else [])
+    if batch_rows % math.prod(mesh.size(i) for i in sdims):
+        sdims = []
+    return _Layout(xg, rows, edims, sdims, e, cap)
+
+
+def moe_forward_sorted(p, xg: torch.Tensor, gates: torch.Tensor,
+                       cfg: ModelConfig, cap: int, lay=None) -> torch.Tensor:
+    """Sorted-dispatch expert layer on grouped tokens xg [G, S, D].  With a
+    :class:`_Layout`, the expert-parallel layout of :func:`_dense_experts`:
+    each rank sorts its groups' choices (the gates read whole), gathers
+    and runs only its own experts' slots (one group's slots split over
+    the batch axes as there) and scatter-adds them into a [G, S, D]
+    Partial sum over the experts' mesh dims, reduced (reduce-scattered
+    where the tokens shard) to the tokens' layout; no rank gathers the
+    experts' [G, E·C, D] output.  Elsewhere each rank's rows
+    (:func:`on_rows`)."""
+    s, e = xg.shape[1], gates.shape[-1]
+    if lay is None:
+        token_for_slot, weight_for_slot = on_rows(_sorted_dispatch, gates,
+                                                  cfg.top_k, cap)
+        xe = on_rows(_gather_slots, xg, token_for_slot, e)
+        xe = constrain(xe, ("batch", "expert", None, "embed"))
+        ye = constrain(_moe_experts(p, xe), ("batch", "expert", None, "embed"))
+        return on_rows(_combine_slots, ye, token_for_slot, weight_for_slot, s)
+    mesh = lay.mesh
+    tl, wl = _sorted_dispatch(block_of(gates, mesh, lay.rows,
+                                       partial_on=lay.partial_on),
+                              cfg.top_k, cap, experts=lay.block, slots=lay.slots)
+    xe = _gather_slots(lay.tokens, tl, lay.block[1])
+    axes = ("batch", "expert", lay.slot_axis, "embed")
+    xe = constrain(DTensor.from_local(xe, mesh, lay.on_e(1), run_check=False), axes)
+    ye = constrain(_moe_experts(p, xe), axes)
+    return lay.combined(_combine_slots(block_of(ye, mesh, lay.on_e(1)), tl, wl, s))
+
+
+def _dense_experts(p, xg, gates, k: int, cap: int, lay=None) -> torch.Tensor:
+    """The one-hot dispatch (:func:`_topk_dispatch`), the experts and the
+    combine: xg [G, S, D], gates [G, S, E] → [G, S, D].  With a
+    :class:`_Layout` (a mesh that shards the experts), each rank routes
+    its groups' tokens to its own experts only (its block of the
+    dispatch's and combine's E, from the gates read whole), runs them
+    (:func:`_moe_experts`) and combines their outputs into a Partial sum
+    over the experts' mesh dims, reduced there, as the reference's
+    expert-parallel layout places these einsums; the tokens and the gates
+    are read whole there, so their gradients are Partial sums too (the
+    gates' [G, S, E], not the combine's [G, S, E, C]).  Where there is one
+    group, each rank fills its block of its experts' slots, and the
+    output's Partial sum is reduce-scattered over the slots' batch axes
+    to the batch rows' blocks of tokens, leaving with the tokens so
+    split.  Elsewhere, each rank's rows (:func:`on_rows`)."""
+    dt = xg.dtype
+    if lay is None:
         dispatch, combine = on_rows(_topk_dispatch, gates, k, cap)
         xe = on_rows(torch.einsum, "gsec,gsd->gecd", dispatch.to(dt), xg)
         xe = constrain(xe, ("batch", "expert", None, "embed"))
         ye = constrain(_moe_experts(p, xe), ("batch", "expert", None, "embed"))
         return on_rows(torch.einsum, "gsec,gecd->gsd", combine.to(dt), ye)
-    sdims = ([i for i in rule_dims("batch") if i not in edims and mesh.size(i) > 1]
-             if g == 1 else [])
-    ns = math.prod(mesh.size(i) for i in sdims)
-    if batch_rows % ns:
-        sdims, ns = [], 1
-    slot_axis = "batch" if sdims else None
-    on_e = lambda dim: [Shard(dim) if i in edims  # noqa: E731
-                        else Shard(dim + 1) if i in sdims else pl
-                        for i, pl in enumerate(rows)]
-    block = shard_block(mesh, on_e(2), 2, e)[::-1]          # (start, n)
-    slots = shard_block(mesh, [Shard(0) if i in sdims else Replicate()
-                               for i in range(mesh.ndim)], 0,
-                        -(-cap // ns) * ns)[::-1]
-    partial_on = edims + sdims
-    dl, cl = _topk_dispatch(block_of(gates, mesh, rows, partial_on=partial_on),
-                            k, cap, experts=block, slots=slots)
-    xe = torch.einsum("gsec,gsd->gecd", dl.to(dt),
-                      block_of(xg, mesh, rows, partial_on=partial_on))
-    axes = ("batch", "expert", slot_axis, "embed")
-    xe = constrain(DTensor.from_local(xe, mesh, on_e(1), run_check=False), axes)
+    mesh = lay.mesh
+    dl, cl = _topk_dispatch(block_of(gates, mesh, lay.rows,
+                                     partial_on=lay.partial_on),
+                            k, cap, experts=lay.block, slots=lay.slots)
+    xe = torch.einsum("gsec,gsd->gecd", dl.to(dt), lay.tokens)
+    axes = ("batch", "expert", lay.slot_axis, "embed")
+    xe = constrain(DTensor.from_local(xe, mesh, lay.on_e(1), run_check=False), axes)
     ye = constrain(_moe_experts(p, xe), axes)
-    y = torch.einsum("gsec,gecd->gsd", cl.to(dt), block_of(ye, mesh, on_e(1)))
-    y = DTensor.from_local(y, mesh, [Partial() if i in partial_on else pl
-                                     for i, pl in enumerate(rows)],
-                           run_check=False)
-    return constrain(y, ("batch", slot_axis, "embed"))
+    return lay.combined(torch.einsum("gsec,gecd->gsd", cl.to(dt),
+                                     block_of(ye, mesh, lay.on_e(1))))
 
 
 def _probs(logits: torch.Tensor, n_experts: int) -> torch.Tensor:
@@ -240,29 +324,31 @@ def _gates(xg: torch.Tensor, router: torch.Tensor, n_experts: int) -> torch.Tens
     return _probs(xg.to(torch.float32) @ router, n_experts)
 
 
-def _route(xg: torch.Tensor, router, n_experts: int) -> torch.Tensor:
-    """gates [G, S, E] of the grouped tokens.  Where the groups do not
-    shard on ``batch`` (a decode step's one group) but the experts do,
-    each rank takes its experts' logits from its own block of the router's
-    columns and the [G, S, E] logits are gathered, not the [D, E] router
-    (the reference's placement of the router product); the tokens are read
-    whole, so their gradient is a Partial sum there.  Elsewhere each
-    rank's rows, the router whole (:func:`on_rows`)."""
-    mesh = xg.device_mesh if isinstance(xg, DTensor) else None
-    rows = (None if mesh is None
-            else placements(pspec(("batch",), (xg.shape[0],)), mesh))
-    edims = ([] if rows is None or any(pl != Replicate() for pl in rows)
-             else rule_dims("expert"))
-    if not edims or router.shape[1] % math.prod(mesh.size(i) for i in edims):
+def _route(xg: torch.Tensor, router, n_experts: int, lay=None) -> torch.Tensor:
+    """gates [G, S, E] of the grouped tokens.  With a :class:`_Layout` (the
+    experts shard on mesh dims that the groups do not: a decode step's
+    one group on every dim, training's groups on the batch axes and the
+    experts on the model axis), each rank takes its experts' logits of its
+    rows from its own block of the router's columns and the [G, S, E]
+    logits are gathered over those dims, not the [D, E] router (the
+    reference's placement of the router product): no rank computes
+    another's logits.  The tokens are read whole there, so their gradient
+    is a Partial sum over the experts' dims (the dispatch's block of them
+    where it reads the same one), and the router's over the dims that
+    split the rows.  Elsewhere each rank's rows, the router whole
+    (:func:`on_rows`)."""
+    if lay is None:
         return on_rows(_gates, xg, router, n_experts, whole=(1,))
-    rep = [Replicate()] * mesh.ndim
-    cols = [Shard(1) if i in edims else Replicate() for i in range(mesh.ndim)]
-    logits = (block_of(xg, mesh, rep, partial_on=edims).to(torch.float32)
-              @ block_of(router, mesh, cols))
-    logits = DTensor.from_local(logits, mesh, [Shard(2) if i in edims else pl
-                                               for i, pl in enumerate(rep)],
-                                run_check=False).full_tensor()
-    return DTensor.from_local(_probs(logits, n_experts), mesh, rep,
+    mesh, rows = lay.mesh, lay.rows
+    tokens = (block_of(xg, mesh, rows, partial_on=lay.edims) if lay.sdims
+              else lay.tokens)
+    row_dims = [i for i, pl in enumerate(rows) if pl != Replicate()]
+    cols = [Shard(1) if i in lay.edims else Replicate() for i in range(mesh.ndim)]
+    logits = tokens.to(torch.float32) @ block_of(router, mesh, cols, partial_on=row_dims)
+    logits = DTensor.from_local(logits, mesh, [Shard(2) if i in lay.edims else pl
+                                               for i, pl in enumerate(rows)],
+                                run_check=False).redistribute(mesh, rows)
+    return DTensor.from_local(_probs(logits.to_local(), n_experts), mesh, rows,
                               run_check=False)
 
 
@@ -279,12 +365,13 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     xg = constrain(xf.reshape(g, s, d), ("batch", None, "embed"))
     cap = capacity(cfg, s)
 
-    gates = _route(xg, p["router"], cfg.n_experts)
+    lay = _expert_layout(xg, p["router"].shape[1], cap, b)
+    gates = _route(xg, p["router"], cfg.n_experts, lay)
 
     if cfg.moe_impl == "sorted":
-        y = moe_forward_sorted(p, xg, gates, cfg, cap)
+        y = moe_forward_sorted(p, xg, gates, cfg, cap, lay)
     else:
-        y = _dense_experts(p, xg, gates, cfg.top_k, cap, b)
+        y = _dense_experts(p, xg, gates, cfg.top_k, cap, lay)
     y = y.reshape(g * s, d)
     if g * s > n:
         y = y[:n]

@@ -18,12 +18,15 @@ part of the uneven-head cells replicated), collective bytes at most
   train, two token groups of 1024;
 * ``reduce_for_smoke(mamba2-780m)``: train, and the ``int8`` freeze's
   decode (``DA_int8``);
-* the decode of ``reduce_for_smoke`` of moonshot-v1-16b-a3b and of
-  jamba-1.5-large-398b: one token group of 8, which cannot shard on the
-  batch axes, its experts still split over the model axis;
+* the decode of ``reduce_for_smoke`` of moonshot-v1-16b-a3b (through
+  the one-hot dispatch and the sorted one) and of jamba-1.5-large-398b:
+  one token group of 8, which cannot shard on the batch axes, its
+  experts still split over the model axis;
 * qwen3-8b's prefill, whose peak bytes (arguments and temporaries) must
   also stay within ``PEAK_MAX`` of the reference chip's, as for every
   cell in ``PEAK_CELLS``: the softmax holds one float32 score buffer.
+  (Training's cells peak above it: each norm's float64 copies and the
+  softmax's saved buffers, which XLA fuses.)
 
 One JAX subprocess with 8 host devices and one port subprocess on a fake
 8-rank world run together.  Besides, on gloo ranks: the uneven-head
@@ -33,9 +36,10 @@ on one device, its queries split across the model axis; ``reduce_for_smoke
 (mamba2-780m)``'s prefill and decode over dense caches on (1, 4) (the
 conv window and the projection's columns exchanged between layouts)
 within ``LOGIT_TOL`` of one device; ``reduce_for_smoke(moonshot-v1-16b-a3b)``
-at one token group on (2, 2), each rank routing to its own experts: its
-prefill and decode logits within ``LOGIT_TOL``, and its train step's
-loss and grad norm within the family train steps' bound, of one device;
+at one token group on (2, 2), each rank routing to its own experts
+through either dispatch: its prefill and decode logits within
+``LOGIT_TOL``, and its train step's loss and grad norm within the family
+train steps' bound, of one device;
 and the LUT-serving model frozen by ``int8`` serves EQUAL tokens
 tensor-parallel on (1, 2).  The CPU-typed
 fake world counts an all-to-all as the card's mesh issues it; a
@@ -62,7 +66,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLOPS_BAND, COLL_MAX = (0.8, 1.3), 1.5
 LOGIT_TOL = 1e-4
 #: the port's peak bytes over the reference chip's at most, in these cells
-PEAK_MAX, PEAK_CELLS = 1.05, ("dense:prefill", "moe:decode", "uneven:decode")
+PEAK_MAX, PEAK_CELLS = 1.05, ("dense:prefill", "moe:decode", "uneven:decode",
+                                "hybrid:decode", "moe_sorted:decode")
 #: loss and grad norm of a sharded train step against one device's,
 #: relative above 1 (``tests/test_torch_distributed.py``'s family steps)
 LOSS_TOL = 1e-3
@@ -79,6 +84,8 @@ CELLS = {
     "moe:decode": ("moonshot-v1-16b-a3b", {}, 64, "decode", None),
     "hybrid:decode": ("jamba-1.5-large-398b", {}, 64, "decode", None),
     "dense:prefill": ("qwen3-8b", {}, 64, "prefill", None),
+    "moe_sorted:decode": ("moonshot-v1-16b-a3b", {"moe_impl": "sorted"}, 64,
+                          "decode", None),
 }
 
 
@@ -331,7 +338,9 @@ def _moe_one_group():
     """``reduce_for_smoke(moonshot-v1-16b-a3b)`` at one token group (8 rows
     of at most 16 tokens, groups of 1024) on a (2, 2) mesh and on one
     device: a prefill and three decode steps over dense caches, and a
-    train step; and the expert blocks each rank's dispatch routed to."""
+    train step, through the one-hot dispatch and again through the sorted
+    one (``moe_impl="sorted"``); and the expert blocks each rank's
+    dispatches routed to."""
     from repro_torch.configs.registry import ARCHS, reduce_for_smoke
     from repro_torch.data.pipeline import DataConfig, batch_at
     from repro_torch.launch import sharding as shd
@@ -347,10 +356,10 @@ def _moe_one_group():
     cfg = reduce_for_smoke(ARCHS["moonshot-v1-16b-a3b"])
     params = init_model(cfg, seed=0, device="cpu")
     toks = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab, (8, 13)))
-    prefill, decode = make_prefill_step(cfg), make_serve_step(cfg)
     mesh = make_test_mesh((2, 2), ("data", "model"))
 
-    def run(params, caches, place):
+    def run(cfg, params, caches, place):
+        prefill, decode = make_prefill_step(cfg), make_serve_step(cfg)
         pos = torch.arange(10, dtype=torch.int32)[None].expand(8, 10)
         out, caches = prefill(params, caches, place(toks[:, :10]), place(pos))
         logits = [shd.full(out)]
@@ -361,34 +370,44 @@ def _moe_one_group():
         return torch.stack(logits)
 
     blocks = {"one": [], "mesh": []}
-    dispatch = M._topk_dispatch
+    dispatch = {n: getattr(M, n) for n in ("_topk_dispatch", "_sorted_dispatch")}
 
     def recorded(where):
-        M._topk_dispatch = lambda *a, **kw: (
-            blocks[where].append((kw.get("experts"), kw.get("slots")))
-            or dispatch(*a, **kw))
+        for n, fn in dispatch.items():
+            setattr(M, n, lambda *a, fn=fn, n=n, **kw: (
+                blocks[where].append((n, kw.get("experts"), kw.get("slots")))
+                or fn(*a, **kw)))
 
     dc = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=8, seed=0)
     batch = {k: torch.as_tensor(v) for k, v in batch_at(dc, 0).items()}
-    step = make_train_step(cfg, TrainConfig())
+    metrics = lambda sh, one: {k: (float(shd.full(sh[k])), float(one[k]))  # noqa: E731
+                               for k in ("loss", "grad_norm")}
+    out = {}
     try:
-        recorded("one")
-        with torch.no_grad():
-            one = run(params, init_caches(cfg, 8, 16, device="cpu"), lambda t: t)
-        _, m_one = step(state_from_params(tree_map(torch.clone, params)), batch)
-        recorded("mesh")
-        with shd.use_mesh_rules(mesh):
-            placed = SP.place(params, SP.tree_pspecs(params), mesh)
-            caches = init_caches(cfg, 8, 16, device="cpu")
-            caches = SP.place_caches(caches, SP.cache_pspecs(caches), mesh)
-            rows = lambda t: shd.distribute(t, shd.NamedSharding(  # noqa: E731
-                mesh, shd.pspec(("batch", None), t.shape)))
+        for impl in ("dense", "sorted"):
+            icfg = dataclasses.replace(cfg, moe_impl=impl)
+            step = make_train_step(icfg, TrainConfig())
+            recorded("one")
             with torch.no_grad():
-                got = run(placed, caches, rows)
-            _, m_sh = step(state_from_params(placed),
-                           SP.place(batch, SP.batch_pspecs(batch), mesh))
+                one = run(icfg, params, init_caches(icfg, 8, 16, device="cpu"),
+                          lambda t: t)
+            _, m_one = step(state_from_params(tree_map(torch.clone, params)), batch)
+            recorded("mesh")
+            with shd.use_mesh_rules(mesh):
+                placed = SP.place(params, SP.tree_pspecs(params), mesh)
+                caches = init_caches(icfg, 8, 16, device="cpu")
+                caches = SP.place_caches(caches, SP.cache_pspecs(caches), mesh)
+                rows = lambda t: shd.distribute(t, shd.NamedSharding(  # noqa: E731
+                    mesh, shd.pspec(("batch", None), t.shape)))
+                with torch.no_grad():
+                    got = run(icfg, placed, caches, rows)
+                _, m_sh = step(state_from_params(placed),
+                               SP.place(batch, SP.batch_pspecs(batch), mesh))
+            out[impl] = {"logits": got.numpy(), "logits_1": one.numpy(),
+                         "train": metrics(m_sh, m_one)}
     finally:
-        M._topk_dispatch = dispatch
+        for n, fn in dispatch.items():
+            setattr(M, n, fn)
     # groups of 32: four groups, sharded on the data axis
     gcfg = dataclasses.replace(cfg, moe_group_size=32)
     gstep = make_train_step(gcfg, TrainConfig())
@@ -397,11 +416,8 @@ def _moe_one_group():
         _, g_sh = gstep(state_from_params(SP.place(params, SP.tree_pspecs(params),
                                                    mesh)),
                         SP.place(batch, SP.batch_pspecs(batch), mesh))
-    metrics = lambda sh, one: {k: (float(shd.full(sh[k])), float(one[k]))  # noqa: E731
-                               for k in ("loss", "grad_norm")}
-    return {"logits": got.numpy(), "logits_1": one.numpy(),
-            "blocks_1": blocks["one"], "blocks": blocks["mesh"],
-            "train": metrics(m_sh, m_one), "train_groups": metrics(g_sh, g_one)}
+    return {**out, "blocks_1": blocks["one"], "blocks": blocks["mesh"],
+            "train_groups": metrics(g_sh, g_one)}
 
 
 def _four_ranks():
@@ -438,19 +454,25 @@ def test_moe_one_group_on_a_mesh_matches_one_device(four):
     """One token group cannot shard on the batch axes: each rank still
     routes it to its own 8 of the 16 (padded) experts, and fills its half
     of their capacity slots (the data axis), in the forward and in the
-    train step; the Partial sums of the combine and of the tokens' and
-    gates' gradients give one device's results.  With four groups on the
-    data axis, the experts' weight gradients are Partial sums over it."""
+    train step, through either dispatch (one-hot, sorted); the Partial
+    sums of the combine and of the tokens' and gates' gradients give one
+    device's results.  With four groups on the data axis, the experts'
+    weight gradients are Partial sums over it."""
     for rank in four:
         got = rank["moe"]
-        assert set(got["blocks_1"]) == {(None, None)}
-        assert len(got["blocks"]) == 10                  # 4 forwards, 1 step, 2 layers
-        for experts, (first, n) in got["blocks"]:
-            assert experts[1] == 8 and first in (0, n)
-        np.testing.assert_allclose(got["logits"], got["logits_1"], atol=LOGIT_TOL)
-        for key, (sharded, one) in {**{"G=1 " + k: v for k, v in got["train"].items()},
-                                    **{"G=4 " + k: v for k, v in
-                                       got["train_groups"].items()}}.items():
+        assert {(e, s) for _, e, s in got["blocks_1"]} == {(None, None)}
+        for name in ("_topk_dispatch", "_sorted_dispatch"):
+            mine = [b[1:] for b in got["blocks"] if b[0] == name]
+            assert len(mine) == 10                       # 4 forwards, 1 step, 2 layers
+            for experts, (first, n) in mine:
+                assert experts[1] == 8 and first in (0, n)
+        metrics = {"G=4 " + k: v for k, v in got["train_groups"].items()}
+        for impl in ("dense", "sorted"):
+            np.testing.assert_allclose(got[impl]["logits"], got[impl]["logits_1"],
+                                       atol=LOGIT_TOL, err_msg=impl)
+            metrics.update({f"{impl} G=1 {k}": v
+                            for k, v in got[impl]["train"].items()})
+        for key, (sharded, one) in metrics.items():
             assert abs(sharded - one) < LOSS_TOL * max(1.0, abs(one)), \
                 (key, sharded, one)
 
