@@ -80,7 +80,11 @@ def main(argv=None):
     ap.add_argument("--trace-out", default=None, metavar="FILE",
                     help="record request/scheduler lifecycle spans and write "
                          "a Chrome trace_event JSON here (load the file in "
-                         "Perfetto / chrome://tracing)")
+                         "Perfetto / chrome://tracing); to lay it over a "
+                         "torch.profiler trace, map each ts through "
+                         "otherData.clock_anchor (repro_torch.obs.trace."
+                         "unix_us(ts / 1e6, anchor)) and subtract the "
+                         "profile's baseTimeNanoseconds / 1e3")
     ap.add_argument("--metrics-out", default=None, metavar="FILE",
                     help="write the metrics registry here in Prometheus "
                          "text exposition format after the run")

@@ -27,12 +27,14 @@ from repro_torch.obs.metrics import (
 )
 from repro_torch.obs.trace import (
     SCHED_TRACK,
+    TICK_PHASES,
     TraceEvent,
     TraceRecorder,
     default_tracer,
     device_span,
     kernels_in_spans,
     request_track,
+    unix_us,
 )
 from repro_torch.obs.export import (
     chrome_trace,
@@ -85,6 +87,7 @@ __all__ = [
     "MetricsRegistry",
     "Observability",
     "SCHED_TRACK",
+    "TICK_PHASES",
     "TIME_BUCKETS",
     "TraceEvent",
     "TraceRecorder",
@@ -98,6 +101,7 @@ __all__ = [
     "kernels_in_spans",
     "prometheus_text",
     "request_track",
+    "unix_us",
     "validate_chrome_trace",
     "validate_hw_block",
     "validate_metrics_json",

@@ -7,7 +7,9 @@ onto the Trace Event Format (the JSON Perfetto and ``chrome://tracing``
 load): one process (pid 0, named after the run), one *thread per track*
 (``scheduler``, ``req:<uid>``, …) so request lifecycles render as parallel
 swimlanes with spans nested by B/E pairing.  Timestamps convert from
-perf_counter seconds to integer-precision microseconds.
+perf_counter seconds to integer-precision microseconds; the recorder's
+clock anchor (``otherData.clock_anchor``) maps them onto a
+``torch.profiler`` trace's Unix clock (``repro_torch.obs.trace.unix_us``).
 
 Prometheus — ``prometheus_text(registry)`` renders the registry in the text
 exposition format (``# HELP`` / ``# TYPE`` + samples; histograms as
@@ -92,6 +94,7 @@ def chrome_trace(recorder: TraceRecorder,
         "otherData": {
             "metrics_schema_version": METRICS_SCHEMA_VERSION,
             "dropped_events": recorder.dropped,
+            "clock_anchor": dict(recorder.anchor),
         },
     }
 

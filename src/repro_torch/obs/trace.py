@@ -24,7 +24,20 @@ buffer, so balance checks survive wraparound.
 ``torch.profiler.record_function`` range (a user annotation that
 ``torch.profiler`` puts on its timeline, around the kernels launched inside
 it) plus, on a CUDA machine, an NVTX range make the device timeline line up
-with the host-side request spans when both are captured.
+with the host-side request spans when both are captured.  While the
+recorder is on, the paged scheduler annotates each host phase of a tick
+(``sched.admit``, ``sched.pack``, ``sched.fetch``, ``sched.sample``) and
+each device call (``paged_step[WxT]``, ``spec_*[WxT]``: the enqueue) with
+:func:`timed_span`; the tick's ``tick`` span carries the phases' seconds
+(:data:`TICK_PHASES`).
+
+One clock: a recorder reads ``perf_counter`` and the Unix clock back to back
+when it is made (``anchor``), and the exported trace carries that pair under
+``otherData.clock_anchor``.  To lay an exported trace over a
+``torch.profiler`` Chrome trace, map each event's ``ts`` (µs) through
+:func:`unix_us` (``unix_us(ts / 1e6, anchor)``) and subtract the profile's
+``baseTimeNanoseconds / 1e3``: a profile event's ``ts`` plus that base is
+Unix µs.
 """
 from __future__ import annotations
 
@@ -41,6 +54,11 @@ import torch
 
 #: Track name for scheduler-level (per-tick) events.
 SCHED_TRACK = "scheduler"
+
+#: The host phases of a scheduler tick, args of its ``tick`` span: seconds
+#: summed over the tick's device calls.  ``admit_s`` is the admission that
+#: ran just before the tick; the other four fall inside the span.
+TICK_PHASES = ("admit_s", "pack_s", "enqueue_s", "fetch_s", "sample_s")
 
 
 def request_track(uid: int) -> str:
@@ -75,6 +93,10 @@ class TraceRecorder:
         self._depth: Dict[str, int] = {}
         self.dropped = 0
         self._t0 = time.perf_counter()
+        # both clocks read back to back: unix_us maps this recorder's
+        # perf_counter stamps onto a torch.profiler trace's Unix clock
+        self.anchor = {"perf_counter_s": time.perf_counter(),
+                       "unix_ns": time.time_ns()}
 
     # -- emission ------------------------------------------------------------
     def _push(self, ev: TraceEvent) -> None:
@@ -166,6 +188,27 @@ def device_span(name: str, enabled: bool = True,
             yield
         finally:
             torch.cuda.nvtx.range_pop()
+
+
+def unix_us(ts: float, anchor: Dict[str, float]) -> float:
+    """A recorder timestamp (``perf_counter`` seconds) in Unix-epoch µs,
+    through ``anchor`` (a recorder's, or its exported trace's
+    ``otherData.clock_anchor``): the clock of a ``torch.profiler`` Chrome
+    trace's ``ts + baseTimeNanoseconds / 1e3``."""
+    return anchor["unix_ns"] / 1e3 + (ts - anchor["perf_counter_s"]) * 1e6
+
+
+@contextlib.contextmanager
+def timed_span(name: str, into: Dict[str, float], key: str,
+               cuda: bool = False) -> Iterator[None]:
+    """``device_span(name)`` whose host seconds (``perf_counter``, read once
+    at each end) add to ``into[key]``: a traced tick's phase."""
+    t = time.perf_counter()
+    try:
+        with device_span(name, cuda=cuda):
+            yield
+    finally:
+        into[key] += time.perf_counter() - t
 
 
 def kernels_in_spans(trace: Any,

@@ -33,7 +33,9 @@ names.  An enabled trace recorder gets the reference's events (submit,
 running spans, tokens, preemptions, per-tick phases), stamped on the same
 ``perf_counter`` clock as ``Request.token_times``, and every device call
 runs inside a ``torch.profiler`` annotation named for its shape
-(``paged_step[rows x T]``).  ``hw=`` (a
+(``paged_step[rows x T]``): the host's enqueue; the tick's other host
+phases run inside ``sched.*`` annotations, and the seconds of all of them
+are args of the ``tick`` span (``repro_torch.obs.trace.TICK_PHASES``).  ``hw=`` (a
 :class:`~repro_torch.obs.hwcost.HardwareCostModel`) prices the executed
 token-passes on the paper's DA circuits: ``metrics()["hw"]``, reckoned from
 the circuit model, never measured on the device.
@@ -55,7 +57,12 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.obs import Observability
 from repro_torch.obs.hwcost import HardwareCostModel, draft_price
 from repro_torch.obs.metrics import ENERGY_BUCKETS
-from repro_torch.obs.trace import SCHED_TRACK, device_span, request_track
+from repro_torch.obs.trace import (
+    SCHED_TRACK,
+    TICK_PHASES,
+    request_track,
+    timed_span,
+)
 from repro_torch.serve.kvcache import (
     GARBAGE_PAGE,
     PagePool,
@@ -309,6 +316,8 @@ class PagedScheduler:
         self._h_itl = reg.histogram("req_itl_seconds", "inter-token latency")
         self._h_tick = reg.histogram(
             "sched_tick_seconds", "wall time of one scheduler tick")
+        # the tick's host seconds by phase, while the recorder is on
+        self._phases = dict.fromkeys(TICK_PHASES, 0.0)
         # distinct shapes issued, by kind of device call: the first call of
         # a shape counts as its compile (the reference's jit compiles once
         # per shape bucket)
@@ -388,9 +397,9 @@ class PagedScheduler:
 
     def _issue(self, kind: str, width: int, t_step: int):
         """Note a device call of ``kind`` at ``[width, t_step]`` (its first
-        call counts as a compile) and return the context it runs in: a
-        ``torch.profiler`` annotation named for it while the recorder is on,
-        else a shared no-op."""
+        call counts as a compile) and return the context it runs in: while
+        the recorder is on, a ``torch.profiler`` annotation named for it,
+        timed into the tick's ``enqueue_s``; else a shared no-op."""
         shapes = self._shapes[kind]
         if (width, t_step) not in shapes:
             shapes.add((width, t_step))
@@ -398,8 +407,18 @@ class PagedScheduler:
         if not self._tr.enabled:
             return _NO_SPAN
         name = "paged_step" if kind == "step" else f"spec_{kind}"
-        return device_span(f"{name}[{width}x{t_step}]",
-                           cuda=self.device.type == "cuda")
+        return timed_span(f"{name}[{width}x{t_step}]", self._phases,
+                          "enqueue_s", cuda=self.device.type == "cuda")
+
+    def _phase(self, phase: str):
+        """The context a host phase of the tick (``admit``, ``pack``,
+        ``fetch``, ``sample``) runs in: while the recorder is on, a
+        ``sched.<phase>`` annotation timed into the tick's ``<phase>_s``;
+        else a shared no-op."""
+        if not self._tr.enabled:
+            return _NO_SPAN
+        return timed_span(f"sched.{phase}", self._phases, f"{phase}_s",
+                          cuda=self.device.type == "cuda")
 
     # -- admission -----------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -586,7 +605,10 @@ class PagedScheduler:
         still ingesting), then the decode lanes (speculative rounds for the
         staged ones, one decode step for the rest).  Returns the number of
         active lanes."""
-        self._admit()
+        if self._tr.enabled:
+            self._phases = dict.fromkeys(TICK_PHASES, 0.0)
+        with self._phase("admit"):
+            self._admit()
         active = [(i, l) for i, l in enumerate(self.lanes) if l is not None]
         if not active:
             return 0
@@ -640,7 +662,7 @@ class PagedScheduler:
                 pages_allocated=self.pool._allocs - allocs0,
                 cow_copies=int(self._c["cow_copies"].total - cow0),
                 prefix_evictions=evict1 - evict0,
-                used_pages=self.pool.used_pages)
+                used_pages=self.pool.used_pages, **self._phases)
         return live
 
     def _pack_rows(self, rows, toks, poss, n_rows: int, t_step: int,
@@ -702,15 +724,17 @@ class PagedScheduler:
         real token's logits [n_rows, V] on the host."""
         toks = {i: l.ctx[l.pos: l.pos + plan[i]] for _, i, l in rows}
         poss = {i: range(l.pos, l.pos + plan[i]) for _, i, l in rows}
-        if self.analysis_debug:
-            self._submit_plan(phase, rows, poss)
-        tokens, positions, table, last_idx = self._pack_rows(
-            rows, toks, poss, n_rows, t_step)
+        with self._phase("pack"):
+            if self.analysis_debug:
+                self._submit_plan(phase, rows, poss)
+            tokens, positions, table, last_idx = self._pack_rows(
+                rows, toks, poss, n_rows, t_step)
         with self._issue("step", n_rows, t_step), self._grad_mode():
             logits, self.caches = self._step(self.params, self.caches, tokens,
                                              positions, table, last_idx)
             logits = full(logits).float()
-        return logits.cpu().numpy()  # the host waits here, outside the span
+        with self._phase("fetch"):  # the host waits here, outside the step
+            return logits.cpu().numpy()
 
     def _hw_charge(self, req: Request, phase: str, n: int) -> float:
         """Price ``n`` executed token-passes of ``phase`` work on the DA
@@ -762,13 +786,14 @@ class PagedScheduler:
                                   **extra)
             self._tr.complete("prefill", SCHED_TRACK, t0, now - t0,
                               lanes=len(rows), t_step=t_step)
-        for r, i, l in rows:
-            l.pos += plan[i]
-            self._hw_charge(l.req, "prefill", plan[i])
-            self._c["ctx_tokens"].inc(plan[i])
-            self._maybe_cache_prefix(l)  # before _sample can free the pages
-            if l.remaining == 0:  # chunk covered the last unseen token
-                self._sample(i, l, logits[r], now)
+        with self._phase("sample"):
+            for r, i, l in rows:
+                l.pos += plan[i]
+                self._hw_charge(l.req, "prefill", plan[i])
+                self._c["ctx_tokens"].inc(plan[i])
+                self._maybe_cache_prefix(l)  # before _sample can free the pages
+                if l.remaining == 0:  # chunk covered the last unseen token
+                    self._sample(i, l, logits[r], now)
         return {i for _, i, _ in rows}
 
     def _decode_phase(self, decode) -> set:
@@ -801,12 +826,13 @@ class PagedScheduler:
                      if self.hw is not None else {})
             self._tr.complete("decode", SCHED_TRACK, t0, now - t0,
                               lanes=len(live), width=width, **extra)
-        for r, i, l in rows:
-            l.pos += 1
-            self._hw_charge(l.req, "decode", 1)
-            self._c["ctx_tokens"].inc()
-            self._maybe_cache_prefix(l)  # before _sample can free the pages
-            self._sample(i, l, logits[r], now)
+        with self._phase("sample"):
+            for r, i, l in rows:
+                l.pos += 1
+                self._hw_charge(l.req, "decode", 1)
+                self._c["ctx_tokens"].inc()
+                self._maybe_cache_prefix(l)  # before _sample can free the pages
+                self._sample(i, l, logits[r], now)
         return {i for i, _ in live}
 
     # -- speculative decoding ------------------------------------------------
@@ -852,16 +878,19 @@ class PagedScheduler:
     def _run_draft(self, rows, toks, poss, width: int,
                    t_step: int) -> np.ndarray:
         """One fused draft call → all gamma proposals [width, gamma]."""
-        if self.analysis_debug and self._provider.shared_cache:
-            # the fused call feeds poss[i], then gamma - 1 single-token steps
-            # each write the next position.  An own-cache provider writes
-            # its own pool, which the target pool's ledger does not govern.
-            g = self.spec.gamma
-            self._submit_plan("spec_draft", rows, {
-                i: list(poss[i]) + [poss[i][-1] + 1 + k for k in range(g - 1)]
-                for _, i, _ in rows})
-        batch = self._pack_rows(rows, toks, poss, width, t_step,
-                                self._provider.cfg)
+        with self._phase("pack"):
+            if self.analysis_debug and self._provider.shared_cache:
+                # the fused call feeds poss[i], then gamma - 1 single-token
+                # steps each write the next position.  An own-cache provider
+                # writes its own pool, which the target pool's ledger does
+                # not govern.
+                g = self.spec.gamma
+                self._submit_plan("spec_draft", rows, {
+                    i: list(poss[i]) + [poss[i][-1] + 1 + k
+                                        for k in range(g - 1)]
+                    for _, i, _ in rows})
+            batch = self._pack_rows(rows, toks, poss, width, t_step,
+                                    self._provider.cfg)
         shared = self._provider.shared_cache
         with self._issue("draft", width, t_step), self._grad_mode():
             drafts, new = self._draft_step(
@@ -871,11 +900,13 @@ class PagedScheduler:
             self.caches = new
         else:
             self.draft_caches = new
-        return drafts.cpu().numpy()
+        with self._phase("fetch"):
+            return drafts.cpu().numpy()
 
     def _run_ingest(self, rows, toks, poss, width: int, t_step: int) -> None:
-        batch = self._pack_rows(rows, toks, poss, width, t_step,
-                                self._provider.cfg)
+        with self._phase("pack"):
+            batch = self._pack_rows(rows, toks, poss, width, t_step,
+                                    self._provider.cfg)
         with self._issue("ingest", width, t_step), self._grad_mode():
             _, self.draft_caches = self._draft_ingest(
                 self._provider.params, self.draft_caches, *batch)
@@ -906,15 +937,17 @@ class PagedScheduler:
                     t_step: int) -> np.ndarray:
         """One full-precision verify call over the windows; returns the
         greedy token at every position, [width, t_step], on the host."""
-        if self.analysis_debug:
-            self._submit_plan("spec_verify", rows, poss)
-        tokens, positions, table, _ = self._pack_rows(rows, toks, poss, width,
-                                                      t_step)
+        with self._phase("pack"):
+            if self.analysis_debug:
+                self._submit_plan("spec_verify", rows, poss)
+            tokens, positions, table, _ = self._pack_rows(rows, toks, poss,
+                                                          width, t_step)
         with self._issue("verify", width, t_step), self._grad_mode():
             logits, self.caches = self._verify_step(
                 self.params, self.caches, tokens, positions, table)
             best = torch.argmax(full(logits), dim=-1)
-        return best.cpu().numpy()
+        with self._phase("fetch"):
+            return best.cpu().numpy()
 
     def _spec_phase(self, staged) -> set:
         """One speculative round for the staged lanes: one fused draft call
@@ -954,34 +987,35 @@ class PagedScheduler:
         self._c["verify_steps"].inc()
         now = time.perf_counter()
         out = set()
-        for r, i, l in rows:
-            verify = [int(t) for t in vtok[r, : g + 1]]
-            m = greedy_accept(drafts[i], verify)
-            # the round's work is charged before its tokens: a request that
-            # finishes in this round observes req_hw_pj with the round in it
-            round_pj = (self._hw_charge(l.req, "draft", feed[i] + g - 1)
-                        + self._hw_charge(l.req, "verify", g + 1))
-            emitted = self._accept_tokens(i, l, verify[:m], now)
-            l.pos = start_pos[i] + emitted
-            # own-cache draft KV is valid for the matched prefix only
-            l.draft_pos = min(start_pos[i] + g, l.pos)
-            self._c["ctx_tokens"].inc(emitted)
-            self._c["spec_rounds"].inc()
-            self._c["drafted_tokens"].inc(g)
-            self._c["accepted_drafts"].inc(m - 1)
-            if m == g + 1:
-                self._c["bonus_tokens"].inc()
-            if self._tr.enabled:
-                extra = {"est_pj": round_pj} if self.hw is not None else {}
-                self._tr.complete("spec_round", request_track(l.req.uid),
-                                  t0, now - t0, drafted=g, accepted=m - 1,
-                                  emitted=emitted, **extra)
-            self._update_spec_state(l.req.uid, (m - 1) / g)
-            if self.lanes[i] is l:  # still running: release rejected pages
-                kv_rollback(self.pool, l.pages, ckpts[i],
-                            keep=pages_for(l.pos, self.page_size))
-                self._maybe_cache_prefix(l)
-            out.add(i)
+        with self._phase("sample"):
+            for r, i, l in rows:
+                verify = [int(t) for t in vtok[r, : g + 1]]
+                m = greedy_accept(drafts[i], verify)
+                # the round's work is charged before its tokens: a request that
+                # finishes in this round observes req_hw_pj with the round in it
+                round_pj = (self._hw_charge(l.req, "draft", feed[i] + g - 1)
+                            + self._hw_charge(l.req, "verify", g + 1))
+                emitted = self._accept_tokens(i, l, verify[:m], now)
+                l.pos = start_pos[i] + emitted
+                # own-cache draft KV is valid for the matched prefix only
+                l.draft_pos = min(start_pos[i] + g, l.pos)
+                self._c["ctx_tokens"].inc(emitted)
+                self._c["spec_rounds"].inc()
+                self._c["drafted_tokens"].inc(g)
+                self._c["accepted_drafts"].inc(m - 1)
+                if m == g + 1:
+                    self._c["bonus_tokens"].inc()
+                if self._tr.enabled:
+                    extra = {"est_pj": round_pj} if self.hw is not None else {}
+                    self._tr.complete("spec_round", request_track(l.req.uid),
+                                      t0, now - t0, drafted=g, accepted=m - 1,
+                                      emitted=emitted, **extra)
+                self._update_spec_state(l.req.uid, (m - 1) / g)
+                if self.lanes[i] is l:  # still running: release rejected pages
+                    kv_rollback(self.pool, l.pages, ckpts[i],
+                                keep=pages_for(l.pos, self.page_size))
+                    self._maybe_cache_prefix(l)
+                out.add(i)
         return out
 
     def _accept_tokens(self, i: int, lane: _Lane, tokens, now: float) -> int:

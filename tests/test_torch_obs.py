@@ -24,6 +24,9 @@ text and ``hw`` payload.  ``device_span`` puts each device step inside a
 import dataclasses
 import json
 import math
+import os
+import tempfile
+import time
 
 import jax
 import numpy as np
@@ -49,10 +52,12 @@ from repro_torch.obs import (
     Histogram,
     MetricsRegistry,
     Observability,
+    TICK_PHASES,
     TraceRecorder,
     chrome_trace,
     device_span,
     prometheus_text,
+    unix_us,
     validate_chrome_trace,
     validate_prometheus_text,
 )
@@ -220,6 +225,19 @@ def test_chrome_trace_export_is_valid_and_complete():
     submit = next(e for e in evs if e["name"] == "submit")
     assert submit["ts"] == pytest.approx(1.0e6)
     assert obj["otherData"]["metrics_schema_version"] == METRICS_SCHEMA_VERSION
+
+
+def test_the_clock_anchor_maps_recorder_stamps_to_unix_time():
+    """The exported trace carries the recorder's anchor; ``unix_us`` maps a
+    ``perf_counter`` stamp through it onto the Unix clock."""
+    tr = _sample_recorder()
+    anchor = chrome_trace(tr)["otherData"]["clock_anchor"]
+    assert anchor == tr.anchor
+    assert unix_us(anchor["perf_counter_s"], anchor) == anchor["unix_ns"] / 1e3
+    assert unix_us(anchor["perf_counter_s"] + 0.25, anchor) == pytest.approx(
+        anchor["unix_ns"] / 1e3 + 0.25e6, abs=1e-3)
+    now_s, now_ns = time.perf_counter(), time.time_ns()
+    assert abs(unix_us(now_s, anchor) - now_ns / 1e3) < 5e3
 
 
 def test_validators_catch_imbalance_and_garbage():
@@ -392,8 +410,12 @@ def _series(snap):
 
 
 def _events(tracer):
+    """Each event's name, track, phase and args; a ``tick`` span's host
+    phase seconds (the port's own args, wall times) are left out."""
     return [(e.name, e.track, e.ph,
-             {k: v for k, v in (e.args or {}).items()}) for e in tracer.events]
+             {k: v for k, v in (e.args or {}).items()
+              if e.name != "tick" or k not in TICK_PHASES})
+            for e in tracer.events]
 
 
 @pytest.mark.parametrize("spec", [None, SPEC], ids=["greedy", "spec"])
@@ -516,6 +538,92 @@ def test_device_steps_run_inside_their_annotation(setup):
     assert any(n.startswith("paged_step[2x") and not n.endswith("x1]")
                for n in names[True])  # the prefill chunks
     assert not any(n.startswith(("paged_step[", "spec_")) for n in names[False])
+
+
+@pytest.mark.parametrize("spec", [None, SPEC], ids=["greedy", "spec"])
+def test_tick_spans_carry_the_host_phases(setup, spec):
+    """With the recorder on every ``tick`` span carries the five phase
+    seconds, each ≥ 0, and the four inside the tick sum to at most its
+    duration; off, nothing is recorded and the tokens are the same."""
+    (on, toks), _ = _pair(setup, spec)
+    ticks = [e for e in on.obs.tracer.events if e.name == "tick"]
+    assert ticks
+    for ev in ticks:
+        assert all(ev.args[k] >= 0.0 for k in TICK_PHASES)
+        inside = sum(ev.args[k] for k in TICK_PHASES if k != "admit_s")
+        assert inside <= ev.dur
+        assert ev.args["enqueue_s"] > 0.0 and ev.args["fetch_s"] > 0.0
+    off, toks_off = _ours(setup, spec)
+    assert toks_off == toks and len(off.obs.tracer) == 0
+
+
+def _chrome_profile(fn) -> dict:
+    """``fn`` run under ``torch.profiler`` (host activity): its Chrome
+    trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)
+
+
+def _notes(trace: dict, prefix) -> list:
+    """(name, start µs, end µs) of the trace's annotations named ``prefix``."""
+    return [(e["name"], e["ts"], e["ts"] + e.get("dur", 0))
+            for e in trace["traceEvents"]
+            if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+            and e["name"].startswith(prefix)]
+
+
+def test_phase_annotations_follow_the_recorder(setup):
+    """The ``sched.*`` phases are annotated only with the recorder on, and
+    each lies around the device calls' (``paged_step[`` / ``spec_``)
+    annotations, never inside one: an idle gap of the device inside a call
+    stays labelled by the call."""
+    _, tcfg, _, tparams, prompts = setup
+    seen = {}
+    for trace in (True, False):
+        engines = [ServeEngine(tcfg, tparams, spec=spec, trace=trace,
+                               device="cpu", **KW)
+                   for spec in (None, SpecConfig(**SPEC))]
+        seen[trace] = _chrome_profile(
+            lambda: [_serve(e, prompts, Request) for e in engines])
+    phases = _notes(seen[True], "sched.")
+    assert {n for n, _, _ in phases} == {"sched.admit", "sched.pack",
+                                         "sched.fetch", "sched.sample"}
+    assert _notes(seen[False], "sched.") == []
+    calls = _notes(seen[True], ("paged_step[", "spec_"))
+    assert calls
+    for name, s, e in phases:
+        assert all(e <= cs or ce <= s for _, cs, ce in calls), name
+
+
+def test_profiler_annotations_land_in_their_recorder_ticks(setup):
+    """Through the profile's ``baseTimeNanoseconds`` and the recorder's
+    anchor both clocks read Unix µs: each ``paged_step[…]`` annotation
+    falls inside one of the recorder's ``tick`` spans, within 2 ms, the
+    ticks in order, each holding at least one."""
+    _, tcfg, _, tparams, prompts = setup
+    eng = ServeEngine(tcfg, tparams, trace=True, device="cpu", **KW)
+    trace = _chrome_profile(lambda: _serve(eng, prompts, Request))
+    base = trace["baseTimeNanoseconds"] / 1e3
+    anchor = eng.obs.tracer.anchor
+    ticks = [(unix_us(e.ts, anchor), unix_us(e.ts + e.dur, anchor))
+             for e in eng.obs.tracer.events if e.name == "tick"]
+    calls = sorted(_notes(trace, "paged_step["), key=lambda c: c[1])
+    assert ticks and len(calls) >= len(ticks)
+    held = []
+    for name, s, e in calls:
+        hits = [k for k, (ts, te) in enumerate(ticks)
+                if ts - 2e3 <= s + base and e + base <= te + 2e3]
+        assert hits, name
+        held.append(next((k for k in hits if ticks[k][0] <= s + base <= ticks[k][1]),
+                         hits[0]))
+    assert held == sorted(held) and set(held) == set(range(len(ticks)))
 
 
 def test_obs_bundle_is_shared_and_warmup_counts_no_spec_steps(setup):
