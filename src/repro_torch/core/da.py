@@ -123,8 +123,14 @@ def group_addresses(xq: torch.Tensor, cfg: DAConfig) -> torch.Tensor:
 
 
 def _coefs(cfg: DAConfig, device) -> torch.Tensor:
-    return torch.as_tensor(bit_coefs(cfg.x_bits, cfg.x_signed),
-                           dtype=torch.int32, device=device)
+    """:func:`bit_coefs` as int32 on ``device``, made there (no copy from
+    host memory, which a CUDA graph cannot capture)."""
+    coefs = torch.bitwise_left_shift(
+        torch.ones(cfg.x_bits, dtype=torch.int32, device=device),
+        torch.arange(cfg.x_bits, dtype=torch.int32, device=device))
+    if cfg.x_signed:
+        coefs[-1:].neg_()
+    return coefs
 
 
 def da_vmm_lut(xq: torch.Tensor, luts: torch.Tensor,

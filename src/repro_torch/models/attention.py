@@ -249,7 +249,8 @@ def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor, softmax_dtype,
     a caller passes scores it does not read again."""
     sd = getattr(torch, str(softmax_dtype).replace("torch.", ""))
     scores = scores.to(sd)
-    neg = torch.tensor(NEG_INF, dtype=sd, device=scores.device)
+    # a fill on the device, not a copy from the host: a CUDA graph captures it
+    neg = torch.full((), NEG_INF, dtype=sd, device=scores.device)
     if not (torch.is_grad_enabled() and scores.requires_grad):
         if mask_mode == "additive":
             scores.add_(torch.where(mask, torch.zeros((), dtype=sd,
@@ -537,7 +538,7 @@ def causal_bias(t: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
     above), built once per forward and shared by every layer."""
     pos = torch.arange(t, device=device)
     zero = torch.zeros((), dtype=dtype, device=device)
-    neg = torch.tensor(NEG_INF, dtype=dtype, device=device)
+    neg = torch.full((), NEG_INF, dtype=dtype, device=device)
     return constrain(torch.where(pos[None, :] <= pos[:, None], zero, neg),
                      (None, None))
 
@@ -578,7 +579,7 @@ def _chunked_attention(q, k, v, q_offset: int, chunk: int) -> torch.Tensor:
         sc = torch.einsum("bthd,bshd->bhts", q, kb).to(torch.float32) / div
         valid = kpos[None, :] <= qpos[:, None]
         sc = torch.where(valid[None, None], sc,
-                         torch.tensor(NEG_INF, dtype=torch.float32, device=dev))
+                         torch.full((), NEG_INF, dtype=torch.float32, device=dev))
         m_new = torch.maximum(m, torch.amax(sc, dim=-1))
         p = torch.exp(sc - m_new[..., None])
         corr = torch.exp(m - m_new)

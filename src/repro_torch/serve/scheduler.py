@@ -80,6 +80,7 @@ from repro_torch.serve.kvcache import (
     rollback as kv_rollback,
     table_width,
 )
+from repro_torch.serve.step_graphs import StepGraphs, graphs_apply
 from repro_torch.spec import (
     SpecConfig,
     breakeven_acceptance,
@@ -324,6 +325,11 @@ class PagedScheduler:
         self._shapes: Dict[str, set] = {k: set() for k in _COMPILES}
         self._start_t: Optional[float] = None
         self._step = make_paged_step(cfg)
+        # decode calls replay the step in pieces from CUDA graphs, recorded
+        # at each width's second call (serve/step_graphs.py), where
+        # graphs_apply allows; else they run eagerly
+        self._graphs = (StepGraphs(self._step, cfg, batch_size, self.W, self.device)
+                        if graphs_apply(cfg, params, self.device) else None)
 
         self.spec = spec
         self._provider = None
@@ -394,6 +400,17 @@ class PagedScheduler:
     step_compiles = _counter_view("step_compiles")
     draft_compiles = _counter_view("draft_compiles")
     verify_compiles = _counter_view("verify_compiles")
+
+    @property
+    def graph_captures(self) -> int:
+        """Decode widths recorded for replay (plain attributes like
+        ``plans_checked``, outside the registry)."""
+        return self._graphs.captures if self._graphs is not None else 0
+
+    @property
+    def graph_replays(self) -> int:
+        """Decode calls replayed from a record."""
+        return self._graphs.replays if self._graphs is not None else 0
 
     def _issue(self, kind: str, width: int, t_step: int):
         """Note a device call of ``kind`` at ``[width, t_step]`` (its first
@@ -666,13 +683,14 @@ class PagedScheduler:
         return live
 
     def _pack_rows(self, rows, toks, poss, n_rows: int, t_step: int,
-                   cfg: Optional[ModelConfig] = None):
+                   cfg: Optional[ModelConfig] = None, into=None):
         """One fixed-shape batch from per-lane token and position lists, as
         device tensors, the positions shaped for ``cfg`` (default the
-        target's; ``[B, T, 3]`` under M-RoPE).  Pad rows and columns carry
-        the garbage position (never a negative one), so their writes land
-        in the garbage page and every real row's ``kpos <= tpos`` mask
-        excludes them."""
+        target's; ``[B, T, 3]`` under M-RoPE), or copied into ``into``, a
+        captured step's static inputs (:meth:`StepGraphs.inputs`, raw
+        positions).  Pad rows and columns carry the garbage position (never
+        a negative one), so their writes land in the garbage page and every
+        real row's ``kpos <= tpos`` mask excludes them."""
         tokens = np.zeros((n_rows, t_step), np.int32)
         positions = np.full((n_rows, t_step), self.pad_pos, np.int32)
         last_idx = np.zeros((n_rows,), np.int32)
@@ -683,10 +701,13 @@ class PagedScheduler:
             positions[r, :n] = poss[i]
             last_idx[r] = n - 1
             table[r, : len(l.pages)] = l.pages
-        dev = self.device
+        arrays = (tokens, positions, table, last_idx)
+        if into is not None:
+            for dst, a in zip(into, arrays):
+                dst.copy_(torch.from_numpy(a))
+            return into
         tokens, positions, table, last_idx = (
-            torch.from_numpy(a).to(dev)
-            for a in (tokens, positions, table, last_idx))
+            torch.from_numpy(a).to(self.device) for a in arrays)
         return (tokens, mk_positions(cfg or self.cfg, positions), table,
                 last_idx)
 
@@ -721,18 +742,24 @@ class PagedScheduler:
                    phase: str = "step") -> np.ndarray:
         """One call of the step for ``rows`` = [(batch_row, lane_idx, lane)],
         lane i feeding its next ``plan[i]`` context tokens; returns the last
-        real token's logits [n_rows, V] on the host."""
+        real token's logits [n_rows, V] on the host.  A decode call goes
+        through the step's graphs (:class:`StepGraphs`), where there are."""
         toks = {i: l.ctx[l.pos: l.pos + plan[i]] for _, i, l in rows}
         poss = {i: range(l.pos, l.pos + plan[i]) for _, i, l in rows}
+        graphs = self._graphs if phase == "decode" else None
         with self._phase("pack"):
             if self.analysis_debug:
                 self._submit_plan(phase, rows, poss)
-            tokens, positions, table, last_idx = self._pack_rows(
-                rows, toks, poss, n_rows, t_step)
+            batch = self._pack_rows(
+                rows, toks, poss, n_rows, t_step,
+                into=None if graphs is None else graphs.inputs(n_rows))
         with self._issue("step", n_rows, t_step), self._grad_mode():
-            logits, self.caches = self._step(self.params, self.caches, tokens,
-                                             positions, table, last_idx)
-            logits = full(logits).float()
+            if graphs is not None:
+                logits = graphs.run(self.params, self.caches, n_rows)
+            else:
+                logits, self.caches = self._step(self.params, self.caches,
+                                                 *batch)
+                logits = full(logits).float()
         with self._phase("fetch"):  # the host waits here, outside the step
             return logits.cpu().numpy()
 
@@ -1098,9 +1125,12 @@ class PagedScheduler:
     def warmup(self) -> int:
         """Run every step shape once (decode widths × prefill chunk buckets,
         and with spec the draft and verify shapes of each width) on pad-only
-        batches, whose writes land in the garbage page.  Returns the number
-        of shapes run."""
-        shapes = [(w, 1) for w in width_buckets(self.b)]
+        batches, whose writes land in the garbage page; a decode width
+        twice where its calls go through graphs, so that its record is
+        made here (``graph_captures``).  Returns the number of shapes
+        run."""
+        widths = width_buckets(self.b)
+        shapes = [(w, 1) for w in widths]
         t = 1
         while t < self.prefill_chunk:
             shapes.append((self.prefill_lanes, t))
@@ -1108,7 +1138,10 @@ class PagedScheduler:
         shapes.append((self.prefill_lanes, self.prefill_chunk))
         shapes = list(dict.fromkeys(shapes))
         for bw, ts in shapes:
-            self._run_batch([], {}, bw, ts)
+            phase = "decode" if ts == 1 and bw in widths else "step"
+            self._run_batch([], {}, bw, ts, phase=phase)
+            if phase == "decode" and self._graphs is not None:
+                self._run_batch([], {}, bw, ts, phase=phase)
         n_spec = 0
         if self.spec is not None:
             tv = pow2_bucket(self.spec.gamma + 1)
