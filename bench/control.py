@@ -24,20 +24,19 @@ from typing import List
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
-def control_gap(desc, seed: int, sample, device, x_bits: int = 4) -> float:
-    """Widest gap, under the reference, of the token that the reference at
-    ``x_bits`` puts first at each served position of ``sample``."""
+def control_gap(model, seed: int, sample, device, x_bits: int = 4) -> float:
+    """Widest gap, under ``model``'s reference (a ``bench.model.Model``),
+    of the token that the reference at ``x_bits`` puts first at each served
+    position of ``sample``."""
     import torch
-
-    from bench import reference
 
     if not sample:
         return float("inf")
     seqs = [list(s.prompt) + s.tokens[:-1] for s in sample]
     starts = [len(s.prompt) - 1 for s in sample]
     worst = 0.0
-    full = reference.logits_at(desc, seed, seqs, starts, device)
-    low = reference.logits_at(desc, seed, seqs, starts, device, x_bits=x_bits)
+    full = model.logits_at(model.desc, seed, seqs, starts, device)
+    low = model.logits_at(model.desc, seed, seqs, starts, device, x_bits=x_bits)
     for (_, ref), (_, ctl) in zip(full, low):
         first = torch.argmax(ctl, dim=-1)
         gaps = ref.max(-1).values - ref.gather(1, first[:, None])[:, 0]
@@ -56,7 +55,7 @@ def main(argv: List[str] = None) -> None:
 
     from bench import manifest as mf
     from bench import serve
-    from bench.model import desc_from_file
+    from bench.model import model_of
 
     if not torch.cuda.is_available():
         print("control: no CUDA device", file=sys.stderr)
@@ -64,13 +63,13 @@ def main(argv: List[str] = None) -> None:
     manifest = mf.load()
     cell = mf.cell(manifest, args.workload)
     config, mix = mf.config_of(manifest, cell), mf.mix_of(cell)
-    desc = desc_from_file(config)
+    model = model_of(config)
     for seed in (int(s) for s in args.seeds.split(",")):
         t = time.perf_counter()
         res = serve.run_cell(cell, config, mix, seed, args.seconds, False, "cuda", t,
                              mf.limit_of(cell))
         sample = res["sample"]
-        ctl = control_gap(desc, seed, sample, torch.device("cuda"))
+        ctl = control_gap(model, seed, sample, torch.device("cuda"))
         print(json.dumps({"workload": cell["name"], "seed": seed, "program_gap": res["gap"],
                           "control_gap": ctl, "requests": len(sample),
                           "served_tokens": sum(len(s.tokens) for s in sample),

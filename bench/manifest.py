@@ -7,7 +7,7 @@ import pathlib
 import re
 from typing import Dict, List
 
-from bench.model import BENCH, load_json
+from bench.model import BENCH, load_json, model_problems
 
 ROOT = BENCH.parent
 MANIFEST = ROOT / "BENCHMARK.json"
@@ -54,7 +54,8 @@ def metrics_of(manifest: Dict, cell_name: str, kind: str) -> List[Dict]:
 
 def problems(manifest: Dict) -> List[str]:
     """What in ``manifest`` breaks the contract's rules on names, units,
-    sources and the metrics each cell reports (empty when none)."""
+    sources and the metrics each cell reports, or names a configuration
+    file or model module that is missing or incomplete (empty when none)."""
     out: List[str] = []
     names = {k: [x["name"] for x in manifest[k]]
              for k in ("configs", "workloads", "end_to_end", "per_layer")}
@@ -92,4 +93,10 @@ def problems(manifest: Dict) -> List[str]:
                 out.append(f"{w['name']}: {m['name']} moves {m['moves']}, which it does not report")
         if w["config"] not in names["configs"]:
             out.append(f"{w['name']}: unknown config {w['config']!r}")
+    for c in manifest["configs"]:
+        path = ROOT / c["file"]
+        if not path.is_file():
+            out.append(f"{c['name']}: no file {c['file']}")
+        elif "model" in (raw := load_json(path)):
+            out += [f"{c['name']}: {p}" for p in model_problems(raw["model"])]
     return out

@@ -17,7 +17,7 @@ program is imported, and nothing it made is read.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -95,13 +95,13 @@ def _attention(x: torch.Tensor, p: Dict, lin: Dict, m: ModelDesc, spans, xb: int
     return lin["wo"](out, xb)
 
 
-def _mlp(x: torch.Tensor, lin: Dict, act: str, xb: int) -> torch.Tensor:
+def mlp(x: torch.Tensor, lin: Dict, act: str, xb: int) -> torch.Tensor:
     up = lin["w_up"](x, xb)
     h = F.silu(lin["w_gate"](x, xb)) * up if act == "swiglu" else torch.square(F.relu(up))
     return lin["w_down"](h, xb)
 
 
-def _moe(x: torch.Tensor, p: Dict, m: ModelDesc, xb: int) -> torch.Tensor:
+def moe(x: torch.Tensor, p: Dict, m: ModelDesc, xb: int) -> torch.Tensor:
     """Each token's top-k experts by routing probability (ties to the lower
     index), their SwiGLU outputs weighted and summed, plus the shared
     experts' SwiGLU; nothing is dropped."""
@@ -118,28 +118,42 @@ def _moe(x: torch.Tensor, p: Dict, m: ModelDesc, xb: int) -> torch.Tensor:
         if rows.numel() == 0:
             continue
         lin = {n: Linear(p[n][e]) for n in ("w_gate", "w_up", "w_down")}
-        y.index_add_(0, rows, _mlp(x[rows], lin, "swiglu", xb) * topw[rows, slot, None])
+        y.index_add_(0, rows, mlp(x[rows], lin, "swiglu", xb) * topw[rows, slot, None])
     if "shared" in p:
         lin = {n: Linear(w) for n, w in p["shared"].items()}
-        y = y + _mlp(x, lin, "swiglu", xb)
+        y = y + mlp(x, lin, "swiglu", xb)
     return y
 
 
+def ffn(x: torch.Tensor, p: Dict, m: ModelDesc, xb: int) -> torch.Tensor:
+    """The layer's FFN block ``p``: the port's MoE, or the dense MLP."""
+    if m.n_experts:
+        return moe(x, p, m, xb)
+    return mlp(x, {n: Linear(w) for n, w in p.items()}, m.mlp_act, xb)
+
+
 def logits_at(m: ModelDesc, seed: int, seqs: Sequence[Sequence[int]],
-              starts: Sequence[int], device, x_bits: int = 8
+              starts: Sequence[int], device, x_bits: int = 8,
+              draw_layer: Callable = layer_weights, ffn: Callable = ffn
               ) -> Iterator[Tuple[int, torch.Tensor]]:
     """Yields ``(i, logits)``: the float32 logits [len(seqs[i]) - starts[i],
-    V] of sequence i at positions starts[i], starts[i] + 1, ..."""
+    V] of sequence i at positions starts[i], starts[i] + 1, ...
+
+    A model module whose layers differ from the built-in ones in their
+    weights or their FFN block passes its own ``draw_layer(m, seed, i,
+    device)`` (a layer's float weights, as ``bench.weights.layer_weights``)
+    and ``ffn(x, p, m, x_bits)`` (the block on the normed input ``x``, ``p``
+    the layer's ``"ffn"`` weights)."""
     prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        yield from _logits_at(m, seed, seqs, starts, device, x_bits)
+        yield from _logits_at(m, seed, seqs, starts, device, x_bits, draw_layer, ffn)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
 @torch.no_grad()
-def _logits_at(m, seed, seqs, starts, device, x_bits):
+def _logits_at(m, seed, seqs, starts, device, x_bits, draw_layer, ffn):
     spans: List[Tuple[int, int]] = []
     rows = 0
     for s in seqs:
@@ -150,16 +164,13 @@ def _logits_at(m, seed, seqs, starts, device, x_bits):
     h = top["embed"]["table"][tokens].float()
     del top
     for layer in range(m.n_layers):
-        p = layer_weights(m, seed, layer, device)
+        p = draw_layer(m, seed, layer, device)
         lin = {n: Linear(w) for n, w in p["mixer"].items() if n.startswith("w")}
         h = h + _attention(_norm(h, p["norm_mixer"], m), p["mixer"], lin, m, spans, x_bits)
+        del lin
         x = _norm(h, p["norm_ffn"], m)
-        if m.n_experts:
-            h = h + _moe(x, p["ffn"], m, x_bits)
-        else:
-            lin = {n: Linear(w) for n, w in p["ffn"].items()}
-            h = h + _mlp(x, lin, m.mlp_act, x_bits)
-        del p, lin, x
+        h = h + ffn(x, p["ffn"], m, x_bits)
+        del p, x
     top = top_weights(m, seed, device)
     head = Linear(top["lm_head"]["w"])
     for i, ((a, b), st) in enumerate(zip(spans, starts)):

@@ -19,10 +19,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from bench import devtrace, reference
-from bench.model import ModelDesc, desc_from_file
+from bench import devtrace
+from bench.model import Model, ModelDesc, model_of
 from bench.traffic import ClosedLoop
-from bench.weights import make_params
 from bench.window import Sent, window_metrics
 
 #: the traced slice: SLICE_TICKS scheduler ticks from the window's
@@ -146,7 +145,8 @@ def run_cell(cell: Dict, config: Dict, mix: Dict, seed: int, seconds: float,
     from repro_torch.serve.engine import Request, ServeEngine
 
     dev = torch.device(device)
-    desc = desc_from_file(config)
+    model = model_of(config)
+    desc = model.desc
     cfg = program_config(config)
     phases = {"import": time.perf_counter() - t_start}
     mark = time.perf_counter()
@@ -163,7 +163,7 @@ def run_cell(cell: Dict, config: Dict, mix: Dict, seed: int, seconds: float,
 
         build_all()
     phase("build")
-    params = make_params(desc, seed, dev, _freezer(config, cfg, dev))
+    params = model.make_params(desc, seed, dev, _freezer(config, cfg, dev))
     phase("weights")
     sv = mix["serve"]
     eng = ServeEngine(cfg, params, batch_size=sv["batch_size"], max_len=sv["max_len"],
@@ -239,7 +239,7 @@ def run_cell(cell: Dict, config: Dict, mix: Dict, seed: int, seconds: float,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    gap = served_gap(desc, seed, sample, dev)
+    gap = served_gap(model, seed, sample, dev)
     return {"data": data, "setup_s": t0 - t_start,
             "memory_peak_bytes": max(setup_peak, window_peak),
             "window_peak_bytes": window_peak, "gap": gap, "limit": limit,
@@ -307,15 +307,16 @@ def _sample(sent: List[Sent], t0: float, t1: float, seed: int) -> List[Sent]:
     return picked
 
 
-def served_gap(desc: ModelDesc, seed: int, sample: List[Sent], device) -> float:
-    """The widest gap by which a served token's reference logit lies below
-    the reference's best at its position, over the sample."""
+def served_gap(model: Model, seed: int, sample: List[Sent], device) -> float:
+    """The widest gap by which a served token's reference logit (``model``'s
+    plain reference) lies below the reference's best at its position, over
+    the sample."""
     seqs = [list(s.prompt) + s.tokens[:-1] for s in sample]
     starts = [len(s.prompt) - 1 for s in sample]
     if not sample:
         return float("inf")
     worst = 0.0
-    for i, logits in reference.logits_at(desc, seed, seqs, starts, device):
+    for i, logits in model.logits_at(model.desc, seed, seqs, starts, device):
         served = torch.tensor(sample[i].tokens, device=logits.device)
         gaps = logits.max(-1).values - logits.gather(1, served[:, None])[:, 0]
         worst = max(worst, float(gaps.max()))

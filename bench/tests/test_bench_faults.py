@@ -72,10 +72,10 @@ def test_control_reads_above_the_program():
     sample reads well above the program at test widths, as it does at the
     cell's size on the card (``bench/control.py``)."""
     from bench.control import control_gap
-    from bench.model import desc_from_file
+    from bench.model import model_of
 
     res = _run("minitron-8b.chat-b128", "minitron-8b", "chat-b128")
-    ctl = control_gap(desc_from_file(tiny_config("minitron-8b")), 2**31 + 21, res["sample"], "cpu")
+    ctl = control_gap(model_of(tiny_config("minitron-8b")), 2**31 + 21, res["sample"], "cpu")
     assert ctl >= 3 * res["gap"] and ctl > res["limit"]
 
 

@@ -8,7 +8,7 @@ import dataclasses
 import pytest
 
 from bench import manifest as mf
-from bench.model import BENCH, desc_from_file, load_json
+from bench.model import BENCH, load_json, model_of
 from bench.readers import load_reader
 
 
@@ -89,7 +89,7 @@ def test_config_files_match_the_program(man):
     for c in man["configs"]:
         raw = load_json(BENCH.parent / c["file"])
         assert raw["source"] == c["source"] and raw["reduced"] == c["reduced"]
-        d, cfg = desc_from_file(raw), program_config(raw)
+        d, cfg = model_of(raw).desc, program_config(raw)
         assert (d.n_layers, d.d_model, d.n_heads, d.n_kv_heads, d.head_dim, d.vocab) == (
             cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.vocab)
         assert (d.norm_type, d.mlp_act, d.attn_bias) == (cfg.norm_type, cfg.mlp_act, cfg.attn_bias)

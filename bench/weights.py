@@ -122,12 +122,14 @@ def top_weights(m: ModelDesc, seed: int, device) -> Dict:
 
 
 def make_params(m: ModelDesc, seed: int, device,
-                freeze: Callable[[Dict], Dict] = lambda t: t) -> Dict:
+                freeze: Callable[[Dict], Dict] = lambda t: t,
+                draw_layer: Callable = layer_weights) -> Dict:
     """The whole tree, each part passed through ``freeze`` as soon as it
     is drawn (so at most one layer's floats are alive beside the frozen
-    codes)."""
+    codes).  A model module whose layers hold other weights passes its own
+    ``draw_layer(m, seed, i, device)``."""
     top = freeze(top_weights(m, seed, device))
-    blocks = [freeze({"blocks": [layer_weights(m, seed, i, device)]})["blocks"][0]
+    blocks = [freeze({"blocks": [draw_layer(m, seed, i, device)]})["blocks"][0]
               for i in range(m.n_layers)]
     return {"embed": top["embed"], "blocks": blocks,
             "final_norm": top["final_norm"], "lm_head": top["lm_head"]}

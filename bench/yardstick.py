@@ -63,7 +63,8 @@ def matmul_params(m) -> Dict[str, float]:
 def window_ops(m, tokens: int, ctx_sum: int, sampled: int) -> float:
     """Model operations of ``tokens`` token passes whose contexts sum to
     ``ctx_sum`` positions, ``sampled`` of which went through the LM head
-    (``m`` a :class:`bench.model.ModelDesc`)."""
-    p = matmul_params(m)
+    (``m`` a :class:`bench.model.ModelDesc`, counted by its model module's
+    own ``matmul_params`` where it brings one)."""
+    p = (m.matmul_params or matmul_params)(m)
     attn = 4.0 * m.n_heads * m.head_dim * m.n_layers
     return 2.0 * p["body"] * tokens + attn * ctx_sum + 2.0 * p["head"] * sampled
